@@ -1,0 +1,537 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch / CUDA port on one NVIDIA GPU (an H100).
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from the sources in this checkout, holds
+each kernel against its plain PyTorch twin on the card, then drives the
+main path once at clinical CT size through the entry points a user calls:
+
+    read_dicoms -> Rigid.compute_intensity -> Rigid.create_image
+
+on two synthetic 128 x 512 x 512 CT series with a known 3 degree + 4 mm
+offset, and the cohort preprocess at the bench shape. Each phase prints
+one JSON line; any failure raises and exits non-zero. Near the end it
+prints the card's name and power limit (nvidia-smi) and a JSON line with
+every kernel's launches, error and times; the last line is
+
+    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
+
+It needs a CUDA card and the rest of the repository: without either it
+exits non-zero before printing any result. It imports torch, numpy,
+scipy and the port; nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+SHAPE = (128, 512, 512)          # one clinical CT series (z, y, x)
+SPACING = [0.8, 0.8, 2.0]        # [sx, sy, sz] mm
+ROT_DEG = 3.0                    # known rotation about the volume's z axis
+SHIFT_MM = 4.0                   # known origin shift of the moving series
+RIGID_LEVELS = ((4, 60, 0.3), (2, 40, 0.1), (1, 25, 0.03))  # the default
+SEED = 20261016
+REF_UID = "1.2.826.0.1.3680043.10.1016.1"
+MOV_UID = "1.2.826.0.1.3680043.10.1016.2"
+
+
+def emit(phase, **fields):
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def max_abs(a, b):
+    return float((a - b).abs().max())
+
+
+def cuda_ms(fn, reps=10, warmup=2):
+    """Mean device time of ``fn()`` over ``reps`` launches (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def profile_device(fn):
+    """Run ``fn()`` once under torch.profiler. Returns its wall ms, the
+    device events (kernels and copies) it issued, their summed device ms
+    and share of the wall time, the warp kernels among them and the
+    eight longest."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    warp = [e for e in events if "warp_kernel" in e.key]
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    return dict(profiled_wall_ms=wall_ms,
+                device_events=sum(e.count for e in events),
+                device_ms=device_ms, device_share=device_ms / wall_ms,
+                warp_kernels=sorted(e.key for e in warp),
+                warp_launches=sum(e.count for e in warp),
+                warp_ms=sum(e.self_device_time_total for e in warp) / 1e3,
+                top_ms=[[e.key[:90], e.self_device_time_total / 1e3]
+                        for e in top])
+
+
+def nvidia_smi():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+# ---------------------------------------------------------------------------
+def phase_device():
+    from medicalimageanalysis_torch.device import set_numerics
+
+    assert torch.cuda.is_available()
+    set_numerics()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+    smi = nvidia_smi()
+    emit("device", name=torch.cuda.get_device_name(0), nvidia_smi=smi,
+         torch=torch.__version__, cuda=torch.version.cuda,
+         count=torch.cuda.device_count())
+    return smi
+
+
+def phase_build():
+    from medicalimageanalysis_torch.ops._build import (build_warp_library,
+                                                       load_warp_library)
+    from medicalimageanalysis_torch.read.dicom import load_native_scanner
+
+    t0 = time.perf_counter()
+    path, ptxas = build_warp_library()
+    load_warp_library()
+    seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    assert load_native_scanner() is not None, "DICOM scanner did not build"
+    emit("build", seconds=seconds,
+         scanner_seconds=time.perf_counter() - t0,
+         library=os.path.relpath(path),
+         ptxas=[ln.strip() for ln in ptxas.splitlines()
+                if "registers" in ln or "spill" in ln])
+
+
+def smooth_warp(gen, shape, dev):
+    """A smooth random warp of the (Z, Y, X) grid with ~5 % of points
+    pushed outside, exact dim-1 edges, -0.0, NaN, +-inf and 1e30."""
+    Z, Y, X = shape
+    zz = torch.arange(Z, device=dev, dtype=torch.float32)[:, None, None]
+    yy = torch.arange(Y, device=dev, dtype=torch.float32)[None, :, None]
+    xx = torch.arange(X, device=dev, dtype=torch.float32)[None, None, :]
+    a = torch.rand(6, generator=gen, device=dev) * 6.28
+    cz = zz + 1.5 * torch.sin(xx / 41 + a[0]) * torch.cos(yy / 53 + a[1])
+    cy = yy + 3.0 * torch.sin(zz / 17 + a[2]) + 0.01 * xx
+    cx = xx - 4.0 * torch.cos(yy / 29 + a[3]) + 0.02 * zz
+    out = torch.rand(shape, generator=gen, device=dev) < 0.05
+    cz[out] = cz[out] + Z * torch.sign(torch.randn(
+        int(out.sum()), generator=gen, device=dev))
+    special = torch.tensor([0.0, -0.0, float("nan"), float("inf"),
+                            -float("inf"), 1e30, -1e30], device=dev)
+    n = special.numel()
+    for c, hi in ((cz, Z - 1), (cy, Y - 1), (cx, X - 1)):
+        flat = c.view(-1)
+        pick = torch.randint(0, flat.numel(), (64,), generator=gen,
+                             device=dev)
+        flat[pick[:n]] = special
+        flat[pick[n:n + 16]] = float(hi)            # exact far edge
+        flat[pick[n + 16:n + 32]] = 0.0             # exact near edge
+    return cz, cy, cx
+
+
+def pyramid_shapes():
+    """The (Z, Y, X) grids the registration samples on at strides 4, 2
+    and 1 (models/rigid_intensity._downsample on SHAPE)."""
+    return [tuple(max(n // s, 2) for n in SHAPE) for s in (4, 2, 1)]
+
+
+def phase_warp_coords(gen, dev):
+    """Kernel against plain version at every grid the main path gives the
+    kernel: B=1 with and without gradients at each pyramid level, and a
+    batch of two at full size."""
+    from medicalimageanalysis_torch.ops.warp import warp_coords_plain
+
+    op = torch.ops.mia_torch.warp_coords
+    bg = -3001.0
+    rows = {}
+    for shape in pyramid_shapes():
+        cz, cy, cx = smooth_warp(gen, shape, dev)
+        for B in ((1, 2) if shape == SHAPE else (1,)):
+            vol = torch.randn((B,) + shape, generator=gen, device=dev) * 500
+            for want in (False, True):
+                k = op(vol, cz, cy, cx, bg, want)
+                p = warp_coords_plain(vol, cz, cy, cx, bg, want)
+                torch.cuda.synchronize()
+                errs = [max_abs(a, b) for a, b in zip(k, p)]
+                key = "x".join(map(str, shape)) + f"_B{B}_grad{int(want)}"
+                assert all(torch.isfinite(t).all() for t in k)
+                assert errs == [0.0] * len(errs), \
+                    f"warp_coords {key}: kernel != plain {errs}"
+                ms = cuda_ms(lambda: op(vol, cz, cy, cx, bg, want))
+                plain_ms = cuda_ms(
+                    lambda: warp_coords_plain(vol, cz, cy, cx, bg, want),
+                    reps=3, warmup=1)
+                rows[key] = dict(max_abs_err=errs, ms=ms, plain_ms=plain_ms)
+            del vol, k, p
+        del cz, cy, cx
+    emit("warp_coords", tolerance=0.0, **rows)
+    torch.cuda.empty_cache()
+    # the registration's finest-level call
+    main = rows["x".join(map(str, SHAPE)) + "_B1_grad1"]
+    return dict(max_abs_err=max(max(r["max_abs_err"]) for r in rows.values()),
+                ms=main["ms"], plain_ms=main["plain_ms"])
+
+
+def affine_cases():
+    """Output-pixel -> input-pixel maps on SHAPE (x, y, z order)."""
+    Z, Y, X = SHAPE
+    c = np.array([(X - 1) / 2, (Y - 1) / 2, (Z - 1) / 2])
+
+    def about_center(R, t=(0.0, 0.0, 0.0)):
+        A = np.eye(4)
+        A[:3, :3] = R
+        A[:3, 3] = c + np.asarray(t) - R @ c
+        return A.astype(np.float32)
+
+    def rz(deg):
+        th = np.deg2rad(deg)
+        return np.array([[np.cos(th), -np.sin(th), 0],
+                         [np.sin(th), np.cos(th), 0], [0, 0, 1]])
+
+    return {"near_identity": about_center(rz(0.7), (0.31, -0.47, 0.23)),
+            "relabel_90": about_center(rz(90.0)),
+            "oblique_45": about_center(rz(45.0), (0.5, 0.25, 0.0))}
+
+
+def phase_warp_affine(gen, dev):
+    from medicalimageanalysis_torch.ops.warp import warp_affine_plain
+
+    op = torch.ops.mia_torch.warp_affine
+    vol = torch.randn((1,) + SHAPE, generator=gen, device=dev) * 500
+    rows = {}
+    for name, A in affine_cases().items():
+        coef = [float(v) for v in A[:3].reshape(-1)]
+        k = op(vol, coef, list(SHAPE), -3001.0)
+        p = warp_affine_plain(vol, coef, SHAPE, -3001.0)
+        torch.cuda.synchronize()
+        err = max_abs(k, p)
+        assert err == 0.0, f"warp_affine {name}: kernel != plain ({err})"
+        rows[name] = dict(
+            max_abs_err=err, background_share=float((k == -3001.0).float()
+                                                     .mean()),
+            ms=cuda_ms(lambda: op(vol, coef, list(SHAPE), -3001.0)),
+            plain_ms=cuda_ms(lambda: warp_affine_plain(vol, coef, SHAPE,
+                                                       -3001.0),
+                             reps=3, warmup=1))
+    emit("warp_affine", shape=list(SHAPE), tolerance=0.0, **rows)
+    del vol
+    torch.cuda.empty_cache()
+    main = rows["near_identity"]
+    return dict(max_abs_err=max(r["max_abs_err"] for r in rows.values()),
+                ms=main["ms"], plain_ms=main["plain_ms"])
+
+
+# ---------------------------------------------------------------------------
+def phantom(gen):
+    """A CT-like phantom in HU: an off-centre body ellipsoid with lungs,
+    spine and a few soft-tissue blobs, plus noise from ``gen``."""
+    Z, Y, X = SHAPE
+    z = torch.linspace(-1, 1, Z)[:, None, None]
+    y = torch.linspace(-1, 1, Y)[None, :, None]
+    x = torch.linspace(-1, 1, X)[None, None, :]
+
+    def ell(cz, cy, cx, rz, ry, rx):
+        return ((z - cz) / rz) ** 2 + ((y - cy) / ry) ** 2 \
+            + ((x - cx) / rx) ** 2 <= 1
+
+    vol = torch.full(SHAPE, -1000.0)
+    vol[ell(0.0, 0.05, 0.02, 1.2, 0.62, 0.8)] = 40.0
+    vol[ell(0.1, -0.05, -0.33, 0.8, 0.35, 0.25)] = -820.0
+    vol[ell(0.05, -0.08, 0.36, 0.7, 0.33, 0.22)] = -780.0
+    vol[ell(0.0, 0.45, 0.0, 1.3, 0.09, 0.08)] = 700.0
+    vol[ell(-0.3, 0.1, 0.15, 0.25, 0.15, 0.12)] = 120.0
+    vol[ell(0.4, 0.2, -0.1, 0.2, 0.1, 0.18)] = -90.0
+    vol += 20.0 * torch.randn(SHAPE, generator=gen)
+    return vol.round().clamp(-1024, 3071).to(torch.int16).numpy()
+
+
+def ground_truth(ref_origin, mov_origin, zyx_matrix, zyx_offset):
+    """The reference -> moving physical 4x4 that Rigid.matrix should hold
+    for mov[o] = ref[Rm @ o + off] (scipy, zyx pixels)."""
+    S = np.diag(SPACING)
+    R = zyx_matrix[::-1, ::-1]                 # zyx -> xyz
+    off = zyx_offset[::-1]
+    A = np.eye(4)                              # moving physical -> ref
+    A[:3, :3] = S @ R @ np.linalg.inv(S)
+    A[:3, 3] = ref_origin + S @ off - A[:3, :3] @ mov_origin
+    return np.linalg.inv(A)
+
+
+def write_pair(gen, folder):
+    from scipy import ndimage
+    from scipy.spatial.transform import Rotation
+
+    from medicalimageanalysis_torch.utils.creation import CreateDicomImage
+
+    ref = phantom(gen)
+    th = np.deg2rad(ROT_DEG)
+    Rm = np.array([[1, 0, 0], [0, np.cos(th), -np.sin(th)],
+                   [0, np.sin(th), np.cos(th)]])     # zyx: about the z axis
+    center = (np.asarray(SHAPE) - 1) / 2
+    off = center - Rm @ center
+    mov = ndimage.affine_transform(ref.astype(np.float32), Rm, offset=off,
+                                   order=1, mode="nearest")
+    mov = np.round(mov).astype(np.int16)
+    ref_origin = np.array([-204.4, -210.0, -128.0])
+    mov_origin = ref_origin + np.array([SHIFT_MM, 0.0, 0.0])
+    for name, arr, origin, uid in (("ref", ref, ref_origin, REF_UID),
+                                   ("mov", mov, mov_origin, MOV_UID)):
+        CreateDicomImage(os.path.join(folder, name), arr, series=uid,
+                         origin=list(origin), spacing=SPACING[:2],
+                         thickness=SPACING[2]).run(patient_id="SMOKE")
+    truth = ground_truth(ref_origin, mov_origin, Rm, off)
+    angle = Rotation.from_matrix(truth[:3, :3]).magnitude()
+    assert abs(np.rad2deg(angle) - ROT_DEG) < 1e-6
+    return truth
+
+
+def phase_ingest(folder, dev):
+    import medicalimageanalysis_torch as mia
+    from medicalimageanalysis_torch.data import Data
+
+    t0 = time.perf_counter()
+    mia.read_dicoms(folder_path=folder, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    plain = {Data.image[n].series_uid: Data.image[n].array
+             for n in Data.image_list}
+    t0 = time.perf_counter()
+    reader = mia.read_dicoms(folder_path=folder, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    names = {}
+    for n in Data.image_list:
+        img = Data.image[n]
+        assert img.array.shape == SHAPE and img.array.dtype == np.int16
+        assert np.array_equal(img.array, plain[img.series_uid]), \
+            f"{n}: card assembly != CPU assembly"
+        names["ref" if img.series_uid == REF_UID else "mov"] = n
+    assert len(names) == 2, reader.report.summary()
+    emit("ingest", series=2, slices=2 * SHAPE[0], seconds=seconds,
+         series_per_s=2 / seconds, cpu_seconds=cpu_s,
+         assembly_equal=True, report=reader.report.summary())
+    return names
+
+
+def registration_error(rigid, truth):
+    """(centre error mm, worst corner error mm, angle error deg) of the
+    fitted reference -> moving matrix against the known one."""
+    import medicalimageanalysis_torch as mia
+    from scipy.spatial.transform import Rotation
+
+    M = rigid.matrix
+    ref = mia.Data.image[rigid.reference_name]
+    Z, Y, X = SHAPE
+    points = [ref.compute_center()] + [
+        ref.compute_position([x, y, z]) for z in (0, Z - 1)
+        for y in (0, Y - 1) for x in (0, X - 1)]
+    errs = [float(np.linalg.norm((M @ np.append(p, 1.0))[:3]
+                                 - (truth @ np.append(p, 1.0))[:3]))
+            for p in points]
+    angle = float(np.rad2deg(Rotation.from_matrix(
+        M[:3, :3].T @ truth[:3, :3]).magnitude()))
+    return errs[0], max(errs[1:]), angle
+
+
+def phase_rigid(names, truth):
+    """The default three-level registration, run twice: the first call
+    pays cuBLAS and allocator set-up, the second is the steady cost.
+    ``wall_ms`` is the whole call; ``prep_ms`` its host-side work before
+    the descent (cast, percentile, quantise, upload); ``ms_per_level``
+    the descent alone."""
+    import medicalimageanalysis_torch as mia
+
+    rigid = mia.Rigid(names["ref"], names["mov"])
+    steps = [s for _, s, _ in RIGID_LEVELS]
+    rows = {}
+    for run in ("cold", "warm"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        info = rigid.compute_intensity()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        assert [len(ls) for ls in info["losses"]] == steps
+        ms_level = [1e3 * s for s in info["level_seconds"]]
+        center_err, corner_err, angle_err = registration_error(rigid, truth)
+        final = [float(ls[-1]) for ls in info["losses"]]
+        assert all(np.isfinite(final))
+        assert center_err <= 0.5 and angle_err <= 0.3, \
+            f"registration missed: {center_err:.3f} mm, {angle_err:.3f} deg"
+        rows[run] = dict(wall_ms=wall_ms,
+                         prep_ms={k: 1e3 * s
+                                  for k, s in info["prep_seconds"].items()},
+                         ms_per_level=ms_level,
+                         ms_per_step=[m / n for m, n in zip(ms_level, steps)],
+                         final_loss_per_level=final,
+                         center_err_mm=center_err, corner_err_mm=corner_err,
+                         angle_err_deg=angle_err)
+    emit("rigid", limit_mm=0.5, limit_deg=0.3, **rows)
+    return rigid, rows["warm"]
+
+
+def phase_reslice(rigid, dev):
+    from medicalimageanalysis_torch.data import Data
+    from medicalimageanalysis_torch.ops.resample import reslice_grid
+    from medicalimageanalysis_torch.ops.warp import warp_affine_plain
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = rigid.create_image()
+    seconds = time.perf_counter() - t0
+    mov = Data.image[rigid.moving_name]
+    ref = Data.image[rigid.reference_name]
+    A, shape, lo, _ = reslice_grid(mov.array.shape, mov.matrix, mov.spacing,
+                                   mov.origin, rigid.matrix, ref.spacing)
+    vol = torch.as_tensor(mov.array, device=dev).to(torch.float32)[None]
+    plain = warp_affine_plain(vol, [float(v) for v in A[:3].reshape(-1)],
+                              shape, -3001.0)[0].cpu().numpy()
+    arr = out["array"]
+    assert arr.shape == shape and np.isfinite(arr).all()
+    assert np.array_equal(arr, plain), "create_image != plain reslice"
+    assert np.allclose(out["origin"], lo)
+    inside = float((arr != -3001.0).mean())
+    assert inside > 0.8, f"reslice is mostly background ({inside})"
+    emit("reslice", ms=1e3 * seconds, out_shape=list(shape),
+         equal_to_plain=True, inside_share=inside)
+
+
+def phase_preprocess(gen, dev):
+    from medicalimageanalysis_torch.ops.filters import _gauss_kernel_matrix
+    from medicalimageanalysis_torch.parallel.batch import make_preprocess_fn
+
+    B, in_shape, out_shape = 8, (40, 256, 256), (40, 128, 128)
+    # smooth structure around the -250 HU threshold plus noise, so the
+    # mask has edges everywhere
+    z, y, x = (torch.arange(n, dtype=torch.float32) for n in in_shape)
+    field = 800.0 * torch.sin(x / 9.0)[None, None, :] \
+        * torch.cos(y / 13.0)[None, :, None] \
+        * torch.cos(z / 7.0)[:, None, None] - 226.0
+    raw = (field + 60.0 * torch.randn((B,) + in_shape, generator=gen)
+           ).round().to(torch.int16)
+    slope = torch.ones(B)
+    intercept = torch.full((B,), -24.0)
+    fn_dev = make_preprocess_fn(in_shape, out_shape, device=dev)
+    fn_cpu = make_preprocess_fn(in_shape, out_shape, device="cpu")
+    rd, sd, idv = raw.to(dev), slope.to(dev), intercept.to(dev)
+    vd, md = fn_dev(rd, sd, idv)
+    vc, mc = fn_cpu(raw, slope, intercept)
+    vd, md = vd.cpu(), md.cpu()
+    # rtol 1e-5 on HU values; the atol covers the zero crossings, where
+    # a relative bound means nothing (cuBLAS sums in another order)
+    atol = 1e-5 * float(vc.abs().max())
+    assert torch.allclose(vd, vc, rtol=1e-5, atol=atol)
+    # masks: identical except at voxels whose blurred value sits within
+    # 1e-3 HU of the -250 threshold, where the sum order may flip them
+    blurred = vc
+    for eq, n in (("ij,bjyx->biyx", out_shape[0]),
+                  ("kj,bzjx->bzkx", out_shape[1]),
+                  ("lj,bzyj->bzyl", out_shape[2])):
+        blurred = torch.einsum(eq, torch.as_tensor(
+            _gauss_kernel_matrix(n, 1.0)), blurred)
+    near = (blurred + 250.0).abs() <= 1e-3
+    differ = md != mc
+    n_differ, n_near = int(differ.sum()), int(near.sum())
+    assert not (differ & ~near).any(), "mask differs away from threshold"
+    assert n_differ <= n_near
+    us = 1e3 * cuda_ms(lambda: fn_dev(rd, sd, idv), reps=10) / B
+    emit("preprocess", batch=B, in_shape=list(in_shape),
+         out_shape=list(out_shape), us_per_series=us,
+         max_abs_err=float((vd - vc).abs().max()), atol=atol,
+         mask_voxels_differ=n_differ, mask_voxels_near_threshold=n_near)
+
+
+# ---------------------------------------------------------------------------
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the "
+              "card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from medicalimageanalysis_torch.ops import warp
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    cpu_gen = torch.Generator().manual_seed(SEED)
+
+    smi = phase_device()
+    phase_build()
+    kernels = {"warp_coords": phase_warp_coords(gen, dev),
+               "warp_affine": phase_warp_affine(gen, dev)}
+
+    with tempfile.TemporaryDirectory(prefix="mia_smoke_") as folder:
+        truth = write_pair(cpu_gen, folder)
+        for key in warp.LAUNCHES:          # the main path starts here
+            warp.LAUNCHES[key] = 0
+        names = phase_ingest(folder, dev)
+        rigid, warm = phase_rigid(names, truth)
+        phase_reslice(rigid, dev)
+        launches = dict(warp.LAUNCHES)     # ... and ends here
+    assert all(launches.values()), f"a kernel never launched: {launches}"
+
+    # the same registration and reslice again, each under the profiler:
+    # the hand-written kernel, not a plain path, must be what ran on the
+    # card. The profiles also show where the time goes: device events per
+    # descent step, device time, and its share of the wall time.
+    profiles = {"rigid": profile_device(rigid.compute_intensity),
+                "reslice": profile_device(rigid.create_image)}
+    for name, p in profiles.items():
+        assert p["warp_kernels"], \
+            f"{name}: no warp kernel among the CUDA kernels {p['top_ms']}"
+    descent = profiles["rigid"]
+    descent["device_events_per_step"] = \
+        descent["device_events"] / sum(s for _, s, _ in RIGID_LEVELS)
+    # against the unprofiled warm call and its descent
+    descent["device_share_of_warm_call"] = \
+        descent["device_ms"] / warm["wall_ms"]
+    descent["device_share_of_warm_descent"] = \
+        descent["device_ms"] / sum(warm["ms_per_level"])
+    emit("kernel_ran", launches=launches, **profiles)
+    phase_preprocess(cpu_gen, dev)
+    assert "jax" not in sys.modules
+
+    rows = [{"name": name, "route": "cuda",
+             "source": "medicalimageanalysis_torch/csrc/warp.cu",
+             "replaces": "medicalimageanalysis_tpu/ops/pallas_warp.py:181",
+             "launches": launches[name], **kernels[name]}
+            for name in ("warp_coords", "warp_affine")]
+    print(smi, flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

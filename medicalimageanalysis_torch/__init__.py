@@ -1,0 +1,39 @@
+"""medicalimageanalysis_torch — the PyTorch / CUDA port for one NVIDIA H100.
+
+Carried over from medicalimageanalysis_tpu/__init__.py. The package mirrors
+the JAX package's layout and names; this slice covers the main path
+
+    import medicalimageanalysis_torch as mia
+    mia.read_dicoms(folder_path=...)              # host parse + device assembly
+    rigid = mia.Rigid("CT 01", "CT 02")
+    rigid.compute_intensity()                     # CUDA warp kernel, coords mode
+    rigid.create_image()                          # CUDA warp kernel, affine mode
+
+The package imports ``torch`` and never ``jax``; of the JAX package it uses
+only the jax-free host modules ``medicalimageanalysis_tpu.dicom`` and
+``medicalimageanalysis_tpu.native``.
+"""
+
+__version__ = "0.1.0"
+
+from .data import Data
+
+__all__ = ["Data", "Image", "Rigid", "read_dicoms", "__version__"]
+
+
+def __getattr__(name):
+    # lazy exports keep `import medicalimageanalysis_torch` free of torch
+    # until a compute path is touched
+    if name in ("read_dicoms", "file_parser"):
+        from . import reader
+        return getattr(reader, name)
+    if name == "DicomReader":
+        from .read.dicom import DicomReader
+        return DicomReader
+    if name == "Image":
+        from .structure.image import Image
+        return Image
+    if name == "Rigid":
+        from .structure.rigid import Rigid
+        return Rigid
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,0 +1,67 @@
+"""State carried across packages: images and registrations.
+
+The system has no learned weights; its state is the registry — image
+arrays with their geometry, and registration matrices. These helpers
+build port objects from plain numpy values, so the JAX package and the
+port can compute on identical state. Nothing here imports the JAX package.
+"""
+
+from __future__ import annotations
+
+from types import SimpleNamespace
+
+import numpy as np
+
+from .data import Data
+
+__all__ = ["image_from_arrays", "import_image", "rigid_from_matrix"]
+
+
+def image_from_arrays(array, spacing, origin, matrix, modality, name,
+                      tags=None):
+    """Build and register a port ``Image`` from numpy values.
+
+    array (Z, Y, X); spacing [sx, sy, sz] mm; origin (3,) mm; matrix 3x3
+    with rows the +x/+y/+z pixel directions; ``tags`` an optional list of
+    per-slice datasets (metadata falls back to the getters' sentinels)."""
+    from medicalimageanalysis_tpu.dicom import Dataset
+
+    from .structure.image import Image
+
+    array = np.asarray(array)
+    matrix = np.asarray(matrix, dtype=np.float64)
+    builder = SimpleNamespace(
+        image_set=list(tags) if tags else [Dataset()],
+        array=array, image_name=name, modality=modality,
+        filepaths=None, sops=[], plane="Axial",
+        spacing=np.asarray(spacing, dtype=np.float64),
+        dimensions=np.asarray(array.shape),
+        orientation=np.concatenate([matrix[0], matrix[1]]),
+        origin=np.asarray(origin, dtype=np.float64), image_matrix=matrix,
+        unverified=None, skipped_slice=[], rgb=False)
+    image = Image(builder)
+    if name not in Data.image:
+        Data.image_list.append(name)
+    Data.image[name] = image
+    return image
+
+
+def import_image(obj):
+    """Register a port copy of any object with .array/.spacing/.origin/
+    .matrix/.modality/.image_name (a JAX-package Image, for one), by
+    duck typing."""
+    image = image_from_arrays(np.asarray(obj.array), obj.spacing, obj.origin,
+                              obj.matrix, obj.modality, obj.image_name,
+                              tags=getattr(obj, "tags", None))
+    for key in ("plane", "dimensions", "orientation"):
+        if hasattr(obj, key):
+            setattr(image, key, getattr(obj, key))
+    return image
+
+
+def rigid_from_matrix(ref_name, mov_name, matrix, device=None):
+    """Register a port ``Rigid`` holding a known reference -> moving 4x4."""
+    from .structure.rigid import Rigid
+
+    return Rigid(ref_name, mov_name,
+                 matrix=np.asarray(matrix, dtype=np.float64), device=device)

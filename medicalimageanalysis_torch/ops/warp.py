@@ -1,0 +1,286 @@
+"""Exact trilinear warp: a hand-written CUDA kernel and its plain twin.
+
+Port of medicalimageanalysis_tpu/ops/pallas_warp.py. The TPU kernel
+(``_warp_kernel``) becomes csrc/warp.cu in two of its modes:
+
+- ``coords``: sample B volumes at absolute (cz, cy, cx) voxel coordinates,
+  optionally with the exact coordinate gradients from the same taps
+  (registration);
+- ``affine``: the coordinates come from 12 coefficients over the output
+  index, inside the kernel (reslice).
+
+Both are registered as PyTorch operators, ``torch.ops.mia_torch.
+warp_coords`` and ``torch.ops.mia_torch.warp_affine``. The dispatcher
+picks the implementation by the tensors' device and nothing else: a CPU
+tensor runs the plain PyTorch twin (``warp_coords_plain`` /
+``warp_affine_plain``), a CUDA tensor launches the kernel or raises.
+
+Semantics (those of ops/resample._trilinear in the JAX package): taps
+clamp to the volume edge, samples outside ``[0, dim-1]`` take
+``background``, gradients are 0 there. The twin rounds every operation
+in the kernel's order, so the two are bit-equal on the card.
+
+The TPU kernel's slab/window machinery (``_pick_config``,
+``fits_warp_caps``, ``required_window``, the overflow counter) has no
+counterpart: the CUDA kernel reads global memory directly and serves
+every coordinate map.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+from torch import Tensor
+
+__all__ = ["LAUNCHES", "affine_coords", "affine_warp_fused", "field_warp",
+           "make_warp_sampler", "warp_affine_plain", "warp_coords_plain"]
+
+# Kernel launches per operator; a run reads them to show that its main
+# path went through the kernels. Only the CUDA implementations add to them.
+LAUNCHES = {"warp_coords": 0, "warp_affine": 0}
+
+
+# ---------------------------------------------------------------------------
+# plain twin
+# ---------------------------------------------------------------------------
+def _sample_plain(vol, cz, cy, cx, background, want_grad):
+    """vol (B, Z, Y, X) f32; coordinates (any shape S) f32 ->
+    out (B, *S) [, gz, gy, gx (B, *S)], in the kernel's operation order."""
+    B, Z, Y, X = vol.shape
+    inside = ((cx >= 0) & (cx <= X - 1) & (cy >= 0) & (cy <= Y - 1)
+              & (cz >= 0) & (cz <= Z - 1))
+    x0f, y0f, z0f = torch.floor(cx), torch.floor(cy), torch.floor(cz)
+    fx, fy, fz = cx - x0f, cy - y0f, cz - z0f
+    gfx, gfy, gfz = 1 - fx, 1 - fy, 1 - fz
+
+    def taps(f, hi):
+        # clamp in float before the cast: NaN -> 0, +-inf/1e30 -> edge
+        t0 = torch.nan_to_num(f, nan=0.0).clamp(0, hi).to(torch.int64)
+        return t0, torch.clamp(t0 + 1, max=hi)
+
+    x0, x1 = taps(x0f, X - 1)
+    y0, y1 = taps(y0f, Y - 1)
+    z0, z1 = taps(z0f, Z - 1)
+    flat = vol.reshape(B, -1)
+
+    def take(zi, yi, xi):
+        idx = ((zi * Y + yi) * X + xi).reshape(-1)
+        return flat.index_select(1, idx).reshape((B,) + tuple(cx.shape))
+
+    c000, c001 = take(z0, y0, x0), take(z0, y0, x1)
+    c010, c011 = take(z0, y1, x0), take(z0, y1, x1)
+    c100, c101 = take(z1, y0, x0), take(z1, y0, x1)
+    c110, c111 = take(z1, y1, x0), take(z1, y1, x1)
+    c00 = c000 * gfx + c001 * fx
+    c01 = c010 * gfx + c011 * fx
+    c10 = c100 * gfx + c101 * fx
+    c11 = c110 * gfx + c111 * fx
+    c0 = c00 * gfy + c01 * fy
+    c1 = c10 * gfy + c11 * fy
+    bg = torch.tensor(background, dtype=torch.float32, device=vol.device)
+    out = torch.where(inside, c0 * gfz + c1 * fz, bg)
+    if not want_grad:
+        return [out]
+    zero = torch.zeros((), dtype=torch.float32, device=vol.device)
+    gx = ((c001 - c000) * gfy + (c011 - c010) * fy) * gfz \
+        + ((c101 - c100) * gfy + (c111 - c110) * fy) * fz
+    gy = (c01 - c00) * gfz + (c11 - c10) * fz
+    gz = c1 - c0
+    return [out, torch.where(inside, gz, zero), torch.where(inside, gy, zero),
+            torch.where(inside, gx, zero)]
+
+
+def warp_coords_plain(vol, cz, cy, cx, background=0.0, want_grad=False):
+    """Plain PyTorch ``coords`` mode: vol (B, Z, Y, X) f32, coordinates
+    (Zo, Yo, Xo) f32 -> [out] or [out, gz, gy, gx], each (B, Zo, Yo, Xo)."""
+    return _sample_plain(vol, cz, cy, cx, float(background), want_grad)
+
+
+def warp_affine_plain(vol, coef, out_shape, background=0.0):
+    """Plain PyTorch ``affine`` mode: vol (B, Z, Y, X) f32, 12 row-major
+    coefficients of the output (x, y, z, 1) -> input (x, y, z) pixel map
+    -> (B, Zo, Yo, Xo)."""
+    A = torch.tensor(coef, dtype=torch.float32, device=vol.device)
+    cz, cy, cx = affine_coords(A.reshape(3, 4), out_shape)
+    return _sample_plain(vol, cz, cy, cx, float(background), False)[0]
+
+
+# ---------------------------------------------------------------------------
+# operators: plain twin on the CPU, the CUDA kernel on the card
+# ---------------------------------------------------------------------------
+@torch.library.custom_op("mia_torch::warp_coords", mutates_args=(),
+                         device_types="cpu")
+def _warp_coords_op(vol: Tensor, cz: Tensor, cy: Tensor, cx: Tensor,
+                    background: float, want_grad: bool) -> list[Tensor]:
+    return warp_coords_plain(vol, cz, cy, cx, background, want_grad)
+
+
+@torch.library.custom_op("mia_torch::warp_affine", mutates_args=(),
+                         device_types="cpu")
+def _warp_affine_op(vol: Tensor, coef: list[float], out_shape: list[int],
+                    background: float) -> Tensor:
+    return warp_affine_plain(vol, coef, out_shape, background)
+
+
+def _check_f32_cuda(name, t, device):
+    if t.device != device or t.dtype != torch.float32 \
+            or not t.is_contiguous():
+        raise ValueError(f"warp kernel: {name} must be a contiguous float32 "
+                         f"tensor on {device}, got {t.dtype} on {t.device} "
+                         f"(contiguous={t.is_contiguous()})")
+
+
+def _raise_on(err, what):
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+
+
+@_warp_coords_op.register_kernel("cuda")
+def _warp_coords_cuda(vol, cz, cy, cx, background, want_grad):
+    from ._build import load_warp_library
+
+    dev = vol.device
+    for name, t in (("vol", vol), ("cz", cz), ("cy", cy), ("cx", cx)):
+        _check_f32_cuda(name, t, dev)
+    if vol.dim() != 4 or cz.dim() != 3 or cy.shape != cz.shape \
+            or cx.shape != cz.shape:
+        raise ValueError("warp_coords: vol (B, Z, Y, X) and three equal "
+                         f"(Zo, Yo, Xo) coordinate tensors, got "
+                         f"{tuple(vol.shape)}, {tuple(cz.shape)}, "
+                         f"{tuple(cy.shape)}, {tuple(cx.shape)}")
+    lib = load_warp_library()
+    B, Z, Y, X = vol.shape
+    Zo, Yo, Xo = cz.shape
+    outs = [torch.empty((B, Zo, Yo, Xo), dtype=torch.float32, device=dev)
+            for _ in range(4 if want_grad else 1)]
+    ptr = [o.data_ptr() for o in outs] + [None] * (4 - len(outs))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.mia_warp_coords(
+            vol.data_ptr(), B, Z, Y, X, cz.data_ptr(), cy.data_ptr(),
+            cx.data_ptr(), Zo, Yo, Xo, float(background), ptr[0], ptr[1],
+            ptr[2], ptr[3], int(bool(want_grad)), stream)
+    _raise_on(err, "warp_coords")
+    LAUNCHES["warp_coords"] += 1
+    return outs
+
+
+@_warp_affine_op.register_kernel("cuda")
+def _warp_affine_cuda(vol, coef, out_shape, background):
+    from ._build import load_warp_library
+
+    dev = vol.device
+    _check_f32_cuda("vol", vol, dev)
+    if vol.dim() != 4 or len(coef) != 12 or len(out_shape) != 3:
+        raise ValueError("warp_affine: vol (B, Z, Y, X), 12 coefficients and "
+                         "a 3-d out_shape")
+    lib = load_warp_library()
+    B, Z, Y, X = vol.shape
+    Zo, Yo, Xo = (int(s) for s in out_shape)
+    out = torch.empty((B, Zo, Yo, Xo), dtype=torch.float32, device=dev)
+    c12 = (ctypes.c_float * 12)(*[float(v) for v in coef])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.mia_warp_affine(vol.data_ptr(), B, Z, Y, X, c12, Zo, Yo,
+                                  Xo, float(background), out.data_ptr(),
+                                  stream)
+    _raise_on(err, "warp_affine")
+    LAUNCHES["warp_affine"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# public surface (names of the JAX module)
+# ---------------------------------------------------------------------------
+def _as_batch(vol):
+    vol = torch.as_tensor(vol).to(torch.float32)
+    squeeze = vol.dim() == 3
+    return (vol[None] if squeeze else vol).contiguous(), squeeze
+
+
+def field_warp(vol, cz, cy, cx, background=0.0, want_grad=False):
+    """Trilinear-sample ``vol`` at absolute voxel coords (cz, cy, cx).
+
+    vol : (Z, Y, X) or (B, Z, Y, X) tensor (any real dtype)
+    cz, cy, cx : (Zo, Yo, Xo) sample coordinates in voxel units
+    Returns ``out`` or ``(out, (gz, gy, gx))``.
+    """
+    volb, squeeze = _as_batch(vol)
+    cz, cy, cx = (torch.as_tensor(c, dtype=torch.float32,
+                                  device=volb.device).contiguous()
+                  for c in (cz, cy, cx))
+    res = torch.ops.mia_torch.warp_coords(volb, cz, cy, cx,
+                                          float(background), want_grad)
+    if squeeze:
+        res = [r[0] for r in res]
+    if want_grad:
+        return res[0], tuple(res[1:])
+    return res[0]
+
+
+class _WarpSample(torch.autograd.Function):
+    """Exact trilinear sample whose coordinate gradient comes from the
+    forward kernel pass (no re-gather in the backward). Not
+    differentiable with respect to the volume."""
+
+    @staticmethod
+    def forward(ctx, volb, background, cz, cy, cx):
+        want = any(ctx.needs_input_grad[2:])
+        res = torch.ops.mia_torch.warp_coords(
+            volb, cz.contiguous(), cy.contiguous(), cx.contiguous(),
+            background, want)
+        if want:
+            ctx.save_for_backward(*res[1:])
+        return res[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        gz, gy, gx = ctx.saved_tensors
+        # coordinates are shared by the B volumes: the VJP sums over B
+        return (None, None, (g * gz).sum(0), (g * gy).sum(0),
+                (g * gx).sum(0))
+
+
+def make_warp_sampler(vol, background=0.0):
+    """Differentiable sampler ``sample(cz, cy, cx) -> out`` with the exact
+    analytic coordinate VJP computed by the warp kernel in the forward
+    pass. vol (Z, Y, X) gives (Zo, Yo, Xo) samples, (B, Z, Y, X) gives
+    (B, Zo, Yo, Xo)."""
+    volb, squeeze = _as_batch(vol)
+    bg = float(background)
+
+    def sample(cz, cy, cx):
+        out = _WarpSample.apply(volb, bg, cz, cy, cx)
+        return out[0] if squeeze else out
+
+    return sample
+
+
+def affine_coords(pixel_matrix, out_shape):
+    """(cz, cy, cx) for an (x,y,z)-ordered pixel matrix (its first three
+    rows) mapping output pixel (x, y, z, 1) -> input pixel, in the affine
+    kernel's f32 operation order ((c0*x + c1*y) + c2*z) + c3, each a
+    contiguous (Zo, Yo, Xo) tensor. Differentiable in the matrix."""
+    A = pixel_matrix
+    Zo, Yo, Xo = (int(s) for s in out_shape)
+    opts = dict(dtype=torch.float32, device=A.device)
+    zz = torch.arange(Zo, **opts)[:, None, None]
+    yy = torch.arange(Yo, **opts)[None, :, None]
+    xx = torch.arange(Xo, **opts)[None, None, :]
+    cx = A[0, 0] * xx + A[0, 1] * yy + A[0, 2] * zz + A[0, 3]
+    cy = A[1, 0] * xx + A[1, 1] * yy + A[1, 2] * zz + A[1, 3]
+    cz = A[2, 0] * xx + A[2, 1] * yy + A[2, 2] * zz + A[2, 3]
+    return cz, cy, cx
+
+
+def affine_warp_fused(volume, pixel_matrix, background, out_shape):
+    """One-launch affine resample: coordinates generated inside the kernel
+    from the 12 row-major coefficients of ``pixel_matrix`` (4x4, f32
+    values). volume (Z, Y, X) -> (Zo, Yo, Xo)."""
+    volb, _ = _as_batch(volume)
+    A = torch.as_tensor(pixel_matrix, dtype=torch.float32).cpu()
+    coef = [float(v) for v in A[:3, :].reshape(12)]
+    out = torch.ops.mia_torch.warp_affine(
+        volb, coef, [int(s) for s in out_shape], float(background))
+    return out[0]

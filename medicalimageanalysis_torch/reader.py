@@ -1,0 +1,169 @@
+"""Top-level IO orchestration: file parsing and the DICOM entry point.
+
+Carried over from medicalimageanalysis_tpu/reader.py (``file_parser``,
+``read_dicoms`` with the zip and no-extension handling). ``check_memory``
+needs psutil, which the port does not import; the mesh/MHD/NIfTI readers
+wait for later slices.
+"""
+
+from __future__ import annotations
+
+import os
+import zipfile
+from pathlib import Path
+
+__all__ = ["file_parser", "read_dicoms"]
+
+
+def file_parser(folder_path=None, file_list=None, exclude_files=None):
+    """Recursive extension bucketing (reference reader.py:111-227).
+
+    Returns dict with keys Dicom/MHD/Raw/Nifti/Stl/Vtk/Ply/Obj/3mf/Zip/
+    NoExtension. ``file_list`` overrides ``folder_path``;
+    ``exclude_files`` honored.
+    """
+    files = {
+        "Dicom": [],
+        "MHD": [],
+        "Raw": [],
+        "Nifti": [],
+        "Stl": [],
+        "Vtk": [],
+        "Ply": [],
+        "Obj": [],
+        "3mf": [],
+        "Zip": [],
+        "NoExtension": [],
+    }
+
+    exclude_files = exclude_files or []
+
+    if file_list is None:
+        file_list = []
+        for root, _, filenames in os.walk(folder_path):
+            file_list.extend(str(Path(root) / fn) for fn in filenames)
+
+    for filepath in file_list:
+        if filepath in exclude_files:
+            continue
+        extension = Path(filepath).suffix.lower()
+        if extension == ".dcm":
+            files["Dicom"].append(filepath)
+        elif extension == ".mhd":
+            files["MHD"].append(filepath)
+        elif extension == ".raw":
+            files["Raw"].append(filepath)
+        elif filepath.lower().endswith(".nii.gz"):
+            files["Nifti"].append(filepath)
+        elif extension == ".stl":
+            files["Stl"].append(filepath)
+        elif extension == ".vtk":
+            files["Vtk"].append(filepath)
+        elif extension == ".ply":
+            files["Ply"].append(filepath)
+        elif extension == ".obj":
+            files["Obj"].append(filepath)
+        elif extension == ".3mf":
+            files["3mf"].append(filepath)
+        elif extension == ".zip":
+            files["Zip"].append(filepath)
+        elif extension == "":
+            files["NoExtension"].append(filepath)
+
+    return files
+
+
+_ZIP_CACHE = {}
+
+
+def _expand_zip(path):
+    """Extract a .zip archive into a temp dir and return it (zip-slip
+    members — absolute or '..' paths — skipped). Extractions are cached
+    per (path, mtime, size) and removed at interpreter exit."""
+    import atexit
+    import shutil
+    import tempfile
+
+    st = os.stat(str(path))
+    key = (os.path.abspath(str(path)), st.st_mtime_ns, st.st_size)
+    cached = _ZIP_CACHE.get(key)
+    if cached is not None and os.path.isdir(cached):
+        return cached
+
+    out = tempfile.mkdtemp(prefix="mia_zip_")
+    if not _ZIP_CACHE:
+        atexit.register(
+            lambda: [shutil.rmtree(d, ignore_errors=True)
+                     for d in _ZIP_CACHE.values()])
+    with zipfile.ZipFile(str(path)) as z:
+        for m in z.namelist():
+            p = Path(m)
+            if p.is_absolute() or ".." in p.parts:
+                continue
+            z.extract(m, out)
+    _ZIP_CACHE[key] = out
+    return out
+
+
+def read_dicoms(folder_path=None, file_list=None, exclude_files=None,
+                only_tags=False, only_modality=None,
+                only_load_roi_names=None, clear=True,
+                include_no_extension=True, device=None):
+    """Load DICOM files into the port's Data registry.
+
+    ``include_no_extension`` sniffs extension-less files for the DICM
+    magic. ``folder_path`` may be a .zip archive, .zip entries in
+    ``file_list`` are expanded, and .zip archives found inside a walked
+    folder are expanded in place (corrupt archives are skipped).
+    ``device`` is where the volumes are assembled (default: the card when
+    present)."""
+    from .read.dicom import DicomReader
+
+    if only_modality is None:
+        only_modality = ["CT", "MR", "PT", "NM", "US", "DX", "RF", "CR",
+                         "MG", "XA", "SEG", "RTSTRUCT", "REG", "RTDOSE",
+                         "RTPLAN"]
+
+    if folder_path is not None \
+            and str(folder_path).lower().endswith(".zip") \
+            and os.path.isfile(str(folder_path)):
+        folder_path = _expand_zip(folder_path)
+    if file_list is not None:
+        expanded = []
+        for f in file_list:
+            if str(f).lower().endswith(".zip") \
+                    and os.path.isfile(str(f)):
+                root = _expand_zip(f)
+                for r, _, names in os.walk(root):
+                    expanded.extend(str(Path(r) / n) for n in names)
+            else:
+                expanded.append(f)
+        file_list = expanded
+
+    files = None
+    if folder_path is not None or file_list is not None:
+        files = file_parser(folder_path=folder_path, file_list=file_list,
+                            exclude_files=exclude_files)
+        for zpath in files.get("Zip", ()):
+            try:
+                zroot = _expand_zip(zpath)
+            except (OSError, zipfile.BadZipFile):
+                continue  # corrupt archive: skip, like unparseable files
+            sub = file_parser(folder_path=zroot)
+            for key, vals in sub.items():
+                if key != "Zip":  # no nested-zip recursion
+                    files[key].extend(vals)
+        if include_no_extension:
+            for path in files["NoExtension"]:
+                try:
+                    with open(path, "rb") as f:
+                        f.seek(128)
+                        if f.read(4) == b"DICM":
+                            files["Dicom"].append(path)
+                except OSError:
+                    pass
+
+    dicom_reader = DicomReader(files, only_tags, only_modality,
+                               only_load_roi_names, clear, device=device)
+    dicom_reader.load()
+    return dicom_reader
