@@ -5,12 +5,20 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each kernel against its plain PyTorch twin on the card, then drives the
-main path once at clinical CT size through the entry points a user calls:
+port's two paths once at clinical CT size through the entry points a user
+calls:
 
     read_dicoms -> Rigid.compute_intensity -> Rigid.create_image
 
 on two synthetic 128 x 512 x 512 CT series with a known 3 degree + 4 mm
-offset, and the cohort preprocess at the bench shape. Each phase prints
+offset, and
+
+    read_dicoms -> Deformable.compute_demons -> create_image
+                -> compute_jacobian;  Deformable.compute_bspline
+
+on a third series, the reference warped by a known smooth field (plus SyN
+with LNCC forces and diffeomorphic demons on a reduced pair), and the
+cohort preprocess at the bench shape. Each phase prints
 one JSON line; any failure raises and exits non-zero. Near the end it
 prints the card's name and power limit (nvidia-smi) and a JSON line with
 every kernel's launches, error and times; the last line is
@@ -33,6 +41,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 SHAPE = (128, 512, 512)          # one clinical CT series (z, y, x)
 SPACING = [0.8, 0.8, 2.0]        # [sx, sy, sz] mm
@@ -42,6 +51,18 @@ RIGID_LEVELS = ((4, 60, 0.3), (2, 40, 0.1), (1, 25, 0.03))  # the default
 SEED = 20261016
 REF_UID = "1.2.826.0.1.3680043.10.1016.1"
 MOV_UID = "1.2.826.0.1.3680043.10.1016.2"
+DEF_UID = "1.2.826.0.1.3680043.10.1016.3"
+REF_ORIGIN = [-204.4, -210.0, -128.0]
+BUMP_MM = 4.0                    # known deformation: peak in x and in y
+BUMP_SIGMA_MM = 60.0             # ... a Gaussian bump centred in the body
+DEMONS_PYRAMID = (4, 2, 1)
+# demons bounds (PERF.md §6): the residual ratio; its excess over the
+# ratio the known field itself reaches through the same create_image
+# (the floor the phantom's noise sets, printed beside it); the field's
+# p95 error against the known field
+RESIDUAL_LIMIT = 0.5
+FLOOR_EXCESS = 1.1
+FIELD_P95_LIMIT_MM = 0.5
 
 
 def emit(phase, **fields):
@@ -92,6 +113,11 @@ def profile_device(fn):
                 warp_ms=sum(e.self_device_time_total for e in warp) / 1e3,
                 top_ms=[[e.key[:90], e.self_device_time_total / 1e3]
                         for e in top])
+
+
+def sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def nvidia_smi():
@@ -254,10 +280,108 @@ def phase_warp_affine(gen, dev):
                 ms=main["ms"], plain_ms=main["plain_ms"])
 
 
+def smooth_disp(gen, shape, dev, special=False):
+    """A smooth planar (3, Z, Y, X) voxel field, rows (x, y, z), with ~5 %
+    of samples pushed outside; with ``special`` also NaN, +-inf, +-1e30,
+    -0.0 and displacements landing exactly on the near and far edges."""
+    Z, Y, X = shape
+    zz = torch.arange(Z, device=dev, dtype=torch.float32)[:, None, None]
+    yy = torch.arange(Y, device=dev, dtype=torch.float32)[None, :, None]
+    xx = torch.arange(X, device=dev, dtype=torch.float32)[None, None, :]
+    a = torch.rand(4, generator=gen, device=dev) * 6.28
+    disp = torch.stack(torch.broadcast_tensors(
+        -4.0 * torch.cos(yy / 29 + a[0]) + 0.02 * zz,
+        3.0 * torch.sin(zz / 17 + a[1]) + 0.01 * xx,
+        1.5 * torch.sin(xx / 41 + a[2]) * torch.cos(yy / 53 + a[3]))) \
+        .contiguous()
+    out = torch.rand(shape, generator=gen, device=dev) < 0.05
+    disp[2][out] += Z * torch.sign(torch.randn(int(out.sum()), generator=gen,
+                                               device=dev))
+    if special:
+        values = torch.tensor([0.0, -0.0, float("nan"), float("inf"),
+                               -float("inf"), 1e30, -1e30], device=dev)
+        n = values.numel()
+        for row, (base, hi) in enumerate(((xx, X - 1), (yy, Y - 1),
+                                          (zz, Z - 1))):
+            flat = disp[row].view(-1)
+            at = base.expand(shape).reshape(-1)
+            pick = torch.randint(0, flat.numel(), (64,), generator=gen,
+                                 device=dev)
+            flat[pick[:n]] = values
+            far, near = pick[n:n + 16], pick[n + 16:n + 32]
+            flat[far] = hi - at[far]                  # lands on dim-1
+            flat[near] = -at[near]                    # lands on 0
+    return disp
+
+
+def phase_warp_disp(gen, dev):
+    """Kernel against plain version at the three pyramid grids, at every
+    batch the deformable path gives the kernel: B=1 with gradients (the
+    B-spline sampler), B=3 without (DVF inversion and composition warp a
+    field), B=4 without (the fast-demons stack), each on a smooth field
+    and on one mixing in NaN, +-inf, +-1e30 and exact-edge displacements.
+    Times are taken on the smooth fields."""
+    from medicalimageanalysis_torch.ops.warp import warp_disp_plain
+
+    op = torch.ops.mia_torch.warp_disp
+    bg = 0.0
+    rows = {}
+    for shape in pyramid_shapes():
+        for field in ("smooth", "special"):
+            disp = smooth_disp(gen, shape, dev, special=field == "special")
+            for B, want in ((1, True), (3, False), (4, False)):
+                vol = smooth_disp(gen, shape, dev) if B == 3 else \
+                    torch.randn((B,) + shape, generator=gen, device=dev) * 500
+                k = op(vol, disp, bg, want)
+                p = warp_disp_plain(vol, disp, bg, want)
+                torch.cuda.synchronize()
+                errs = [max_abs(a, b) for a, b in zip(k, p)]
+                key = "x".join(map(str, shape)) \
+                    + f"_B{B}_grad{int(want)}_{field}"
+                assert all(torch.isfinite(t).all() for t in k)
+                assert errs == [0.0] * len(errs), \
+                    f"warp_disp {key}: kernel != plain {errs}"
+                row = dict(max_abs_err=errs)
+                if field == "smooth":
+                    row["ms"] = cuda_ms(lambda: op(vol, disp, bg, want))
+                    row["plain_ms"] = cuda_ms(
+                        lambda: warp_disp_plain(vol, disp, bg, want),
+                        reps=3, warmup=1)
+                rows[key] = row
+                del vol, k, p
+            del disp
+    emit("warp_disp", tolerance=0.0, **rows)
+    torch.cuda.empty_cache()
+    # the fast-demons iteration's call at full size
+    main = rows["x".join(map(str, SHAPE)) + "_B4_grad0_smooth"]
+    return dict(max_abs_err=max(max(r["max_abs_err"]) for r in rows.values()),
+                ms=main["ms"], plain_ms=main["plain_ms"])
+
+
 # ---------------------------------------------------------------------------
+def ct_noise(gen, hu=20.0, sigma_vox=1.0):
+    """Noise of ``hu`` standard deviation, correlated in-plane as a
+    reconstruction kernel correlates CT noise: white noise from ``gen``
+    blurred by a Gaussian of ``sigma_vox`` along y and x. (White noise
+    would be smoothed by every trilinear resample, so an exact
+    deformable warp could not bring a resampled series back to its
+    reference: the residual ratio would measure the noise.)"""
+    from medicalimageanalysis_torch.ops.filters import gauss_taps
+
+    taps, r = gauss_taps(sigma_vox)
+    k = torch.as_tensor(taps).view(1, 1, -1)
+    Z, Y, X = SHAPE
+    n = torch.randn(SHAPE, generator=gen)
+    n = F.conv1d(n.reshape(-1, 1, X), k, padding=r).reshape(SHAPE)
+    n = F.conv1d(n.transpose(1, 2).reshape(-1, 1, Y), k, padding=r) \
+        .reshape(Z, X, Y).transpose(1, 2)
+    return n * (hu / n.std())
+
+
 def phantom(gen):
     """A CT-like phantom in HU: an off-centre body ellipsoid with lungs,
-    spine and a few soft-tissue blobs, plus noise from ``gen``."""
+    spine and a few soft-tissue blobs, plus 20 HU of in-plane correlated
+    noise from ``gen``."""
     Z, Y, X = SHAPE
     z = torch.linspace(-1, 1, Z)[:, None, None]
     y = torch.linspace(-1, 1, Y)[None, :, None]
@@ -274,7 +398,7 @@ def phantom(gen):
     vol[ell(0.0, 0.45, 0.0, 1.3, 0.09, 0.08)] = 700.0
     vol[ell(-0.3, 0.1, 0.15, 0.25, 0.15, 0.12)] = 120.0
     vol[ell(0.4, 0.2, -0.1, 0.2, 0.1, 0.18)] = -90.0
-    vol += 20.0 * torch.randn(SHAPE, generator=gen)
+    vol += ct_noise(gen)
     return vol.round().clamp(-1024, 3071).to(torch.int16).numpy()
 
 
@@ -305,7 +429,7 @@ def write_pair(gen, folder):
     mov = ndimage.affine_transform(ref.astype(np.float32), Rm, offset=off,
                                    order=1, mode="nearest")
     mov = np.round(mov).astype(np.int16)
-    ref_origin = np.array([-204.4, -210.0, -128.0])
+    ref_origin = np.array(REF_ORIGIN)
     mov_origin = ref_origin + np.array([SHIFT_MM, 0.0, 0.0])
     for name, arr, origin, uid in (("ref", ref, ref_origin, REF_UID),
                                    ("mov", mov, mov_origin, MOV_UID)):
@@ -315,7 +439,173 @@ def write_pair(gen, folder):
     truth = ground_truth(ref_origin, mov_origin, Rm, off)
     angle = Rotation.from_matrix(truth[:3, :3]).magnitude()
     assert abs(np.rad2deg(angle) - ROT_DEG) < 1e-6
-    return truth
+    return truth, ref
+
+
+def known_bump():
+    """(Z, Y, X) float32 Gaussian of peak 1 and sigma BUMP_SIGMA_MM,
+    centred in the phantom's body ellipsoid: BUMP_MM times it is the known
+    point displacement in x and in y (mm), 0 in z."""
+    sx, sy, sz = SPACING
+    # phantom(): body centre (z, y, x) = (0.0, 0.05, 0.02) on [-1, 1]
+    axes = [(np.arange(n) - (c + 1) / 2 * (n - 1)) * s
+            for n, c, s in zip(SHAPE, (0.0, 0.05, 0.02), (sz, sy, sx))]
+    r2 = axes[0][:, None, None] ** 2 + axes[1][None, :, None] ** 2 \
+        + axes[2][None, None, :] ** 2
+    return np.exp(-r2 / (2 * BUMP_SIGMA_MM ** 2)).astype(np.float32)
+
+
+def write_deformed(ref, folder):
+    """The reference phantom sampled at p + u(p), u the known bump field
+    (scipy, order 1, on the host), written as a third series with the
+    reference's origin and spacing. Returns the bump."""
+    from scipy import ndimage
+
+    from medicalimageanalysis_torch.utils.creation import CreateDicomImage
+
+    g = known_bump()
+    zz, yy, xx = np.meshgrid(*(np.arange(n, dtype=np.float32)
+                               for n in SHAPE), indexing="ij")
+    yy += (BUMP_MM / SPACING[1]) * g
+    xx += (BUMP_MM / SPACING[0]) * g
+    mov = ndimage.map_coordinates(ref.astype(np.float32), [zz, yy, xx],
+                                  order=1, mode="nearest")
+    del zz, yy, xx
+    CreateDicomImage(folder, np.round(mov).astype(np.int16), series=DEF_UID,
+                     origin=REF_ORIGIN, spacing=SPACING[:2],
+                     thickness=SPACING[2]).run(patient_id="SMOKE")
+    return g
+
+
+def residual_ratio(warped, moving, fixed, body):
+    """Mean |warped - fixed| over mean |moving - fixed|, inside the body
+    and where the warp sampled inside the volume."""
+    keep = body & (warped != -3001.0)
+    return float(np.abs(warped - fixed)[keep].mean()
+                 / np.abs(moving - fixed)[keep].mean())
+
+
+def phase_deformable(folder, names, dev):
+    """The deformable path at full width: ingest the deformed series,
+    fast demons with the (4, 2, 1) pyramid at its defaults (50 iterations
+    a level), create_image and compute_jacobian; then the B-spline at its
+    defaults (100 steps, 50 mm control spacing) and create_image."""
+    import medicalimageanalysis_torch as mia
+    from medicalimageanalysis_torch import interop
+    from medicalimageanalysis_torch.data import Data
+
+    t0 = time.perf_counter()
+    mia.read_dicoms(folder_path=folder, clear=False, device=dev)
+    ingest_s = time.perf_counter() - t0
+    name = [n for n in Data.image_list
+            if Data.image[n].series_uid == DEF_UID]
+    assert len(name) == 1, Data.image_list
+    names = dict(names, deformed=name[0])
+    fixed = Data.image[names["ref"]].array.astype(np.float32)
+    moving = Data.image[names["deformed"]].array.astype(np.float32)
+    body = fixed > -900.0                      # body ellipsoid, lungs in
+    g = known_bump()
+
+    def field_error(dvf):
+        err = np.sqrt((dvf[..., 0] - BUMP_MM * g) ** 2
+                      + (dvf[..., 1] - BUMP_MM * g) ** 2 + dvf[..., 2] ** 2)
+        return [float(v) for v in np.percentile(err[body], [50, 95])]
+
+    def timed(fn):
+        sync(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        sync(dev)
+        return res, time.perf_counter() - t0
+
+    deform = mia.Deformable(reference_name=names["ref"],
+                            moving_name=names["deformed"], device=dev)
+    info, demons_s = timed(lambda: deform.compute_demons(
+        method="fast", pyramid=DEMONS_PYRAMID))
+    out, image_s = timed(deform.create_image)
+    jac, jac_s = timed(deform.compute_jacobian)
+    warped = out["array"]
+    assert warped.shape == SHAPE and np.isfinite(warped).all()
+    assert np.isfinite(deform.dvf).all() and np.isfinite(jac["det"]).all()
+    ratio = residual_ratio(warped, moving, fixed, body)
+    median, p95 = field_error(deform.dvf)
+    # the floor: the known field itself through the same create_image
+    ref = Data.image[names["ref"]]
+    known = np.stack([BUMP_MM * g, BUMP_MM * g, np.zeros_like(g)], -1)
+    oracle = interop.deformable_from_numpy(
+        known, ref.origin, ref.spacing, names["ref"], names["deformed"],
+        name="known field", device=dev).create_image()["array"]
+    del known
+    iters = 50
+    demons = dict(
+        seconds=demons_s, create_image_seconds=image_s,
+        jacobian_seconds=jac_s, level_shapes=info["level_shapes"],
+        ms_per_iteration=[1e3 * s / iters for s in info["level_seconds"]],
+        residual_ratio=ratio, residual_limit=RESIDUAL_LIMIT,
+        floor_excess_limit=FLOOR_EXCESS,
+        field_err_p95_limit_mm=FIELD_P95_LIMIT_MM,
+        known_field_residual_ratio=residual_ratio(oracle, moving, fixed,
+                                                  body),
+        field_err_mm_median=median, field_err_mm_p95=p95,
+        folding_fraction=jac["folding_fraction"], det_min=jac["det_min"],
+        det_max=jac["det_max"])
+    del out, warped, jac, oracle
+
+    bspline = mia.Deformable(reference_name=names["ref"],
+                             moving_name=names["deformed"], device=dev)
+    _, bspline_s = timed(bspline.compute_bspline)
+    out, image_s = timed(bspline.create_image)
+    assert np.isfinite(bspline.dvf).all() and np.isfinite(out["array"]).all()
+    median, p95 = field_error(bspline.dvf)
+    bs = dict(seconds=bspline_s, create_image_seconds=image_s,
+              residual_ratio=residual_ratio(out["array"], moving, fixed,
+                                            body),
+              field_err_mm_median=median, field_err_mm_p95=p95)
+    emit("deformable", shape=list(SHAPE), ingest_seconds=ingest_s,
+         demons=demons, bspline=bs)
+    assert ratio <= RESIDUAL_LIMIT, f"demons residual ratio {ratio}"
+    assert ratio <= FLOOR_EXCESS * demons["known_field_residual_ratio"], \
+        f"demons residual ratio {ratio} above the known field's"
+    assert demons["field_err_mm_p95"] <= FIELD_P95_LIMIT_MM, demons
+    return names
+
+
+def phase_deformable_variants(names, dev):
+    """SyN with LNCC forces and diffeomorphic demons, 10 iterations each,
+    on the pair resampled to (Z/2, Y/4, X/4): the remaining callers of
+    the disp mode (scaling-and-squaring compositions, SyN's inversion)."""
+    import medicalimageanalysis_torch as mia
+    from medicalimageanalysis_torch import interop
+    from medicalimageanalysis_torch.data import Data
+    from medicalimageanalysis_torch.ops.resample import separable_resample
+
+    Z, Y, X = SHAPE
+    small = (Z // 2, Y // 4, X // 4)
+    spacing = [SPACING[0] * X / small[2], SPACING[1] * Y / small[1],
+               SPACING[2] * Z / small[0]]
+    arrays = {}
+    for key in ("ref", "deformed"):
+        img = Data.image[names[key]]
+        arrays[key] = separable_resample(
+            torch.as_tensor(img.array, device=dev), small).cpu().numpy()
+        interop.image_from_arrays(arrays[key], spacing, img.origin,
+                                  img.matrix, "CT", f"{key} small")
+    body = arrays["ref"] > -900.0
+    rows = {}
+    for method, forces in (("syn", "lncc"), ("diffeomorphic", "ssd")):
+        d = mia.Deformable(reference_name="ref small",
+                           moving_name="deformed small", device=dev)
+        sync(dev)
+        t0 = time.perf_counter()
+        d.compute_demons(method=method, forces=forces, iterations=10)
+        sync(dev)
+        seconds = time.perf_counter() - t0
+        out = d.create_image()["array"]
+        assert np.isfinite(d.dvf).all() and np.isfinite(out).all()
+        rows[f"{method}_{forces}"] = dict(
+            seconds=seconds, residual_ratio=residual_ratio(
+                out, arrays["deformed"], arrays["ref"], body))
+    emit("deformable_variants", shape=list(small), iterations=10, **rows)
 
 
 def phase_ingest(folder, dev):
@@ -487,24 +777,54 @@ def main():
     smi = phase_device()
     phase_build()
     kernels = {"warp_coords": phase_warp_coords(gen, dev),
-               "warp_affine": phase_warp_affine(gen, dev)}
+               "warp_affine": phase_warp_affine(gen, dev),
+               "warp_disp": phase_warp_disp(gen, dev)}
 
     with tempfile.TemporaryDirectory(prefix="mia_smoke_") as folder:
-        truth = write_pair(cpu_gen, folder)
-        for key in warp.LAUNCHES:          # the main path starts here
+        truth, ref = write_pair(cpu_gen, folder)
+        for key in warp.LAUNCHES:          # the rigid path starts here
             warp.LAUNCHES[key] = 0
         names = phase_ingest(folder, dev)
         rigid, warm = phase_rigid(names, truth)
         phase_reslice(rigid, dev)
-        launches = dict(warp.LAUNCHES)     # ... and ends here
-    assert all(launches.values()), f"a kernel never launched: {launches}"
+        rigid_launches = dict(warp.LAUNCHES)    # ... and ends here
+        deformed = os.path.join(folder, "deformed")
+        write_deformed(ref, deformed)
+        del ref
+        for key in warp.LAUNCHES:          # the deformable path starts here
+            warp.LAUNCHES[key] = 0
+        names = phase_deformable(deformed, names, dev)
+        phase_deformable_variants(names, dev)
+        deformable_launches = dict(warp.LAUNCHES)   # ... and ends here
+    assert rigid_launches["warp_coords"] and rigid_launches["warp_affine"], \
+        f"a kernel of the rigid path never launched: {rigid_launches}"
+    assert all(deformable_launches.values()), \
+        f"a kernel of the deformable path never launched: " \
+        f"{deformable_launches}"
+    launches = {k: rigid_launches[k] + deformable_launches[k]
+                for k in warp.LAUNCHES}
 
-    # the same registration and reslice again, each under the profiler:
-    # the hand-written kernel, not a plain path, must be what ran on the
-    # card. The profiles also show where the time goes: device events per
-    # descent step, device time, and its share of the wall time.
-    profiles = {"rigid": profile_device(rigid.compute_intensity),
-                "reslice": profile_device(rigid.create_image)}
+    # the paths' calls again, each under the profiler: the hand-written
+    # kernel, not a plain path, must be what ran on the card. The
+    # profiles also show where the time goes: device events per step or
+    # iteration, device time, and its share of the wall time.
+    from medicalimageanalysis_torch.data import Data
+    from medicalimageanalysis_torch.ops.registration.bspline import (
+        bspline_registration)
+    from medicalimageanalysis_torch.ops.registration.demons import (
+        demons_registration)
+
+    fixed = Data.image[names["ref"]].array
+    moving = Data.image[names["deformed"]].array
+    profiles = {
+        "rigid": profile_device(rigid.compute_intensity),
+        "reslice": profile_device(rigid.create_image),
+        # one full-size demons level (50 iterations) and one B-spline call
+        # (100 steps), each from host arrays to a host field
+        "demons_level": profile_device(lambda: demons_registration(
+            fixed, moving, SPACING, method="fast", device=dev)),
+        "bspline": profile_device(lambda: bspline_registration(
+            fixed, moving, SPACING, device=dev))}
     for name, p in profiles.items():
         assert p["warp_kernels"], \
             f"{name}: no warp kernel among the CUDA kernels {p['top_ms']}"
@@ -516,7 +836,13 @@ def main():
         descent["device_ms"] / warm["wall_ms"]
     descent["device_share_of_warm_descent"] = \
         descent["device_ms"] / sum(warm["ms_per_level"])
-    emit("kernel_ran", launches=launches, **profiles)
+    profiles["demons_level"]["device_events_per_iteration"] = \
+        profiles["demons_level"]["device_events"] / 50
+    profiles["bspline"]["device_events_per_step"] = \
+        profiles["bspline"]["device_events"] / 100
+    emit("kernel_ran", launches=launches,
+         launches_rigid_path=rigid_launches,
+         launches_deformable_path=deformable_launches, **profiles)
     phase_preprocess(cpu_gen, dev)
     assert "jax" not in sys.modules
 
@@ -524,7 +850,7 @@ def main():
              "source": "medicalimageanalysis_torch/csrc/warp.cu",
              "replaces": "medicalimageanalysis_tpu/ops/pallas_warp.py:181",
              "launches": launches[name], **kernels[name]}
-            for name in ("warp_coords", "warp_affine")]
+            for name in ("warp_coords", "warp_affine", "warp_disp")]
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

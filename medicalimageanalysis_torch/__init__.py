@@ -1,13 +1,18 @@
 """medicalimageanalysis_torch — the PyTorch / CUDA port for one NVIDIA H100.
 
 Carried over from medicalimageanalysis_tpu/__init__.py. The package mirrors
-the JAX package's layout and names; this slice covers the main path
+the JAX package's layout and names; the slices ported so far cover
 
     import medicalimageanalysis_torch as mia
     mia.read_dicoms(folder_path=...)              # host parse + device assembly
     rigid = mia.Rigid("CT 01", "CT 02")
     rigid.compute_intensity()                     # CUDA warp kernel, coords mode
     rigid.create_image()                          # CUDA warp kernel, affine mode
+    deform = mia.Deformable(reference_name="CT 01", moving_name="CT 02")
+    deform.compute_demons(method="fast")          # CUDA warp kernel, disp mode
+    deform.compute_bspline()                      # disp mode with gradients
+    deform.create_image()                         # coords + disp modes
+    deform.compute_jacobian()
 
 The package imports ``torch`` and never ``jax``; of the JAX package it uses
 only the jax-free host modules ``medicalimageanalysis_tpu.dicom`` and
@@ -18,7 +23,8 @@ __version__ = "0.1.0"
 
 from .data import Data
 
-__all__ = ["Data", "Image", "Rigid", "read_dicoms", "__version__"]
+__all__ = ["Data", "Deformable", "Image", "Rigid", "read_dicoms",
+           "__version__"]
 
 
 def __getattr__(name):
@@ -36,4 +42,7 @@ def __getattr__(name):
     if name == "Rigid":
         from .structure.rigid import Rigid
         return Rigid
+    if name == "Deformable":
+        from .structure.deformable import Deformable
+        return Deformable
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,11 +1,19 @@
 // Exact trilinear warp for Hopper (sm_90a), hand-written CUDA C++.
 //
 // Replaces medicalimageanalysis_tpu/ops/pallas_warp.py::_warp_kernel in its
-// `coords` mode (with and without the fused coordinate gradients) and its
-// `affine` mode. It computes what the TPU kernel computes: an exact 8-tap
-// trilinear sample of B volumes (Z, Y, X) per output voxel, taps clamped to
-// the edge, samples outside [0, dim-1] set to `background`; with kGrad also
-// d/d(cz, cy, cx) from the same taps, 0 outside.
+// `coords` and `disp` modes (each with and without the fused coordinate
+// gradients) and its `affine` mode. It computes what the TPU kernel
+// computes: an exact 8-tap trilinear sample of B volumes (Z, Y, X) per
+// output voxel, taps clamped to the edge, samples outside [0, dim-1] set to
+// `background`; with kGrad also d/d(cz, cy, cx) from the same taps, 0
+// outside. The modes differ only in
+// where a voxel's sample coordinate comes from:
+//   kCoords  three (Zo, Yo, Xo) coordinate volumes (registration);
+//   kAffine  12 coefficients over the output index (reslice);
+//   kDisp    the output index plus a planar (3, Zo, Yo, Xo) voxel
+//            displacement, rows (x, y, z), shared by the B volumes
+//            (demons, DVF inversion and composition, B-spline, deformed
+//            reslice). One f32 add per axis, so the twin stays bit-equal.
 //
 // What bounds it: a gather. Each output voxel reads 8 scattered floats per
 // volume and writes 1 (4 with gradients), so the kernel is bound by device
@@ -14,7 +22,9 @@
 // HBM; on Hopper a thread reads global memory directly, so one thread per
 // output voxel (grid-stride loop, B looped inside the thread so the tap
 // addresses are computed once) serves every coordinate map, and
-// neighbouring threads read neighbouring taps through L1/L2.
+// neighbouring threads read neighbouring taps through L1/L2. In kDisp the
+// displacement is read coalesced (three planar rows), and the output dims
+// are the field's, which may differ from the volume's.
 //
 // Exactness: the plain PyTorch twin (ops/warp.py) rounds every operation
 // to float32 in this file's order. The file is compiled with
@@ -31,7 +41,7 @@
 
 namespace {
 
-enum class Mode { kCoords, kAffine };  // a `disp` mode joins here later
+enum class Mode { kCoords, kAffine, kDisp };
 
 struct Coef {
   float c[12];  // row-major output (x, y, z, 1) -> input (x, y, z)
@@ -41,7 +51,8 @@ template <Mode M, bool kGrad>
 __global__ void warp_kernel(const float* __restrict__ vol, int B, int Z,
                             int Y, int X, const float* __restrict__ czp,
                             const float* __restrict__ cyp,
-                            const float* __restrict__ cxp, Coef coef,
+                            const float* __restrict__ cxp,
+                            const float* __restrict__ dsp, Coef coef,
                             int Yo, int Xo, int64_t n, float bg,
                             float* __restrict__ out, float* __restrict__ gz,
                             float* __restrict__ gy, float* __restrict__ gx) {
@@ -62,10 +73,16 @@ __global__ void warp_kernel(const float* __restrict__ vol, int B, int Z,
       const float gxf = (float)(i - t * Xo);
       const float gyf = (float)(t % Yo);
       const float gzf = (float)(t / Yo);
-      const float* c = coef.c;
-      x = c[0] * gxf + c[1] * gyf + c[2] * gzf + c[3];
-      y = c[4] * gxf + c[5] * gyf + c[6] * gzf + c[7];
-      z = c[8] * gxf + c[9] * gyf + c[10] * gzf + c[11];
+      if constexpr (M == Mode::kDisp) {
+        x = gxf + dsp[i];
+        y = gyf + dsp[n + i];
+        z = gzf + dsp[2 * n + i];
+      } else {
+        const float* c = coef.c;
+        x = c[0] * gxf + c[1] * gyf + c[2] * gzf + c[3];
+        y = c[4] * gxf + c[5] * gyf + c[6] * gzf + c[7];
+        z = c[8] * gxf + c[9] * gyf + c[10] * gzf + c[11];
+      }
     }
     const bool inside = (x >= 0.f) && (x <= xmax) && (y >= 0.f) &&
                         (y <= ymax) && (z >= 0.f) && (z <= zmax);
@@ -146,11 +163,12 @@ extern "C" int mia_warp_coords(const float* vol, int B, int Z, int Y, int X,
   Coef none{};
   if (want_grad) {
     warp_kernel<Mode::kCoords, true><<<blocks_for(n), kThreads, 0, s>>>(
-        vol, B, Z, Y, X, cz, cy, cx, none, Yo, Xo, n, bg, out, gz, gy, gx);
+        vol, B, Z, Y, X, cz, cy, cx, nullptr, none, Yo, Xo, n, bg, out, gz,
+        gy, gx);
   } else {
     warp_kernel<Mode::kCoords, false><<<blocks_for(n), kThreads, 0, s>>>(
-        vol, B, Z, Y, X, cz, cy, cx, none, Yo, Xo, n, bg, out, nullptr,
-        nullptr, nullptr);
+        vol, B, Z, Y, X, cz, cy, cx, nullptr, none, Yo, Xo, n, bg, out,
+        nullptr, nullptr, nullptr);
   }
   return (int)cudaGetLastError();
 }
@@ -164,7 +182,29 @@ extern "C" int mia_warp_affine(const float* vol, int B, int Z, int Y, int X,
   Coef coef;
   for (int k = 0; k < 12; ++k) coef.c[k] = coef12[k];  // host array
   warp_kernel<Mode::kAffine, false><<<blocks_for(n), kThreads, 0, s>>>(
-      vol, B, Z, Y, X, nullptr, nullptr, nullptr, coef, Yo, Xo, n, bg, out,
-      nullptr, nullptr, nullptr);
+      vol, B, Z, Y, X, nullptr, nullptr, nullptr, nullptr, coef, Yo, Xo, n,
+      bg, out, nullptr, nullptr, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// disp: the planar (3, Zo, Yo, Xo) field, rows (x, y, z); output
+// (B, Zo, Yo, Xo), the volume (B, Z, Y, X) of any dims.
+extern "C" int mia_warp_disp(const float* vol, int B, int Z, int Y, int X,
+                             const float* disp, int Zo, int Yo, int Xo,
+                             float bg, float* out, float* gz, float* gy,
+                             float* gx, int want_grad, void* stream) {
+  const int64_t n = (int64_t)Zo * Yo * Xo;
+  if (n == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Coef none{};
+  if (want_grad) {
+    warp_kernel<Mode::kDisp, true><<<blocks_for(n), kThreads, 0, s>>>(
+        vol, B, Z, Y, X, nullptr, nullptr, nullptr, disp, none, Yo, Xo, n,
+        bg, out, gz, gy, gx);
+  } else {
+    warp_kernel<Mode::kDisp, false><<<blocks_for(n), kThreads, 0, s>>>(
+        vol, B, Z, Y, X, nullptr, nullptr, nullptr, disp, none, Yo, Xo, n,
+        bg, out, nullptr, nullptr, nullptr);
+  }
   return (int)cudaGetLastError();
 }

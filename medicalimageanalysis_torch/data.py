@@ -17,14 +17,17 @@ class Data(object):
     ----------
     image : dict            image name -> Image
     rigid : dict            rigid name -> Rigid
-    image_list, rigid_list, roi_list, poi_list : list
+    deformable : dict       deformable name -> Deformable
+    image_list, rigid_list, deformable_list, roi_list, poi_list : list
     """
 
     image = {}
     rigid = {}
+    deformable = {}
 
     image_list = []
     rigid_list = []
+    deformable_list = []
     roi_list = []
     poi_list = []
 
@@ -33,9 +36,11 @@ class Data(object):
         """Wipe all data from the registry."""
         cls.image = {}
         cls.rigid = {}
+        cls.deformable = {}
 
         cls.image_list = []
         cls.rigid_list = []
+        cls.deformable_list = []
         cls.roi_list = []
         cls.poi_list = []
 

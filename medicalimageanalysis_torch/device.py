@@ -14,12 +14,21 @@ import contextlib
 
 import torch
 
-__all__ = ["default_device", "full_float32", "set_numerics"]
+__all__ = ["as_f32", "default_device", "full_float32", "set_numerics"]
 
 
 def default_device():
     """``cuda`` when a card is present, else ``cpu``."""
     return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+def as_f32(a, device=None):
+    """``a`` (array, tensor or scalars) as a float32 tensor on ``device``;
+    with no device a tensor stays where it is and anything else goes to
+    :func:`default_device`."""
+    if device is None:
+        device = a.device if isinstance(a, torch.Tensor) else default_device()
+    return torch.as_tensor(a, dtype=torch.float32, device=device)
 
 
 def set_numerics():

@@ -1,7 +1,8 @@
 """State carried across packages: images and registrations.
 
 The system has no learned weights; its state is the registry — image
-arrays with their geometry, and registration matrices. These helpers
+arrays with their geometry, registration matrices and deformation
+fields. These helpers
 build port objects from plain numpy values, so the JAX package and the
 port can compute on identical state. Nothing here imports the JAX package.
 """
@@ -14,7 +15,8 @@ import numpy as np
 
 from .data import Data
 
-__all__ = ["image_from_arrays", "import_image", "rigid_from_matrix"]
+__all__ = ["deformable_from_numpy", "image_from_arrays", "import_image",
+           "rigid_from_matrix"]
 
 
 def image_from_arrays(array, spacing, origin, matrix, modality, name,
@@ -65,3 +67,22 @@ def rigid_from_matrix(ref_name, mov_name, matrix, device=None):
 
     return Rigid(ref_name, mov_name,
                  matrix=np.asarray(matrix, dtype=np.float64), device=device)
+
+
+def deformable_from_numpy(dvf, origin, spacing, reference_name, moving_name,
+                          rigid_matrix=None, name=None, device=None):
+    """Register a port ``Deformable`` holding a known field: ``dvf``
+    (Z, Y, X, 3) mm point displacements on the axis-aligned grid at
+    ``origin`` with ``spacing`` [sx, sy, sz] (a JAX-package Deformable's
+    ``dvf``, ``origin``, ``spacing``, ``rigid_matrix`` and names)."""
+    from .structure.deformable import Deformable
+
+    dvf = np.asarray(dvf, dtype=np.float32)
+    return Deformable(
+        dvf=dvf, origin=np.asarray(origin, dtype=np.float64),
+        spacing=tuple(float(v) for v in spacing),
+        dimensions=np.asarray(dvf.shape[:3]),
+        rigid_matrix=(None if rigid_matrix is None
+                      else np.asarray(rigid_matrix, dtype=np.float64)),
+        registration_name=name, reference_name=reference_name,
+        moving_name=moving_name, device=device)

@@ -76,4 +76,7 @@ def load_warp_library():
                                     p, p, p, p, i, p]
     lib.mia_warp_affine.restype = i
     lib.mia_warp_affine.argtypes = [p, i, i, i, i, p, i, i, i, f, p, p]
+    lib.mia_warp_disp.restype = i
+    lib.mia_warp_disp.argtypes = [p, i, i, i, i, p, i, i, i, f, p, p, p, p,
+                                  i, p]
     return lib

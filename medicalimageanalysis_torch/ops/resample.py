@@ -7,6 +7,8 @@ ingest -> registration -> reslice path):
 - :func:`affine_resample` — one 4x4 pixel matrix maps output voxel ->
   input voxel, run by the CUDA warp kernel in ``affine`` mode on the card;
 - :func:`compose_pixel_matrix`, :func:`_interp_matrix` — numpy builders;
+- :func:`separable_resample` — axis-aligned trilinear resample as three
+  full-float32 matrix contractions (the demons pyramid);
 - :func:`reslice_transform` — the vtkImageReslice(AutoCrop) equivalent
   behind ``Rigid.create_image``.
 
@@ -21,10 +23,12 @@ import numpy as np
 import torch
 
 from ..config import config
+from ..device import full_float32
 from . import geometry as geo
 from .warp import affine_warp_fused, warp_coords_plain
 
-__all__ = ["affine_resample", "compose_pixel_matrix", "reslice_transform"]
+__all__ = ["affine_resample", "compose_pixel_matrix", "reslice_transform",
+           "separable_resample"]
 
 
 def _trilinear(vol, coords_xyz, background):
@@ -87,6 +91,26 @@ def _interp_matrix(n_out, n_in, scale, offset=0.0, dtype=np.float32):
     m[np.arange(n_out), lo] += 1 - f
     m[np.arange(n_out), hi] += f
     return m.astype(dtype)
+
+
+@full_float32()
+def _separable_apply(vol, mz, my, mx):
+    out = torch.einsum("ij,jyx->iyx", mz, vol)
+    out = torch.einsum("kj,zjx->zkx", my, out)
+    return torch.einsum("lj,zyj->zyl", mx, out)
+
+
+def separable_resample(volume, out_shape):
+    """Axis-aligned trilinear resample as three matrix contractions, at
+    the shape ratios (the JAX package's optional spacing ratios have no
+    caller yet). volume (Z, Y, X) array or tensor -> float32 tensor on
+    its device (the CPU for an array).
+    """
+    vol = torch.as_tensor(volume).to(torch.float32)
+    mz, my, mx = (torch.as_tensor(_interp_matrix(int(o), i, i / int(o)),
+                                  device=vol.device)
+                  for o, i in zip(out_shape, vol.shape))
+    return _separable_apply(vol, mz, my, mx)
 
 
 def reslice_grid(vol_shape, vol_matrix, vol_spacing, vol_origin,

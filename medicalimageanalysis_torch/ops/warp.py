@@ -1,19 +1,23 @@
 """Exact trilinear warp: a hand-written CUDA kernel and its plain twin.
 
 Port of medicalimageanalysis_tpu/ops/pallas_warp.py. The TPU kernel
-(``_warp_kernel``) becomes csrc/warp.cu in two of its modes:
+(``_warp_kernel``) becomes csrc/warp.cu in three of its modes:
 
 - ``coords``: sample B volumes at absolute (cz, cy, cx) voxel coordinates,
   optionally with the exact coordinate gradients from the same taps
-  (registration);
+  (rigid registration);
 - ``affine``: the coordinates come from 12 coefficients over the output
-  index, inside the kernel (reslice).
+  index, inside the kernel (reslice);
+- ``disp``: the coordinates are the output index plus a planar
+  (3, Zo, Yo, Xo) voxel displacement, rows (x, y, z), optionally with
+  the coordinate gradients (demons, DVF inversion and composition, the
+  B-spline fit, the deformed reslice).
 
-Both are registered as PyTorch operators, ``torch.ops.mia_torch.
-warp_coords`` and ``torch.ops.mia_torch.warp_affine``. The dispatcher
-picks the implementation by the tensors' device and nothing else: a CPU
-tensor runs the plain PyTorch twin (``warp_coords_plain`` /
-``warp_affine_plain``), a CUDA tensor launches the kernel or raises.
+Each is registered as a PyTorch operator, ``torch.ops.mia_torch.
+warp_coords`` / ``warp_affine`` / ``warp_disp``. The dispatcher picks
+the implementation by the tensors' device and nothing else: a CPU tensor
+runs the plain PyTorch twin (``warp_coords_plain`` / ``warp_affine_plain``
+/ ``warp_disp_plain``), a CUDA tensor launches the kernel or raises.
 
 Semantics (those of ops/resample._trilinear in the JAX package): taps
 clamp to the volume edge, samples outside ``[0, dim-1]`` take
@@ -21,9 +25,9 @@ clamp to the volume edge, samples outside ``[0, dim-1]`` take
 in the kernel's order, so the two are bit-equal on the card.
 
 The TPU kernel's slab/window machinery (``_pick_config``,
-``fits_warp_caps``, ``required_window``, the overflow counter) has no
-counterpart: the CUDA kernel reads global memory directly and serves
-every coordinate map.
+``fits_warp_caps``, ``required_window``, the overflow counter and the
+``window`` / ``with_overflow`` arguments) has no counterpart: the CUDA
+kernel reads global memory directly and serves every coordinate map.
 """
 
 from __future__ import annotations
@@ -34,11 +38,13 @@ import torch
 from torch import Tensor
 
 __all__ = ["LAUNCHES", "affine_coords", "affine_warp_fused", "field_warp",
-           "make_warp_sampler", "warp_affine_plain", "warp_coords_plain"]
+           "field_warp_disp", "make_disp_sampler", "make_warp_sampler",
+           "warp_affine_plain", "warp_coords_plain", "warp_disp",
+           "warp_disp_plain"]
 
 # Kernel launches per operator; a run reads them to show that its main
 # path went through the kernels. Only the CUDA implementations add to them.
-LAUNCHES = {"warp_coords": 0, "warp_affine": 0}
+LAUNCHES = {"warp_coords": 0, "warp_affine": 0, "warp_disp": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -106,6 +112,26 @@ def warp_affine_plain(vol, coef, out_shape, background=0.0):
     return _sample_plain(vol, cz, cy, cx, float(background), False)[0]
 
 
+def _base_grid(shape_zyx, device):
+    """Broadcastable (zz, yy, xx) f32 output-grid base coordinates: the
+    twin of the kernel's index arithmetic in ``disp`` and ``affine``."""
+    Zo, Yo, Xo = (int(s) for s in shape_zyx)
+    opts = dict(dtype=torch.float32, device=device)
+    return (torch.arange(Zo, **opts)[:, None, None],
+            torch.arange(Yo, **opts)[None, :, None],
+            torch.arange(Xo, **opts)[None, None, :])
+
+
+def warp_disp_plain(vol, disp, background=0.0, want_grad=False):
+    """Plain PyTorch ``disp`` mode: vol (B, Z, Y, X) f32, disp
+    (3, Zo, Yo, Xo) f32 voxel displacements with rows (x, y, z) ->
+    [out] or [out, gz, gy, gx], each (B, Zo, Yo, Xo); out(p) =
+    vol(p + disp(p))."""
+    zz, yy, xx = _base_grid(disp.shape[1:], disp.device)
+    return _sample_plain(vol, zz + disp[2], yy + disp[1], xx + disp[0],
+                         float(background), want_grad)
+
+
 # ---------------------------------------------------------------------------
 # operators: plain twin on the CPU, the CUDA kernel on the card
 # ---------------------------------------------------------------------------
@@ -121,6 +147,13 @@ def _warp_coords_op(vol: Tensor, cz: Tensor, cy: Tensor, cx: Tensor,
 def _warp_affine_op(vol: Tensor, coef: list[float], out_shape: list[int],
                     background: float) -> Tensor:
     return warp_affine_plain(vol, coef, out_shape, background)
+
+
+@torch.library.custom_op("mia_torch::warp_disp", mutates_args=(),
+                         device_types="cpu")
+def _warp_disp_op(vol: Tensor, disp: Tensor, background: float,
+                  want_grad: bool) -> list[Tensor]:
+    return warp_disp_plain(vol, disp, background, want_grad)
 
 
 def _check_f32_cuda(name, t, device):
@@ -188,6 +221,34 @@ def _warp_affine_cuda(vol, coef, out_shape, background):
     _raise_on(err, "warp_affine")
     LAUNCHES["warp_affine"] += 1
     return out
+
+
+@_warp_disp_op.register_kernel("cuda")
+def _warp_disp_cuda(vol, disp, background, want_grad):
+    from ._build import load_warp_library
+
+    dev = vol.device
+    _check_f32_cuda("vol", vol, dev)
+    _check_f32_cuda("disp", disp, dev)
+    if vol.dim() != 4 or disp.dim() != 4 or disp.shape[0] != 3:
+        raise ValueError("warp_disp: vol (B, Z, Y, X) and disp "
+                         f"(3, Zo, Yo, Xo), got {tuple(vol.shape)}, "
+                         f"{tuple(disp.shape)}")
+    lib = load_warp_library()
+    B, Z, Y, X = vol.shape
+    _, Zo, Yo, Xo = disp.shape
+    outs = [torch.empty((B, Zo, Yo, Xo), dtype=torch.float32, device=dev)
+            for _ in range(4 if want_grad else 1)]
+    ptr = [o.data_ptr() for o in outs] + [None] * (4 - len(outs))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.mia_warp_disp(
+            vol.data_ptr(), B, Z, Y, X, disp.data_ptr(), Zo, Yo, Xo,
+            float(background), ptr[0], ptr[1], ptr[2], ptr[3],
+            int(bool(want_grad)), stream)
+    _raise_on(err, "warp_disp")
+    LAUNCHES["warp_disp"] += 1
+    return outs
 
 
 # ---------------------------------------------------------------------------
@@ -284,3 +345,60 @@ def affine_warp_fused(volume, pixel_matrix, background, out_shape):
     out = torch.ops.mia_torch.warp_affine(
         volb, coef, [int(s) for s in out_shape], float(background))
     return out[0]
+
+
+def warp_disp(vols, disp, background=0.0):
+    """Displacement warp: out(p) = vols(p + disp(p)).
+
+    vols (Z, Y, X) or (B, Z, Y, X); disp the (3, Zo, Yo, Xo) planar voxel
+    field with rows (x, y, z), on the volumes' device. One ``disp``
+    launch on the card; no coordinate volume is materialised there."""
+    volb, squeeze = _as_batch(vols)
+    disp = torch.as_tensor(disp, dtype=torch.float32,
+                           device=volb.device).contiguous()
+    out = torch.ops.mia_torch.warp_disp(volb, disp, float(background),
+                                        False)[0]
+    return out[0] if squeeze else out
+
+
+# The JAX package's eager twin sizes the kernel's slab window from the
+# field and falls back to a gather on overflow; the kernel here has no
+# slab, so the eager surface is the same call.
+field_warp_disp = warp_disp
+
+
+class _DispSample(torch.autograd.Function):
+    """Displacement sample whose VJP comes from the forward kernel pass:
+    the coordinate gradients (z, y, x order from the kernel) restacked as
+    the planar (x, y, z) field layout and summed over the B volumes. Not
+    differentiable with respect to the volume."""
+
+    @staticmethod
+    def forward(ctx, volb, background, disp):
+        want = ctx.needs_input_grad[2]
+        res = torch.ops.mia_torch.warp_disp(volb, disp.contiguous(),
+                                            background, want)
+        if want:
+            ctx.save_for_backward(*res[1:])
+        return res[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        gz, gy, gx = ctx.saved_tensors
+        return None, None, torch.stack([(g * gx).sum(0), (g * gy).sum(0),
+                                        (g * gz).sum(0)])
+
+
+def make_disp_sampler(vol, background=0.0):
+    """Differentiable displacement sampler ``sample(disp) -> out`` with
+    the exact analytic VJP fused into the forward kernel pass. disp is
+    the planar (3, Zo, Yo, Xo) voxel field, rows (x, y, z); vol
+    (Z, Y, X) gives (Zo, Yo, Xo), (B, Z, Y, X) gives (B, Zo, Yo, Xo)."""
+    volb, squeeze = _as_batch(vol)
+    bg = float(background)
+
+    def sample(disp):
+        out = _DispSample.apply(volb, bg, disp)
+        return out[0] if squeeze else out
+
+    return sample

@@ -1,0 +1,336 @@
+"""Deformable registration object.
+
+Port of medicalimageanalysis_tpu/structure/deformable.py (``Deformable``,
+:240-747). DVFs are (Z, Y, X, 3) float32 numpy fields in mm, in the
+point-displacement convention (update_rois adds d(p) to moving points;
+create_image inverts to get the sampling field); ``ratio`` scales the
+field for fractional-deformation display.
+
+The compute runs on ``device`` (default: the card when present): the
+solvers, the inversion, and the deformed reslice, whose inverse field is
+sampled by the warp kernel's ``coords`` mode and whose image by its
+``disp`` mode. As in the JAX package, ``compute_demons`` resamples the
+moving image on image geometry alone, without ``rigid_matrix``;
+``compute_bspline`` and ``create_image`` apply it.
+
+The Display view state, the dose/mask/POI warps, TPS, REG export,
+save/load and the image export wait for later slices; each raises
+``NotImplementedError`` naming its ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from medicalimageanalysis_tpu.dicom import generate_uid
+
+from ..config import config
+from ..data import Data
+from ..device import as_f32, default_device, full_float32
+from ..ops import geometry as geo
+from ..ops.registration.dvf import invert_dvf
+from ..ops.resample import affine_resample, compose_pixel_matrix
+from ..ops.warp import affine_coords, field_warp, warp_disp
+
+__all__ = ["Deformable"]
+
+
+def _waits(name, item):
+    """A method of the JAX package's Deformable that a later slice
+    ports; calling it raises."""
+    def method(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"Deformable.{name} is not ported yet (ROADMAP.md queue 1, "
+            f"{item})")
+
+    method.__name__ = name
+    return method
+
+
+def _jacobian_det(d, inv_spacing):
+    """det(I + grad d) per voxel: central differences of the mm
+    point-displacement field d (Z, Y, X, 3); inv_spacing [1/sx, 1/sy,
+    1/sz]."""
+    gz = torch.gradient(d, dim=0)[0] * inv_spacing[2]
+    gy = torch.gradient(d, dim=1)[0] * inv_spacing[1]
+    gx = torch.gradient(d, dim=2)[0] * inv_spacing[0]
+    # J[i, j] = delta_ij + dd_i/dx_j, columns (x, y, z)
+    a = 1.0 + gx[..., 0]
+    b, c = gy[..., 0], gz[..., 0]
+    p, q = gx[..., 1], gz[..., 1]
+    e = 1.0 + gy[..., 1]
+    g, h = gx[..., 2], gy[..., 2]
+    i = 1.0 + gz[..., 2]
+    return (a * (e * i - q * h) - b * (p * i - q * g)
+            + c * (p * h - e * g))
+
+
+class Deformable(object):
+    """Non-rigid registration record: DVF + rigid pre-transform."""
+
+    def __init__(self, dvf=None, origin=None, spacing=None, dimensions=None,
+                 roi_names=None, rigid_matrix=None, dvf_matrix=None,
+                 registration_name=None, reference_name=None,
+                 moving_name=None, reference_sops=None, moving_sops=None,
+                 reference_meshes=None, moving_meshes=None, device=None):
+        self.reference_name = reference_name
+        self.reference_sops = reference_sops
+        self.moving_name = moving_name
+        self.moving_sops = moving_sops
+        self.roi_names = roi_names
+        self.rigid_rois = dict.fromkeys(Data.roi_list)
+        self.rois = dict.fromkeys(Data.roi_list)
+        self.reference_mesh = reference_meshes
+        self.moving_mesh = moving_meshes
+        self.local_uid = generate_uid()
+        self.device = default_device() if device is None \
+            else torch.device(device)
+
+        self.modality = None
+        if dvf_matrix is not None \
+                and not np.allclose(dvf_matrix, np.identity(3), atol=1e-3):
+            self.dvf, self.spacing, self.origin, self.dimensions = \
+                self.correct_dvf_direction(dvf, spacing, origin, dvf_matrix)
+        else:
+            self.dvf = dvf
+            self.origin = origin
+            self.spacing = spacing
+            self.dimensions = dimensions
+
+        self.rigid_matrix = np.identity(4) if rigid_matrix is None \
+            else rigid_matrix
+
+        self.deformable_name = self.add_deformable(registration_name)
+        if self.dvf is not None:
+            self.update_rois()
+
+    def add_deformable(self, deformable_name):
+        """'DVF_{ref}_{mov}[_N]' naming with collision suffixing."""
+        if deformable_name is None:
+            if self.reference_name is None and self.moving_name is None:
+                deformable_name = "DVF_Unknown"
+            else:
+                deformable_name = ("DVF_" + str(self.reference_name) + "_"
+                                   + str(self.moving_name))
+            if deformable_name in Data.deformable_list:
+                n = 1
+                while f"{deformable_name}_{n}" in Data.deformable_list:
+                    n += 1
+                deformable_name = f"{deformable_name}_{n}"
+
+        Data.deformable[deformable_name] = self
+        Data.deformable_list += [deformable_name]
+        return deformable_name
+
+    def _backend(self, modality_gradient, sigma):
+        """Common setup: reference/moving volumes and the cross-modality
+        correction. The JAX package also builds blurred ROI masks from
+        ``roi_names``; the port's images carry no ROIs until the
+        structure slice (ROADMAP.md queue 1, item 6), so none is built
+        and the registration runs unmasked, as the JAX package's does
+        for images without those ROIs."""
+        from ..utils.deformable.torch_backend import DeformableTorch
+
+        ref = Data.image[self.reference_name]
+        mov = Data.image[self.moving_name]
+        backend = DeformableTorch(device=self.device)
+        backend.create_sitk_image(ref.array, ref.origin, ref.spacing,
+                                  ref.matrix)
+        backend.create_sitk_image(mov.array, mov.origin, mov.spacing,
+                                  mov.matrix, reference=False)
+        if ref.modality != mov.modality and modality_gradient:
+            backend.cross_modality_correction()
+        return backend
+
+    def _store_dvf(self, dvf_volume):
+        """Store in point-displacement convention: invert the sampling
+        field the solvers return."""
+        self.origin = np.asarray(dvf_volume["origin"])
+        self.spacing = tuple(dvf_volume["spacing"])
+        self.dvf = invert_dvf(dvf_volume["array"], dvf_volume["spacing"],
+                              device=self.device)
+        self.dimensions = np.asarray(self.dvf.shape[:3])
+
+    def compute_biomechanical(self, modality_gradient=True, sigma=2,
+                              smooth=True, std=1, iterations=50,
+                              intensity_threshold=0.001, step=2.0,
+                              elastic_lambda=0.2, crop=5):
+        """Linear-elastic demons: symmetric forces with a Navier-Cauchy
+        grad(div u) relaxation step per iteration (``elastic_lambda``)."""
+        backend = self._backend(modality_gradient, sigma)
+        backend.resample()
+        self._store_dvf(backend.biomechanical(
+            smooth=smooth, std=std, iterations=iterations,
+            intensity_threshold=intensity_threshold, step=step,
+            elastic_lambda=elastic_lambda, crop=crop))
+
+    def compute_bspline(self, modality_gradient=True, sigma=2,
+                        control_spacing=None, mesh_size=None,
+                        gradient=1e-5, iterations=100, crop=5):
+        """B-spline FFD on the moving image resampled through
+        ``rigid_matrix`` onto the reference grid."""
+        backend = self._backend(modality_gradient, sigma)
+        ref = Data.image[self.reference_name]
+        mov = Data.image[self.moving_name]
+        A = compose_pixel_matrix(mov.matrix, mov.spacing, mov.origin,
+                                 ref.matrix, ref.spacing, ref.origin,
+                                 phys_transform=self.rigid_matrix)
+        resampled = affine_resample(mov.array, A, ref.array.shape,
+                                    background=0.0, device=self.device)
+        backend.create_sitk_image(resampled.cpu().numpy(), ref.origin,
+                                  ref.spacing, ref.matrix, reference=False)
+        backend.resample()
+        self._store_dvf(backend.bspline(
+            control_spacing=control_spacing, mesh_size=mesh_size,
+            gradient=gradient, iterations=iterations, crop=crop))
+
+    def compute_demons(self, method=None, modality_gradient=True, sigma=2,
+                       smooth=True, std=1, iterations=50,
+                       intensity_threshold=0.001, step=2.0, crop=5,
+                       pyramid=None, forces="ssd", lncc_radius=3):
+        """Demons variants: 'demons', 'diffeomorphic', 'syn', else the
+        fast symmetric-forces demons; ``pyramid`` e.g. (4, 2, 1) for a
+        coarse-to-fine schedule, ``forces`` 'ssd' or 'lncc'. Returns a
+        dict with the solver's per-level ``level_shapes`` and
+        ``level_seconds``."""
+        backend = self._backend(modality_gradient, sigma)
+        backend.resample()
+        run = {"demons": backend.demons,
+               "diffeomorphic": backend.diffeomorphic,
+               "syn": backend.syn}.get(str(method).lower(),
+                                       backend.fast_demons)
+        info = {}
+        self._store_dvf(run(
+            smooth=smooth, std=std, iterations=iterations,
+            intensity_threshold=intensity_threshold, step=step, crop=crop,
+            pyramid=pyramid, forces=forces, lncc_radius=lncc_radius,
+            info=info))
+        return info
+
+    @staticmethod
+    def correct_dvf_direction(dvf, spacing, origin, matrix):
+        """Rotate field vectors to identity direction about the volume
+        center, rewriting the origin."""
+        D_new = np.identity(3)
+        R = D_new @ np.linalg.inv(matrix)
+
+        center_index = (np.flip(np.asarray(dvf.shape))[1:] - 1) / 2.0
+        center_phys = np.asarray(origin) + np.asarray(matrix) @ (
+            center_index * np.asarray(spacing))
+
+        Z, Y, X, _ = dvf.shape
+        dvf_rotated = (R @ dvf.reshape(-1, 3).T).T.reshape(Z, Y, X, 3)
+
+        origin_new = center_phys - D_new @ (center_index
+                                            * np.asarray(spacing))
+        return dvf_rotated, spacing, origin_new, dvf_rotated.shape[0:3]
+
+    @torch.no_grad()
+    def _warp_resampled_to_reference(self, resampled, background, ratio=1):
+        """Invert the DVF and warp a (Z, Y, X) tensor already resampled
+        onto the reference grid: the inverse field is sampled at the
+        reference voxels by the ``coords`` mode, the image by the
+        ``disp`` mode."""
+        dvf = as_f32(self.dvf, self.device) * float(ratio)
+        inv = invert_dvf(dvf, self.spacing)
+        ref = Data.image[self.reference_name]
+        ref_p2p = geo.pixel_to_position_matrix(ref.matrix, ref.spacing,
+                                               ref.origin)
+        # ref voxel -> DVF-grid pixel coords (the DVF grid is
+        # axis-aligned with self.origin / self.spacing)
+        dvf_pos2pix = geo.position_to_pixel_matrix(
+            np.eye(3), self.spacing, self.origin)
+        cz, cy, cx = affine_coords(
+            as_f32((dvf_pos2pix @ ref_p2p).astype(np.float32), self.device),
+            resampled.shape)
+        disp = field_warp(torch.movedim(inv, -1, 0), cz, cy, cx,
+                          background=0.0)             # (3,Z,Y,X) mm xyz
+        # displaced ref-pixel sample coordinates: pix + L @ disp, L the
+        # linear part of the reference's position -> pixel map
+        L = as_f32(np.asarray(geo.position_to_pixel_matrix(
+            ref.matrix, ref.spacing, ref.origin))[:3, :3]
+            .astype(np.float32), self.device)
+        with full_float32():
+            disp_pix = torch.einsum("ij,jzyx->izyx", L, disp)
+        return warp_disp(resampled, disp_pix, background)
+
+    def create_image(self, ratio=1):
+        """Rigid resample -> invert DVF -> displacement warp onto the
+        reference grid; returns a volume dict with a numpy array."""
+        ref = Data.image[self.reference_name]
+        mov = Data.image[self.moving_name]
+        A = compose_pixel_matrix(mov.matrix, mov.spacing, mov.origin,
+                                 ref.matrix, ref.spacing, ref.origin,
+                                 phys_transform=self.rigid_matrix)
+        resampled = affine_resample(mov.array, A, ref.array.shape,
+                                    background=config.background_fill,
+                                    device=self.device)
+        warped = self._warp_resampled_to_reference(
+            resampled, config.background_fill, ratio=ratio)
+        return {"array": warped.cpu().numpy(),
+                "origin": np.asarray(ref.origin),
+                "spacing": np.asarray(ref.spacing),
+                "direction": np.asarray(ref.matrix)}
+
+    def compute_jacobian(self):
+        """Jacobian-determinant QA map of T(p) = p + d(p) (det <= 0 marks
+        folding). Returns {'det': (Z, Y, X) float32, 'folding_fraction',
+        'det_min', 'det_max', 'det_mean'}."""
+        if self.dvf is None:
+            raise ValueError("compute_jacobian: no DVF computed yet")
+        if any(int(s) < 2 for s in np.shape(self.dvf)[:3]):
+            raise ValueError(
+                "compute_jacobian: every grid axis needs >= 2 samples "
+                f"for finite differences, got {np.shape(self.dvf)[:3]}")
+        inv_sp = [float(np.float32(1.0 / float(v))) for v in self.spacing]
+        det = _jacobian_det(as_f32(self.dvf, self.device), inv_sp)
+        det = det.cpu().numpy()
+        return {
+            "det": det,
+            "folding_fraction": float((det <= 0).mean()),
+            "det_min": float(det.min()),
+            "det_max": float(det.max()),
+            "det_mean": float(det.mean()),
+        }
+
+    def update_rois(self, roi_name=None, percent=100):
+        """Sync the ROI key-set with Data.roi_list. Warping a visible
+        moving ROI mesh through the field waits for the structure slice
+        and raises."""
+        for name in list(self.rois.keys()):
+            if name not in Data.roi_list:
+                del self.rois[name]
+        for name in Data.roi_list:
+            if name not in self.rois:
+                self.rois[name] = None
+                self.rigid_rois[name] = None
+
+        if self.moving_name is None \
+                or self.moving_name not in Data.image:
+            return
+        for name in Data.roi_list:
+            if roi_name is None or name == roi_name:
+                roi = Data.image[self.moving_name].rois.get(name)
+                if roi is not None and roi.mesh is not None and roi.visible:
+                    raise NotImplementedError(
+                        "Deformable.update_rois: warping ROI meshes through "
+                        "the field arrives with the structure slice "
+                        "(ROADMAP.md queue 1, item 6)")
+
+    @property
+    def display(self):
+        raise NotImplementedError(
+            "Deformable.display: the Display view state arrives with the "
+            "structure slice (ROADMAP.md queue 1, item 6)")
+
+    update_dose = _waits("update_dose", "item 8, dose and QA")
+    update_mask = _waits("update_mask", "item 6, structure layer")
+    update_pois = _waits("update_pois", "item 6, structure layer")
+    compute_tps = _waits("compute_tps", "item 7, the rest of deformable")
+    create_reg = _waits("create_reg", "item 7, the rest of deformable")
+    save_deformable = _waits("save_deformable",
+                             "item 7, the rest of deformable")
+    load_deformable = classmethod(_waits("load_deformable",
+                                         "item 7, the rest of deformable"))
+    export_image = _waits("export_image", "item 10, remaining compute")

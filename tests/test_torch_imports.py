@@ -49,7 +49,11 @@ def test_port_and_smoke_import_no_jax_optax_psutil():
     # every module of the slice was imported
     for name in ("ops.warp", "ops._build", "models.rigid_intensity",
                  "structure.rigid", "read.dicom", "parallel.batch",
-                 "interop", "utils.creation"):
+                 "interop", "utils.creation", "ops.filters",
+                 "ops.resample", "ops.registration.dvf",
+                 "ops.registration.demons", "ops.registration.bspline",
+                 "utils.deformable.torch_backend",
+                 "structure.deformable"):
         assert f"medicalimageanalysis_torch.{name}" in report["modules"]
 
 
