@@ -17,27 +17,37 @@ offset, and
                 -> compute_jacobian;  Deformable.compute_bspline
 
 on a third series, the reference warped by a known smooth field (plus SyN
-with LNCC forces and diffeomorphic demons on a reduced pair), and the
-cohort preprocess at the bench shape. Each phase prints
+with LNCC forces and diffeomorphic demons on a reduced pair), then the
+dose-QA path
+
+    read_dicoms (CT + RTSTRUCT + RTDOSE) -> Image.compute_roi_masks
+        -> Dose.compute_roi_dose_statistics / compute_dvh_curve per ROI
+        -> parallel.batch.dvh_batch;  Deformable.update_dose / update_mask
+
+on the reference series with a six-ROI structure set and a uint32 dose
+grid, and the cohort preprocess at the bench shape. Each phase prints
 one JSON line; any failure raises and exits non-zero. Near the end it
 prints the card's name and power limit (nvidia-smi) and a JSON line with
-every kernel's launches, error and times; the last line is
+every kernel's launches, error, times and bound; the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 It needs a CUDA card and the rest of the repository: without either it
 exits non-zero before printing any result. It imports torch, numpy,
-scipy and the port; nothing of JAX.
+scipy and the port; nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -63,6 +73,18 @@ DEMONS_PYRAMID = (4, 2, 1)
 RESIDUAL_LIMIT = 0.5
 FLOOR_EXCESS = 1.1
 FIELD_P95_LIMIT_MM = 0.5
+# dose QA (phase_dose_qa): a 30 mm spherical PTV and a 60 Gy plan
+PTV_RADIUS_MM = 30.0
+PTV_CENTER_MM = (-20.0, -15.0, -30.0)      # (x, y, z), inside the body
+PRESCRIPTION_GY = 60.0
+DOSE_SPACING_MM = 2.5
+DOSE_SCALING = 1.5e-8                      # 60 Gy -> 4.0e9 stored
+DVH_BINS = 300
+# the card's published peaks (H100 SXM at 700 W): the bound of a kernel
+# is the larger of its bytes over the memory rate and its operations
+# over the float32 rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 
 def emit(phase, **fields):
@@ -87,32 +109,97 @@ def cuda_ms(fn, reps=10, warmup=2):
     return start.elapsed_time(stop) / reps
 
 
-def profile_device(fn):
-    """Run ``fn()`` once under torch.profiler. Returns its wall ms, the
-    device events (kernels and copies) it issued, their summed device ms
-    and share of the wall time, the warp kernels among them and the
-    eight longest."""
+# the kernels' records in a profile, by the wrapper count they answer to
+WARP_MODES = {"0": "warp_coords", "1": "warp_affine", "2": "warp_disp"}
+
+
+def kernel_of(key):
+    """The wrapper count a device event answers to, or None."""
+    if "hist_kernel" in key:
+        return "dose_hist"
+    mode = re.search(r"warp_kernel<\(\(anonymous namespace\)::Mode\)(\d)", key)
+    return WARP_MODES[mode.group(1)] if mode else None
+
+
+def profile_device(fn, expect=()):
+    """Run ``fn()`` under torch.profiler. Returns its wall ms, the device
+    events (kernels and copies) it issued, their summed device ms and
+    share of the wall time, the port's kernel records among them per
+    wrapper (``profiled``, with their names and ms) beside the launches
+    the wrappers counted meanwhile (``wrapper_launches``), and the eight
+    longest events. The caller holds the two counts equal and each
+    kernel in ``expect`` launched (:func:`check_profile`): the card, not a
+    plain path, ran the kernels, and the device figures miss none of
+    them. Where they differ, ``events`` lists every event of the port's
+    kernels, every device event and the runtime calls: name, device
+    type, start (µs from the first event) and duration. The device
+    figures include the four small operations that open the window
+    (a few µs)."""
+    from medicalimageanalysis_torch.ops import hist, warp
+
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    before = {**warp.LAUNCHES, **hist.LAUNCHES}
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
     with torch.profiler.profile(activities=acts) as prof:
+        # a trace loses its first device records (PERF.md, PR 3 runs
+        # 3-10): a few small operations of the script's own go first
+        lead = torch.zeros(1, device="cuda")
+        for _ in range(3):
+            lead.add_(1.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t0)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    counted = {k: v - before[k]
+               for k, v in {**warp.LAUNCHES, **hist.LAUNCHES}.items()}
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
+    profiled = dict.fromkeys(counted, 0)
+    names, kernel_ms = set(), dict.fromkeys(counted, 0.0)
+    for e in events:
+        k = kernel_of(e.key)
+        if k is not None:
+            profiled[k] += e.count
+            kernel_ms[k] += e.self_device_time_total / 1e3
+            names.add(e.key[:90])
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
-    warp = [e for e in events if "warp_kernel" in e.key]
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
-    return dict(profiled_wall_ms=wall_ms,
-                device_events=sum(e.count for e in events),
-                device_ms=device_ms, device_share=device_ms / wall_ms,
-                warp_kernels=sorted(e.key for e in warp),
-                warp_launches=sum(e.count for e in warp),
-                warp_ms=sum(e.self_device_time_total for e in warp) / 1e3,
-                top_ms=[[e.key[:90], e.self_device_time_total / 1e3]
-                        for e in top])
+    out = dict(expect=list(expect), profiled_wall_ms=wall_ms,
+               device_events=sum(e.count for e in events),
+               device_ms=device_ms, device_share=device_ms / wall_ms,
+               profiled=profiled, wrapper_launches=counted,
+               kernel_ms=kernel_ms, kernels=sorted(names),
+               top_ms=[[e.key[:90], e.self_device_time_total / 1e3]
+                       for e in top])
+    if profiled != counted:
+        raw = prof.events()
+        first = min((e.time_range.start for e in raw), default=0)
+        out["events"] = [
+            [e.name[:60], str(e.device_type).split(".")[-1],
+             e.time_range.start - first,
+             e.time_range.end - e.time_range.start]
+            for e in raw if kernel_of(e.name) is not None
+            or e.device_type == torch.autograd.DeviceType.CUDA
+            or e.name.startswith(("cuda", "mia_torch::", "aten::copy_"))]
+    return out
+
+
+def check_profile(name, p):
+    assert p["profiled"] == p["wrapper_launches"], \
+        f"{name}: profiled kernel records {p['profiled']} != counted " \
+        f"launches {p['wrapper_launches']}"
+    missing = [k for k in p["expect"] if not p["wrapper_launches"][k]]
+    assert not missing, f"{name}: no {missing} kernel among {p['top_ms']}"
+
+
+def bound(nbytes, ops):
+    """The least time the card could take for a kernel's work: (ms,
+    'bytes' or 'operations')."""
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * ops / F32_OPS_PER_S
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def sync(dev):
@@ -144,21 +231,38 @@ def phase_device():
 
 
 def phase_build():
-    from medicalimageanalysis_torch.ops._build import (build_warp_library,
+    """The two CUDA sources and the C++ DICOM scanner, built at once (one
+    compiler process each)."""
+    from medicalimageanalysis_torch.ops._build import (build_library,
+                                                       load_hist_library,
                                                        load_warp_library)
     from medicalimageanalysis_torch.read.dicom import load_native_scanner
 
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        return out, time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    path, ptxas = build_warp_library()
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        warp = pool.submit(timed, build_library, "warp")
+        hist = pool.submit(timed, build_library, "hist")
+        scanner = pool.submit(timed, load_native_scanner)
+        (warp_path, warp_ptxas), warp_s = warp.result()
+        (hist_path, hist_ptxas), hist_s = hist.result()
+        lib, scanner_s = scanner.result()
+    assert lib is not None, "DICOM scanner did not build"
     load_warp_library()
-    seconds = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    assert load_native_scanner() is not None, "DICOM scanner did not build"
-    emit("build", seconds=seconds,
-         scanner_seconds=time.perf_counter() - t0,
-         library=os.path.relpath(path),
-         ptxas=[ln.strip() for ln in ptxas.splitlines()
-                if "registers" in ln or "spill" in ln])
+    load_hist_library()
+
+    def regs(ptxas):
+        return [ln.strip() for ln in ptxas.splitlines()
+                if "registers" in ln or "spill" in ln]
+
+    emit("build", seconds=time.perf_counter() - t0, warp_seconds=warp_s,
+         hist_seconds=hist_s, scanner_seconds=scanner_s,
+         libraries=[os.path.relpath(warp_path), os.path.relpath(hist_path)],
+         ptxas_warp=regs(warp_ptxas), ptxas_hist=regs(hist_ptxas))
 
 
 def smooth_warp(gen, shape, dev):
@@ -186,6 +290,50 @@ def smooth_warp(gen, shape, dev):
         flat[pick[n:n + 16]] = float(hi)            # exact far edge
         flat[pick[n + 16:n + 32]] = 0.0             # exact near edge
     return cz, cy, cx
+
+
+def library_sample_ms(vol, cz, cy, cx, want_grad=False):
+    """CUDA-event ms of the nearest PyTorch call to a warp mode on the
+    same inputs: ``F.grid_sample`` (3-D, bilinear, align_corners=True) of
+    the B volumes as channels at the normalised (x, y, z) grid, with the
+    grid's gradient (backward) when the mode fuses the coordinate
+    gradients. Its boundary differs: zeros padding blends samples up to
+    one voxel outside the volume, where the kernel clamps its taps and
+    sets ``background`` outside [0, dim-1]. The grid is built outside the
+    timed call."""
+    B, Z, Y, X = vol.shape
+    grid = torch.stack([cx * (2.0 / (X - 1)) - 1.0,
+                        cy * (2.0 / (Y - 1)) - 1.0,
+                        cz * (2.0 / (Z - 1)) - 1.0], -1)[None]
+    inp = vol[None]
+    if not want_grad:
+        ms = cuda_ms(lambda: F.grid_sample(inp, grid, mode="bilinear",
+                                           padding_mode="zeros",
+                                           align_corners=True))
+    else:
+        grid.requires_grad_(True)
+        ones = torch.ones((1, B) + tuple(cz.shape), device=vol.device)
+
+        def fwd_bwd():
+            out = F.grid_sample(inp, grid, mode="bilinear",
+                                padding_mode="zeros", align_corners=True)
+            return torch.autograd.grad(out, grid, ones)
+
+        ms = cuda_ms(fwd_bwd)
+    del grid
+    torch.cuda.empty_cache()
+    return ms
+
+
+def warp_bound(n_in, n_out, B, n_coord_inputs, want_grad):
+    """bound() of a warp call: B volumes of n_in voxels and
+    ``n_coord_inputs`` float32 coordinate or displacement volumes of
+    n_out voxels read once, B (4 B with gradients) outputs written
+    once; 30 float32 operations per output sample (the 7 lerps of 3
+    and the taps' weights), 30 more with gradients."""
+    outs = B * (4 if want_grad else 1)
+    nbytes = 4 * (B * n_in + n_coord_inputs * n_out + outs * n_out)
+    return bound(nbytes, B * n_out * (60 if want_grad else 30))
 
 
 def pyramid_shapes():
@@ -221,6 +369,11 @@ def phase_warp_coords(gen, dev):
                     lambda: warp_coords_plain(vol, cz, cy, cx, bg, want),
                     reps=3, warmup=1)
                 rows[key] = dict(max_abs_err=errs, ms=ms, plain_ms=plain_ms)
+                if shape == SHAPE and B == 1 and want:
+                    rows[key]["library_ms"] = library_sample_ms(
+                        vol, cz, cy, cx, want_grad=True)
+                    rows[key]["bound_ms"], rows[key]["bound_by"] = \
+                        warp_bound(vol[0].numel(), cz.numel(), 1, 3, True)
             del vol, k, p
         del cz, cy, cx
     emit("warp_coords", tolerance=0.0, **rows)
@@ -228,7 +381,9 @@ def phase_warp_coords(gen, dev):
     # the registration's finest-level call
     main = rows["x".join(map(str, SHAPE)) + "_B1_grad1"]
     return dict(max_abs_err=max(max(r["max_abs_err"]) for r in rows.values()),
-                ms=main["ms"], plain_ms=main["plain_ms"])
+                ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=main["library_ms"])
 
 
 def affine_cases():
@@ -272,12 +427,22 @@ def phase_warp_affine(gen, dev):
             plain_ms=cuda_ms(lambda: warp_affine_plain(vol, coef, SHAPE,
                                                        -3001.0),
                              reps=3, warmup=1))
+    from medicalimageanalysis_torch.ops.warp import affine_coords
+
+    main = rows["near_identity"]
+    cz, cy, cx = affine_coords(torch.as_tensor(
+        affine_cases()["near_identity"], device=dev), SHAPE)
+    main["library_ms"] = library_sample_ms(vol, cz, cy, cx)
+    main["bound_ms"], main["bound_by"] = warp_bound(
+        vol.numel(), cz.numel(), 1, 0, False)
+    del cz, cy, cx
     emit("warp_affine", shape=list(SHAPE), tolerance=0.0, **rows)
     del vol
     torch.cuda.empty_cache()
-    main = rows["near_identity"]
     return dict(max_abs_err=max(r["max_abs_err"] for r in rows.values()),
-                ms=main["ms"], plain_ms=main["plain_ms"])
+                ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=main["library_ms"])
 
 
 def smooth_disp(gen, shape, dev, special=False):
@@ -347,6 +512,16 @@ def phase_warp_disp(gen, dev):
                     row["plain_ms"] = cuda_ms(
                         lambda: warp_disp_plain(vol, disp, bg, want),
                         reps=3, warmup=1)
+                if field == "smooth" and shape == SHAPE and B == 4:
+                    zz, yy, xx = (torch.arange(n, device=dev,
+                                               dtype=torch.float32)
+                                  for n in shape)
+                    row["library_ms"] = library_sample_ms(
+                        vol, zz[:, None, None] + disp[2],
+                        yy[None, :, None] + disp[1],
+                        xx[None, None, :] + disp[0])
+                    row["bound_ms"], row["bound_by"] = warp_bound(
+                        vol[0].numel(), disp[0].numel(), B, 3, want)
                 rows[key] = row
                 del vol, k, p
             del disp
@@ -355,7 +530,92 @@ def phase_warp_disp(gen, dev):
     # the fast-demons iteration's call at full size
     main = rows["x".join(map(str, SHAPE)) + "_B4_grad0_smooth"]
     return dict(max_abs_err=max(max(r["max_abs_err"]) for r in rows.values()),
-                ms=main["ms"], plain_ms=main["plain_ms"])
+                ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=main["library_ms"])
+
+
+def hist_case(gen, n, thresholds, dev, valid_all=False):
+    """Doses uniform on [0, 70) Gy with ~1 % special values (NaN, +-inf,
+    -0.0, 1e-40 and doses exactly on a threshold); ``valid`` drawn from
+    {0, 1, 0.5, -1, NaN}, or all 1."""
+    dose = torch.rand(n, generator=gen, device=dev) * 70.0
+    k = max(1, n // 100)
+    pick = torch.randint(0, n, (k,), generator=gen, device=dev)
+    special = torch.tensor([float("nan"), float("inf"), -float("inf"),
+                            -0.0, 1e-40], device=dev)
+    finite = thresholds[torch.isfinite(thresholds)]
+    pool = torch.cat([special, finite])
+    dose[pick] = pool[torch.randint(0, pool.numel(), (k,), generator=gen,
+                                    device=dev)]
+    if valid_all:
+        valid = torch.ones(n, device=dev)
+    else:
+        values = torch.tensor([0.0, 1.0, 0.5, -1.0, float("nan")],
+                              device=dev)
+        valid = values[torch.randint(0, 5, (n,), generator=gen, device=dev)]
+    return dose, valid
+
+
+def phase_hist(gen, dev):
+    """Kernel against plain twin, bit-equal on the counts, for N in {1,
+    2047, 2049, 13 M} with 300 sorted thresholds and with 23 unsorted,
+    repeated ones (NaN, +-inf, -0.0 among them), one case of 1100
+    thresholds (three slices of bins in one launch) and one whose top
+    bins hold more than 2^24 voxels. Kernel and plain ms for each.
+
+    The bound is the function's, not this design's: the bytes (dose and
+    valid read once, thresholds read, counts written) against about
+    ceil(log2(n_bins + 1)) compares per voxel, a binary search of the
+    sorted thresholds."""
+    from medicalimageanalysis_torch.ops.hist import _hist_plain
+
+    op = torch.ops.mia_torch.dose_hist
+    sorted_thr = torch.linspace(0.0, 66.0, DVH_BINS, device=dev)
+    base = torch.tensor([0.0, 5.0, 5.0, 60.0, -0.0, float("nan"),
+                         float("inf"), -float("inf"), 30.0, 1e-40, 65.0,
+                         12.5], device=dev)
+    mixed = torch.cat([base, sorted_thr[torch.randperm(
+        DVH_BINS, generator=gen, device=dev)[:11]]])
+    mixed = mixed[torch.randperm(23, generator=gen, device=dev)]
+    cases = [(f"n{n}_{name}", n, thr, False)
+             for n in (1, 2047, 2049, 13_000_000)
+             for name, thr in (("300sorted", sorted_thr),
+                               ("23unsorted", mixed))]
+    many = torch.cat([torch.linspace(-1.0, 71.0, 1092, device=dev),
+                      base[:8]])
+    many = many[torch.randperm(many.numel(), generator=gen, device=dev)]
+    cases.append(("n1000003_1100unsorted", 1_000_003, many, False))
+    cases.append(("n20000000_300sorted_allvalid", 20_000_000, sorted_thr,
+                  True))
+    rows = {}
+    for key, n, thr, valid_all in cases:
+        dose, valid = hist_case(gen, n, thr, dev, valid_all)
+        k = op(dose, valid, thr)
+        p = _hist_plain(dose, valid, thr)
+        torch.cuda.synchronize()
+        err = int((k - p).abs().max())
+        assert err == 0, f"dose_hist {key}: kernel != plain ({err})"
+        rows[key] = dict(max_abs_err=err, max_count=int(k.max()),
+                         ms=cuda_ms(lambda: op(dose, valid, thr)),
+                         plain_ms=cuda_ms(lambda: _hist_plain(dose, valid,
+                                                              thr),
+                                          reps=3, warmup=1))
+        if n == 13_000_000 and thr is sorted_thr:
+            nb = thr.numel()
+            rows[key]["bound_ms"], rows[key]["bound_by"] = bound(
+                4 * (2 * n + nb) + 8 * nb,
+                n * math.ceil(math.log2(nb + 1)))
+        del dose, valid, k, p
+    big = rows["n20000000_300sorted_allvalid"]["max_count"]
+    assert big > 2 ** 24, f"no bin above 2^24 voxels ({big})"
+    emit("hist", tolerance=0, bins_above_2pow24=True, **rows)
+    torch.cuda.empty_cache()
+    main = rows["n13000000_300sorted"]
+    return dict(max_abs_err=max(r["max_abs_err"] for r in rows.values()),
+                ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=None)
 
 
 # ---------------------------------------------------------------------------
@@ -608,6 +868,294 @@ def phase_deformable_variants(names, dev):
     emit("deformable_variants", shape=list(small), iterations=10, **rows)
 
 
+# ---------------------------------------------------------------------------
+# dose QA: a clinical structure set and a dose plan on the reference CT
+def norm_to_mm(axis, v):
+    """Phantom coordinate v in [-1, 1] along axis 'x', 'y' or 'z' -> mm on
+    the reference grid."""
+    i = "xyz".index(axis)
+    n = SHAPE[2 - i]
+    return REF_ORIGIN[i] + SPACING[i] * (v + 1.0) * (n - 1) / 2.0
+
+
+def slice_z(k):
+    return REF_ORIGIN[2] + SPACING[2] * k
+
+
+def loop_mm(k, cx_n, cy_n, rx_n, ry_n, n, indent=None):
+    """(n, 3) mm polygon on slice k: an ellipse of normalised centre and
+    radii, optionally pushed in by 35 % around direction ``indent``
+    (radians) to make it concave."""
+    a = np.linspace(0, 2 * np.pi, n, endpoint=False)
+    r = np.ones(n)
+    if indent is not None:
+        d = np.angle(np.exp(1j * (a - indent)))
+        r = 1.0 - 0.35 * np.exp(-d ** 2 / 0.25)
+    x = norm_to_mm("x", cx_n + rx_n * r * np.cos(a))
+    y = norm_to_mm("y", cy_n + ry_n * r * np.sin(a))
+    return np.stack([x, y, np.full(n, slice_z(k))], axis=1)
+
+
+def structure_set():
+    """{roi: [(contour (N, 3) mm, slice index), ...]}: the phantom's
+    body (every slice, 256 vertices), two concave lungs (the left with an
+    inner contour, an XOR hole, on its middle slices), heart, spinal
+    cord, oesophagus, and a spherical PTV of radius PTV_RADIUS_MM."""
+    Z = SHAPE[0]
+    zn = np.linspace(-1, 1, Z)
+    rois = {name: [] for name in ("Body", "Lung_L", "Lung_R", "Heart",
+                                  "SpinalCord", "Esophagus", "PTV")}
+
+    def ellipsoid(name, c, r, n, indent=None, hole=None):
+        for k in range(Z):
+            t = 1.0 - ((zn[k] - c[0]) / r[0]) ** 2
+            if t <= 0.05:
+                continue
+            f = np.sqrt(t)
+            rois[name].append((loop_mm(k, c[2], c[1], r[2] * f, r[1] * f, n,
+                                       indent), k))
+            if hole is not None and abs(zn[k] - c[0]) < hole * r[0]:
+                rois[name].append((loop_mm(k, c[2] - 0.3 * r[2] * f, c[1],
+                                           0.3 * r[2] * f, 0.3 * r[1] * f,
+                                           24), k))
+
+    # the phantom's ellipsoids (phantom()), z radius 1.2 covers every slice
+    ellipsoid("Body", (0.0, 0.05, 0.02), (1.2, 0.62, 0.8), 256)
+    ellipsoid("Lung_L", (0.1, -0.05, -0.33), (0.8, 0.35, 0.25), 64,
+              indent=0.0, hole=0.3)
+    ellipsoid("Lung_R", (0.05, -0.08, 0.36), (0.7, 0.33, 0.22), 64,
+              indent=np.pi)
+    ellipsoid("Heart", (-0.3, 0.1, 0.15), (0.25, 0.15, 0.12), 64)
+    for k in range(Z):
+        rois["SpinalCord"].append((loop_mm(k, 0.0, 0.45, 0.035, 0.04, 32),
+                                   k))
+        rois["Esophagus"].append((loop_mm(k, 0.05, 0.3, 0.03, 0.03, 32), k))
+    cx, cy, cz = PTV_CENTER_MM
+    a = np.linspace(0, 2 * np.pi, 128, endpoint=False)
+    for k in range(Z):
+        dz = slice_z(k) - cz
+        if abs(dz) >= PTV_RADIUS_MM:
+            continue
+        r = np.sqrt(PTV_RADIUS_MM ** 2 - dz ** 2)
+        rois["PTV"].append((np.stack([cx + r * np.cos(a), cy + r * np.sin(a),
+                                      np.full(128, slice_z(k))], 1), k))
+    return rois
+
+
+def dose_plan():
+    """(Z, Y, X) Gy on a DOSE_SPACING_MM grid over the reference CT: the
+    prescription within 2 mm of the PTV, falling off smoothly to 5 Gy.
+    Returns (dose, origin)."""
+    extent = [SPACING[i] * (SHAPE[2 - i] - 1) for i in range(3)]
+    n = [int(np.ceil(e / DOSE_SPACING_MM)) + 1 for e in extent]  # x, y, z
+    origin = np.asarray(REF_ORIGIN, np.float64)
+    zz, yy, xx = np.meshgrid(*(origin[i] + DOSE_SPACING_MM * np.arange(n[i])
+                               for i in (2, 1, 0)), indexing="ij")
+    cx, cy, cz = PTV_CENTER_MM
+    r = np.sqrt((xx - cx) ** 2 + (yy - cy) ** 2 + (zz - cz) ** 2)
+    edge = PTV_RADIUS_MM + 2.0
+    falloff = 5.0 + (PRESCRIPTION_GY - 5.0) * np.exp(
+        -(r - edge) ** 2 / (2 * 20.0 ** 2))
+    return np.where(r <= edge, PRESCRIPTION_GY, falloff), origin
+
+
+def write_rt(folder, img):
+    """RTSTRUCT and RTDOSE for the reference series, written with the
+    port's own DICOM writer (tests/helpers.py's layout). Returns the
+    number of contours."""
+    from medicalimageanalysis_torch.dicom import (Dataset, Sequence,
+                                                  dcmwrite, generate_uid,
+                                                  uids)
+
+    def base(modality, sop_class):
+        ds = Dataset()
+        ds.SOPClassUID = sop_class
+        ds.SOPInstanceUID = generate_uid()
+        ds.Modality = modality
+        ds.PatientName = "Smoke^Patient"
+        ds.PatientID = "SMOKE"
+        return ds
+
+    rois = structure_set()
+    ds = base("RTSTRUCT", uids.RTStructureSetStorage)
+    ds.StructureSetLabel = "smoke"
+    series_item = Dataset()
+    series_item.SeriesInstanceUID = img.series_uid
+    study_item = Dataset()
+    study_item.RTReferencedSeriesSequence = Sequence([series_item])
+    for_item = Dataset()
+    for_item.ReferencedFrameOfReferenceUID = img.frame_ref
+    for_item.RTReferencedStudySequence = Sequence([study_item])
+    ds.ReferencedFrameOfReferenceSequence = Sequence([for_item])
+    roi_seq, contour_seq = Sequence(), Sequence()
+    for number, (name, contours) in enumerate(rois.items(), start=1):
+        s = Dataset()
+        s.ROINumber = number
+        s.ROIName = name
+        s.ReferencedFrameOfReferenceUID = img.frame_ref
+        roi_seq.append(s)
+        item = Dataset()
+        item.ReferencedROINumber = number
+        item.ROIDisplayColor = [255, 40 * number % 256, 0]
+        cs = Sequence()
+        for xyz, k in contours:
+            c = Dataset()
+            c.ContourGeometricType = "CLOSED_PLANAR"
+            ref = Dataset()
+            ref.ReferencedSOPClassUID = uids.CTImageStorage
+            ref.ReferencedSOPInstanceUID = f"{REF_UID}.{k}"
+            c.ContourImageSequence = Sequence([ref])
+            c.ContourData = [float(v) for v in np.round(xyz, 3).reshape(-1)]
+            c.NumberOfContourPoints = len(xyz)
+            cs.append(c)
+        item.ContourSequence = cs
+        contour_seq.append(item)
+    ds.StructureSetROISequence = roi_seq
+    ds.ROIContourSequence = contour_seq
+    dcmwrite(os.path.join(folder, "rs.dcm"), ds)
+
+    dose, origin = dose_plan()
+    rd = base("RTDOSE", uids.RTDoseStorage)
+    rd.FrameOfReferenceUID = img.frame_ref
+    rd.ImagePositionPatient = [float(v) for v in origin]
+    rd.ImageOrientationPatient = [1, 0, 0, 0, 1, 0]
+    rd.PixelSpacing = [DOSE_SPACING_MM, DOSE_SPACING_MM]
+    rd.SliceThickness = DOSE_SPACING_MM
+    rd.GridFrameOffsetVector = [DOSE_SPACING_MM * i
+                                for i in range(dose.shape[0])]
+    rd.DoseGridScaling = DOSE_SCALING
+    rd.DoseUnits = "GY"
+    rd.DoseType = "PHYSICAL"
+    rd.DoseSummationType = "PLAN"
+    rd.NumberOfFrames = dose.shape[0]
+    rd.Rows, rd.Columns = dose.shape[1], dose.shape[2]
+    rd.BitsAllocated = rd.BitsStored = 32
+    rd.HighBit = 31
+    rd.PixelRepresentation = 0
+    rd.SamplesPerPixel = 1
+    rd.PhotometricInterpretation = "MONOCHROME2"
+    rd.PixelData = np.round(dose / DOSE_SCALING).astype("<u4").tobytes()
+    dcmwrite(os.path.join(folder, "rd.dcm"), rd)
+    return sum(len(c) for c in rois.values()), dose.shape
+
+
+def phase_dose_qa(folder, names, dev):
+    """The dose-QA path on the reference CT at full size: read_dicoms on
+    its folder (CT + RTSTRUCT + RTDOSE), the pooled ROI masks, per ROI
+    the DVH statistics and the 300-bin curve, dvh_batch over the ROIs;
+    then Deformable.update_dose / update_mask on the deformed pair and
+    the DVH of the warped dose."""
+    import medicalimageanalysis_torch as mia
+    from medicalimageanalysis_torch.data import Data
+    from medicalimageanalysis_torch.ops.dvh import dvh_statistics
+    from medicalimageanalysis_torch.ops.resample import (affine_resample,
+                                                         compose_pixel_matrix)
+    from medicalimageanalysis_torch.parallel.batch import (dvh_batch,
+                                                           rasterize_batch)
+    from medicalimageanalysis_torch.utils.metrics import voxel_volume_cc
+
+    def timed(fn):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    rt_folder = os.path.join(folder, "ref")
+    n_contours, dose_shape = write_rt(rt_folder, Data.image[names["ref"]])
+    _, read_ms = timed(lambda: mia.read_dicoms(folder_path=rt_folder,
+                                               clear=False, device=dev))
+    img_name = [n for n in Data.image_list
+                if Data.image[n].rois.get("Body") is not None
+                and Data.image[n].rois["Body"].contour_pixel is not None]
+    assert len(img_name) == 1, img_name
+    img_name = img_name[0]
+    img = Data.image[img_name]
+    dose_name = Data.dose_list[-1]
+    dose = Data.dose[dose_name]
+    roi_names = [n for n in img.rois if img.rois[n].contour_pixel is not None]
+    assert len(roi_names) >= 6, roi_names
+    masks, masks_ms = timed(lambda: img.compute_roi_masks(roi_names))
+    # the same function on the CPU: bit-equal masks
+    cpu = rasterize_batch([img.rois[n].contour_pixel for n in roi_names],
+                          tuple(int(v) for v in img.dimensions),
+                          device="cpu")
+    for i, n in enumerate(roi_names):
+        assert np.array_equal(masks[n], cpu[i]), f"{n}: card mask != CPU"
+    del cpu
+
+    stats, rows = {}, {}
+    for n in roi_names:
+        stats[n], stats_ms = timed(
+            lambda: dose.compute_roi_dose_statistics(img_name, n))
+        (bins, vol_pct), curve_ms = timed(
+            lambda: dose.compute_dvh_curve(img_name, n, n_bins=DVH_BINS))
+        assert np.isfinite(vol_pct).all() and vol_pct.shape == (DVH_BINS,)
+        assert vol_pct[0] == 100.0 and np.all(np.diff(vol_pct) <= 0)
+        rows[n] = dict(voxels=int(masks[n].sum()),
+                       volume_cc=stats[n]["Volume (cc)"],
+                       D95=stats[n]["D95"], Dmean=stats[n]["Dmean"],
+                       stats_ms=stats_ms, curve_ms=curve_ms)
+    # PTV: the rasterized sphere against the analytic one. The fill
+    # convention (interior + 8-connected boundary, cv2's) adds about half
+    # a pixel of radius in-plane, so the 2 % limit applies to the
+    # contoured slices' discs grown by that half pixel; the plain ratio
+    # to 4/3 pi R^3 is printed beside it
+    ptv_mm3 = 1e3 * stats["PTV"]["Volume (cc)"]
+    sphere_mm3 = 4.0 / 3.0 * np.pi * PTV_RADIUS_MM ** 3
+    cz = PTV_CENTER_MM[2]
+    discs_mm3 = sum(np.pi * (np.sqrt(PTV_RADIUS_MM ** 2
+                                     - (slice_z(k) - cz) ** 2)
+                             + SPACING[0] / 2) ** 2 * SPACING[2]
+                    for k in range(SHAPE[0])
+                    if abs(slice_z(k) - cz) < PTV_RADIUS_MM)
+    assert abs(ptv_mm3 / discs_mm3 - 1) <= 0.02, (ptv_mm3, discs_mm3)
+    assert stats["PTV"]["D95"] >= 55.0, stats["PTV"]["D95"]
+
+    # dvh_batch over the ROIs, on the dose resampled onto the CT grid
+    A = compose_pixel_matrix(dose.matrix, dose.spacing, dose.origin,
+                             img.matrix, img.spacing, img.origin)
+    grid = affine_resample(dose.array, A, img.array.shape, background=0.0,
+                           device=dev)
+    B = len(roi_names)
+    mask_t = torch.stack([torch.as_tensor(masks[n], device=dev)
+                          for n in roi_names])
+    batch, batch_ms = timed(lambda: dvh_batch(
+        grid.expand((B,) + tuple(grid.shape)), mask_t,
+        voxel_volume_cc(img.spacing), device=dev))
+    for b, n in enumerate(roi_names):
+        for key in ("Volume (cc)", "Dmin", "Dmax", "D95", "D50",
+                    "VS20Gy_cc", "VS50Gy_percent"):
+            assert np.isclose(batch[key][b], stats[n][key], rtol=1e-6,
+                              atol=0), (n, key, batch[key][b], stats[n][key])
+        assert np.isclose(batch["Dmean"][b], stats[n]["Dmean"], rtol=1e-5)
+    del grid, mask_t
+
+    # adaptive RT: the plan dose warped through the deformable pair
+    deform = Data.deformable[f"DVF_{names['ref']}_{names['deformed']}"]
+    warped, warp_ms = timed(lambda: deform.update_dose(dose_name))
+    ptv = torch.as_tensor(masks["PTV"], device=dev) > 0
+    warped_t = torch.as_tensor(warped["array"], device=dev)
+    w_stats, w_ms = timed(lambda: dvh_statistics(
+        warped_t[ptv], voxel_volume_cc(img.spacing), roi_name="PTV"))
+    w_mask, mask_warp_ms = timed(lambda: deform.update_mask(masks["PTV"]))
+    assert np.isfinite(warped["array"]).all()
+    assert w_mask.shape == SHAPE and w_mask.sum() > 0
+    assert np.isfinite(w_stats["D95"]) and w_stats["Dmax"] <= 60.001
+    emit("dose_qa", shape=list(SHAPE), rois=len(roi_names),
+         contours=n_contours, dose_grid=list(dose_shape),
+         read_ms=read_ms, masks_ms=masks_ms,
+         masks_ms_per_roi=masks_ms / len(roi_names),
+         masks_equal_cpu=True, ptv_mm3=ptv_mm3,
+         ptv_over_sphere=ptv_mm3 / sphere_mm3,
+         ptv_over_discs=ptv_mm3 / discs_mm3, ptv_d95=stats["PTV"]["D95"],
+         dvh_batch_ms=batch_ms, update_dose_ms=warp_ms,
+         warped_ptv_dvh_ms=w_ms, warped_ptv_d95=w_stats["D95"],
+         update_mask_ms=mask_warp_ms, warped_ptv_voxels=int(w_mask.sum()),
+         per_roi=rows)
+    return img_name, dose_name
+
+
 def phase_ingest(folder, dev):
     import medicalimageanalysis_torch as mia
     from medicalimageanalysis_torch.data import Data
@@ -768,7 +1316,7 @@ def main():
               "card", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from medicalimageanalysis_torch.ops import warp
+    from medicalimageanalysis_torch.ops import hist, warp
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -778,31 +1326,45 @@ def main():
     phase_build()
     kernels = {"warp_coords": phase_warp_coords(gen, dev),
                "warp_affine": phase_warp_affine(gen, dev),
-               "warp_disp": phase_warp_disp(gen, dev)}
+               "warp_disp": phase_warp_disp(gen, dev),
+               "dose_hist": phase_hist(gen, dev)}
+
+    def reset_counts():
+        for counts in (warp.LAUNCHES, hist.LAUNCHES):
+            for key in counts:
+                counts[key] = 0
+
+    def read_counts():
+        return {**warp.LAUNCHES, **hist.LAUNCHES}
 
     with tempfile.TemporaryDirectory(prefix="mia_smoke_") as folder:
         truth, ref = write_pair(cpu_gen, folder)
-        for key in warp.LAUNCHES:          # the rigid path starts here
-            warp.LAUNCHES[key] = 0
+        reset_counts()                     # the rigid path starts here
         names = phase_ingest(folder, dev)
         rigid, warm = phase_rigid(names, truth)
         phase_reslice(rigid, dev)
-        rigid_launches = dict(warp.LAUNCHES)    # ... and ends here
+        rigid_launches = read_counts()     # ... and ends here
         deformed = os.path.join(folder, "deformed")
         write_deformed(ref, deformed)
         del ref
-        for key in warp.LAUNCHES:          # the deformable path starts here
-            warp.LAUNCHES[key] = 0
+        reset_counts()                     # the deformable path starts here
         names = phase_deformable(deformed, names, dev)
         phase_deformable_variants(names, dev)
-        deformable_launches = dict(warp.LAUNCHES)   # ... and ends here
+        deformable_launches = read_counts()    # ... and ends here
+        reset_counts()                     # the dose-QA path starts here
+        img_name, dose_name = phase_dose_qa(folder, names, dev)
+        dose_qa_launches = read_counts()   # ... and ends here
     assert rigid_launches["warp_coords"] and rigid_launches["warp_affine"], \
         f"a kernel of the rigid path never launched: {rigid_launches}"
-    assert all(deformable_launches.values()), \
+    assert all(deformable_launches[k] for k in warp.LAUNCHES), \
         f"a kernel of the deformable path never launched: " \
         f"{deformable_launches}"
+    assert all(dose_qa_launches[k] for k in
+               ("dose_hist", "warp_affine", "warp_coords", "warp_disp")), \
+        f"a kernel of the dose-QA path never launched: {dose_qa_launches}"
     launches = {k: rigid_launches[k] + deformable_launches[k]
                 for k in warp.LAUNCHES}
+    launches["dose_hist"] = dose_qa_launches["dose_hist"]
 
     # the paths' calls again, each under the profiler: the hand-written
     # kernel, not a plain path, must be what ran on the card. The
@@ -813,21 +1375,31 @@ def main():
         bspline_registration)
     from medicalimageanalysis_torch.ops.registration.demons import (
         demons_registration)
+    from medicalimageanalysis_torch.parallel.batch import rasterize_batch
 
     fixed = Data.image[names["ref"]].array
     moving = Data.image[names["deformed"]].array
     profiles = {
-        "rigid": profile_device(rigid.compute_intensity),
-        "reslice": profile_device(rigid.create_image),
+        "rigid": profile_device(rigid.compute_intensity, ["warp_coords"]),
+        "reslice": profile_device(rigid.create_image, ["warp_affine"]),
         # one full-size demons level (50 iterations) and one B-spline call
         # (100 steps), each from host arrays to a host field
         "demons_level": profile_device(lambda: demons_registration(
-            fixed, moving, SPACING, method="fast", device=dev)),
+            fixed, moving, SPACING, method="fast", device=dev),
+            ["warp_disp"]),
         "bspline": profile_device(lambda: bspline_registration(
-            fixed, moving, SPACING, device=dev))}
-    for name, p in profiles.items():
-        assert p["warp_kernels"], \
-            f"{name}: no warp kernel among the CUDA kernels {p['top_ms']}"
+            fixed, moving, SPACING, device=dev), ["warp_disp"]),
+        # one DVH curve of the largest ROI, from the cached mask
+        "dvh_curve_body": profile_device(
+            lambda: Data.dose[dose_name].compute_dvh_curve(
+                img_name, "Body", n_bins=DVH_BINS),
+            ["warp_affine", "dose_hist"]),
+        # the pooled rasterization of the structure set alone, without
+        # the mask cache's host bit-packing
+        "rasterize_batch": profile_device(lambda: rasterize_batch(
+            [roi.contour_pixel for roi in Data.image[img_name].rois.values()
+             if roi.contour_pixel is not None],
+            tuple(int(v) for v in Data.image[img_name].dimensions)))}
     descent = profiles["rigid"]
     descent["device_events_per_step"] = \
         descent["device_events"] / sum(s for _, s, _ in RIGID_LEVELS)
@@ -842,15 +1414,26 @@ def main():
         profiles["bspline"]["device_events"] / 100
     emit("kernel_ran", launches=launches,
          launches_rigid_path=rigid_launches,
-         launches_deformable_path=deformable_launches, **profiles)
+         launches_deformable_path=deformable_launches,
+         launches_dose_qa_path=dose_qa_launches, **profiles)
+    for name, p in profiles.items():
+        check_profile(name, p)
     phase_preprocess(cpu_gen, dev)
-    assert "jax" not in sys.modules
+    # the port and this script ran without JAX and without the JAX package
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "medicalimageanalysis_tpu"))
+    assert not loaded, f"JAX or the JAX package was imported: {loaded}"
 
     rows = [{"name": name, "route": "cuda",
              "source": "medicalimageanalysis_torch/csrc/warp.cu",
              "replaces": "medicalimageanalysis_tpu/ops/pallas_warp.py:181",
              "launches": launches[name], **kernels[name]}
             for name in ("warp_coords", "warp_affine", "warp_disp")]
+    rows.append({"name": "dose_hist", "route": "cuda",
+                 "source": "medicalimageanalysis_torch/csrc/hist.cu",
+                 "replaces":
+                 "medicalimageanalysis_tpu/ops/pallas_kernels.py:29",
+                 "launches": launches["dose_hist"], **kernels["dose_hist"]})
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,10 +13,20 @@ the JAX package's layout and names; the slices ported so far cover
     deform.compute_bspline()                      # disp mode with gradients
     deform.create_image()                         # coords + disp modes
     deform.compute_jacobian()
+    mia.read_dicoms(folder_path=...)              # CT + RTSTRUCT + RTDOSE
+    mia.Data.image["CT 01"].compute_roi_masks()   # pooled device rasterizer
+    dose = mia.Data.dose["RTDOSE 01"]
+    dose.compute_roi_dose_statistics("CT 01", "PTV")  # affine mode + sort
+    dose.compute_dvh_curve("CT 01", "PTV")        # CUDA histogram kernel
+    deform.update_dose("RTDOSE 01")               # affine, coords, disp
 
-The package imports ``torch`` and never ``jax``; of the JAX package it uses
-only the jax-free host modules ``medicalimageanalysis_tpu.dicom`` and
-``medicalimageanalysis_tpu.native``.
+Every entry point runs on the card unless the caller passes
+``device="cpu"`` or calls ``device.set_default_device("cpu")``; without
+a card and without that request it raises.
+
+The package imports ``torch`` and never ``jax``, and nothing of the JAX
+package: ``dicom`` and ``native`` are its own copies of that package's
+host DICOM core.
 """
 
 __version__ = "0.1.0"

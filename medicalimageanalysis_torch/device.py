@@ -14,12 +14,33 @@ import contextlib
 
 import torch
 
-__all__ = ["as_f32", "default_device", "full_float32", "set_numerics"]
+__all__ = ["as_f32", "default_device", "full_float32", "set_default_device",
+           "set_numerics"]
+
+_requested = None
+
+
+def set_default_device(device):
+    """Make ``device`` (e.g. ``"cpu"``) the device of every entry point
+    called without one; ``None`` goes back to the card."""
+    global _requested
+    _requested = None if device is None else torch.device(device)
 
 
 def default_device():
-    """``cuda`` when a card is present, else ``cpu``."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The device an entry point runs on when the caller names none: the
+    one asked for through :func:`set_default_device`, else ``cuda``. With
+    no card and no request it raises: the port never falls back to the
+    CPU unasked."""
+    if _requested is not None:
+        return _requested
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card. To run on the CPU, "
+            "pass device='cpu' to the entry point or call "
+            "medicalimageanalysis_torch.device.set_default_device('cpu') "
+            "first.")
+    return torch.device("cuda")
 
 
 def as_f32(a, device=None):

@@ -1,8 +1,8 @@
-"""State carried across packages: images and registrations.
+"""State carried across packages: images, ROIs, doses and registrations.
 
 The system has no learned weights; its state is the registry — image
-arrays with their geometry, registration matrices and deformation
-fields. These helpers
+arrays with their geometry, ROI contours, dose grids, registration
+matrices and deformation fields. These helpers
 build port objects from plain numpy values, so the JAX package and the
 port can compute on identical state. Nothing here imports the JAX package.
 """
@@ -15,8 +15,8 @@ import numpy as np
 
 from .data import Data
 
-__all__ = ["deformable_from_numpy", "image_from_arrays", "import_image",
-           "rigid_from_matrix"]
+__all__ = ["deformable_from_numpy", "dose_from_numpy", "image_from_arrays",
+           "import_image", "rigid_from_matrix", "rois_from_numpy"]
 
 
 def image_from_arrays(array, spacing, origin, matrix, modality, name,
@@ -26,7 +26,7 @@ def image_from_arrays(array, spacing, origin, matrix, modality, name,
     array (Z, Y, X); spacing [sx, sy, sz] mm; origin (3,) mm; matrix 3x3
     with rows the +x/+y/+z pixel directions; ``tags`` an optional list of
     per-slice datasets (metadata falls back to the getters' sentinels)."""
-    from medicalimageanalysis_tpu.dicom import Dataset
+    from .dicom import Dataset
 
     from .structure.image import Image
 
@@ -86,3 +86,46 @@ def deformable_from_numpy(dvf, origin, spacing, reference_name, moving_name,
                       else np.asarray(rigid_matrix, dtype=np.float64)),
         registration_name=name, reference_name=reference_name,
         moving_name=moving_name, device=device)
+
+
+def rois_from_numpy(image, contours, plane="Axial"):
+    """Add ROIs to a port ``Image`` (or the name of one) from physical
+    contours: ``contours`` maps a name to a list of (N, 3) mm arrays (a
+    JAX-package Roi's ``contour_position``). Returns the image's ROIs."""
+    from .structure.roi import Roi
+
+    image = Data.image[image] if isinstance(image, str) else image
+    for name, position in contours.items():
+        image.rois[name] = Roi(
+            image, position=[np.asarray(p, dtype=np.float64)
+                             for p in position],
+            name=name, plane=plane)
+    Data.match_rois()
+    return image.rois
+
+
+def dose_from_numpy(array, spacing, origin, matrix, name="RTDOSE 01",
+                    tags=None):
+    """Build and register a port ``Dose`` from numpy values (a
+    JAX-package Dose's ``array``, ``spacing``, ``origin``, ``matrix``,
+    ``dose_name`` and ``tags``; the tags carry FrameOfReferenceUID).
+
+    array (Z, Y, X) Gy; spacing [sx, sy, sz] mm; origin (3,) mm; matrix
+    3x3 with rows the +x/+y/+z pixel directions."""
+    from .dicom import Dataset
+    from .structure.dose import Dose
+
+    array = np.array(array, dtype=np.float32)        # a writable copy
+    matrix = np.asarray(matrix, dtype=np.float64)
+    builder = SimpleNamespace(
+        image_set=list(tags) if tags else [Dataset()], array=array,
+        dose_name=name, modality="RTDOSE", filepaths=None, sops=[],
+        plane="Axial", spacing=np.asarray(spacing, dtype=np.float64),
+        dimensions=np.asarray(array.shape),
+        orientation=np.concatenate([matrix[0], matrix[1]]),
+        origin=np.asarray(origin, dtype=np.float64), image_matrix=matrix)
+    dose = Dose(builder)
+    if name not in Data.dose:
+        Data.dose_list.append(name)
+    Data.dose[name] = dose
+    return dose

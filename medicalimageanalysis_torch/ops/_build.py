@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/*.cu`` has a plain C interface, so ``nvcc`` alone compiles it into
-a shared library in seconds (a source that includes PyTorch's headers
-takes minutes) and ``ctypes`` loads it. The library lands in
-``build/torch_ext/`` at the root of the checkout, named by a hash of the
-source and flags, so an edited kernel is rebuilt and a stale one is never
-loaded. Nothing is built when this module is imported: the first launch
-calls :func:`load_warp_library`.
+Each ``csrc/<name>.cu`` has a plain C interface, so ``nvcc`` alone
+compiles it into a shared library in seconds (a source that includes
+PyTorch's headers takes minutes) and ``ctypes`` loads it. Each library
+lands in ``build/torch_ext/`` at the root of the checkout, named by a hash
+of its source and flags, so an edited kernel is rebuilt and a stale one is
+never loaded. Nothing is built when this module is imported: the first
+launch calls :func:`load_warp_library` or :func:`load_hist_library`, and
+two sources may build at once (each ``nvcc`` writes its own file).
 
 Flags: ``--fmad=false`` keeps every float32 operation rounded on its own,
 so the kernels are bit-equal to their plain PyTorch twins;
@@ -23,7 +24,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build_dir", "build_warp_library",
+__all__ = ["NVCC_FLAGS", "build_dir", "build_library", "load_hist_library",
            "load_warp_library"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -47,12 +48,12 @@ def _nvcc():
                        "to build the port's CUDA kernels")
 
 
-def build_warp_library():
-    """Compile csrc/warp.cu (if not built yet) -> (path, ptxas report)."""
-    src = CSRC / "warp.cu"
+def build_library(name):
+    """Compile csrc/<name>.cu (if not built yet) -> (path, ptxas report)."""
+    src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = build_dir() / f"libmia_warp_{digest}.so"
+    out = build_dir() / f"libmia_{name}_{digest}.so"
     if out.exists():
         return out, ""
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -68,7 +69,7 @@ def build_warp_library():
 @functools.lru_cache(maxsize=None)
 def load_warp_library():
     """The warp kernels' ctypes handle, built on first use."""
-    path, _ = build_warp_library()
+    path, _ = build_library("warp")
     lib = ctypes.CDLL(str(path))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.mia_warp_coords.restype = i
@@ -79,4 +80,15 @@ def load_warp_library():
     lib.mia_warp_disp.restype = i
     lib.mia_warp_disp.argtypes = [p, i, i, i, i, p, i, i, i, f, p, p, p, p,
                                   i, p]
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_hist_library():
+    """The dose-histogram kernel's ctypes handle, built on first use."""
+    path, _ = build_library("hist")
+    lib = ctypes.CDLL(str(path))
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.mia_dose_hist.restype = i
+    lib.mia_dose_hist.argtypes = [p, p, i64, p, i, p, p]
     return lib

@@ -38,13 +38,21 @@ def apply_ffs(array, op):
 def stored_to_float(raw, device):
     """(..., R, C) numpy stored values -> float32 tensor on ``device``.
 
-    The stack crosses the host->device link in its stored 16-bit type;
-    uint16 travels as its int16 bit pattern and is widened on the device
-    (torch's uint16 support is too thin to rely on)."""
+    The stack crosses the host->device link in its stored type; uint16
+    and uint32 (RTDOSE) travel as their signed bit pattern and are
+    widened on the device (torch's unsigned support is too thin to rely
+    on). The widened integer rounds to float32 to nearest, ties to even,
+    as XLA's ``astype(float32)`` does: uint32 values above 2^24 are not
+    all representable."""
     raw = np.ascontiguousarray(raw)
+    if not raw.flags.writeable:        # a decoded frame buffer: torch
+        raw = raw.copy()               # wants memory it may own
     if raw.dtype == np.uint16:
         t = torch.from_numpy(raw.view(np.int16)).to(device)
         return t.to(torch.int32).bitwise_and_(0xFFFF).to(torch.float32)
+    if raw.dtype == np.uint32:
+        t = torch.from_numpy(raw.view(np.int32)).to(device)
+        return t.to(torch.int64).bitwise_and_(0xFFFFFFFF).to(torch.float32)
     return torch.from_numpy(raw).to(device).to(torch.float32)
 
 
@@ -57,10 +65,12 @@ def assemble_volume(raw_slices, slopes, intercepts, ffs_op="none",
     raw_slices : (N, R, C) numpy array of stored pixel values
     slopes, intercepts : (N,) per-slice rescale
     ffs_op : op-code from geometry.ffs_decision
-    device : where the assembly runs; the result is a contiguous tensor
-        there
+    device : where the assembly runs (default: ``default_device()``); the
+        result is a contiguous tensor there
     """
-    device = torch.device("cpu") if device is None else torch.device(device)
+    from ..device import default_device
+
+    device = default_device() if device is None else torch.device(device)
     vol = stored_to_float(raw_slices, device)
     slope = torch.from_numpy(np.asarray(slopes, np.float32)).to(device)
     intercept = torch.from_numpy(

@@ -4,14 +4,13 @@ Carried over from medicalimageanalysis_tpu/read/dicom.py. Group slices by
 Modality -> SeriesInstanceUID -> orientation (rounded 3 dp) ->
 AcquisitionNumber, sort along the dominant axis by the slice-direction
 sign, merge non-overlapping gap-uniform acquisitions, then dispatch per
-modality. Parsing reuses the JAX package's jax-free host core: the C++
-batch scanner (medicalimageanalysis_tpu.native) and the DICOM parser
-(medicalimageanalysis_tpu.dicom).
+modality. Parsing uses the port's copies of the host core: the C++ batch
+scanner (``native``) and the DICOM parser (``dicom``).
 
-Builders in this slice: CT, MR and PT through Read3D. Every other object
-(enhanced multi-frame, NM, planar, RTSTRUCT, SEG, REG, RTDOSE, RTPLAN)
-raises NotImplementedError naming its ROADMAP item rather than being
-dropped.
+Builders ported: CT, MR and PT through Read3D, RTSTRUCT through
+ReadRTStruct, RTDOSE through ReadRTDose. Every other object (enhanced
+multi-frame, NM, planar, SEG, REG, RTPLAN) raises NotImplementedError
+naming its ROADMAP item rather than being dropped.
 """
 
 from __future__ import annotations
@@ -22,13 +21,17 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from medicalimageanalysis_tpu.dicom import dcmread
-
 from ..data import Data
+from ..dicom import dcmread
 from ..telemetry import IngestReport, trace
 
 __all__ = ["DicomReader", "thread_process_dicom", "sort_images_by_datetime",
-           "create_image_name"]
+           "create_dose_name", "create_image_name"]
+
+# one object per file, not grouped into series (the JAX package's
+# _2D_OR_STRUCT)
+_2D_OR_STRUCT = ["US", "DX", "RF", "CR", "MG", "XA", "RTSTRUCT", "SEG",
+                 "REG", "RTDOSE", "RTPLAN"]
 
 # ROADMAP.md queue 1 items that bring each builder to the port
 _NOT_PORTED = {
@@ -39,10 +42,8 @@ _NOT_PORTED = {
     "CR": "planar modalities — ROADMAP.md queue 1, item 2",
     "MG": "planar modalities — ROADMAP.md queue 1, item 2",
     "XA": "planar modalities — ROADMAP.md queue 1, item 2",
-    "RTSTRUCT": "RTSTRUCT contours — ROADMAP.md queue 1, item 6",
     "SEG": "DICOM SEG — ROADMAP.md queue 1, item 6",
     "REG": "REG registrations — ROADMAP.md queue 1, item 7",
-    "RTDOSE": "RTDOSE — ROADMAP.md queue 1, item 8",
     "RTPLAN": "RTPLAN — ROADMAP.md queue 1, item 8",
 }
 
@@ -60,9 +61,10 @@ def sort_images_by_datetime():
 
 
 def load_native_scanner():
-    """The C++ batch scanner's ctypes handle (built with g++ from the JAX
-    package's sources on first use), or None without a compiler."""
-    from medicalimageanalysis_tpu import native
+    """The C++ batch scanner's ctypes handle (built with g++ from the
+    port's ``native/dicomscan.cpp`` into ``build/torch_ext/`` on first
+    use), or None without a compiler."""
+    from .. import native
 
     return native.get_lib()
 
@@ -88,6 +90,10 @@ def _sequential_name(modality, registry_list):
 
 def create_image_name(modality):
     return _sequential_name(modality, Data.image_list)
+
+
+def create_dose_name(modality):
+    return _sequential_name(modality, Data.dose_list)
 
 
 class DicomReader(object):
@@ -122,6 +128,7 @@ class DicomReader(object):
     def load(self, display_time=False):
         t1 = time.time()
         images_before = set(Data.image_list)
+        doses_before = set(Data.dose_list)
 
         with trace("mia.ingest.read"):
             self.read()
@@ -136,6 +143,8 @@ class DicomReader(object):
         r.elapsed_s = t2 - t1
         r.images_created = [n for n in Data.image_list
                             if n not in images_before]
+        r.doses_created = [n for n in Data.dose_list
+                           if n not in doses_before]
         for n in r.images_created:
             img = Data.image[n]
             if img.unverified:
@@ -202,8 +211,8 @@ class DicomReader(object):
         """File IO in a small thread pool, then ONE native batch scan;
         odd files (deflated, scan errors, table overflow) fall back to
         the tolerant per-file parser."""
-        from medicalimageanalysis_tpu import native
-        from medicalimageanalysis_tpu.dicom.parser import (
+        from .. import native
+        from ..dicom.parser import (
             dataset_from_scan, datasets_from_scan_batch)
 
         if native.get_lib() is None:
@@ -278,7 +287,7 @@ class DicomReader(object):
             images = buckets.get(modality, [])
             if not images or modality not in self.only_modality:
                 continue
-            if modality in _NOT_PORTED:
+            if modality in _2D_OR_STRUCT or modality in _NOT_PORTED:
                 self.ds_modality[modality].extend(images)
                 continue
             if any(_is_enhanced_multiframe(d) for d in images):
@@ -414,7 +423,7 @@ class DicomReader(object):
         Ragged duplication (only some locations repeated) is left to
         the existing irregular-spacing machinery.
         """
-        from medicalimageanalysis_tpu.dicom.dataset import value_or
+        from ..dicom.dataset import value_or
 
         if len(sub) < 2:
             return [sub]
@@ -525,7 +534,8 @@ class DicomReader(object):
 
     def image_creation(self):
         """Dispatch grouped datasets to per-modality builders
-        (reference read/dicom.py:384-425)."""
+        (reference read/dicom.py:384-425): images first, then RTSTRUCTs
+        onto their matching image, then RTDOSE grids."""
         from .volume3d import Read3D
 
         for modality, image_sets in self.ds_modality.items():
@@ -536,6 +546,28 @@ class DicomReader(object):
         for modality in ["CT", "MR", "PT"]:
             for image_set in self.ds_modality.get(modality, []):
                 self._build_series(Read3D, image_set, self.only_tags,
+                                   device=self.device)
+
+        if self.ds_modality.get("RTSTRUCT"):
+            from .rtstruct import ReadRTStruct
+            for image_set in self.ds_modality["RTSTRUCT"]:
+                read_rtstruct = self._build_series(
+                    ReadRTStruct, image_set, self.only_tags,
+                    only_load_roi_names=self.only_load_roi_names)
+                if read_rtstruct is None:
+                    pass
+                elif read_rtstruct.match_image_name is not None:
+                    Data.image[read_rtstruct.match_image_name] \
+                        .input_rtstruct(read_rtstruct)
+                else:
+                    self.report.unmatched_rtstructs.append(
+                        read_rtstruct.filepaths)
+                    print("dicom: rtstruct has no matching image")
+
+        if self.ds_modality.get("RTDOSE"):
+            from .rtdose import ReadRTDose
+            for image_set in self.ds_modality["RTDOSE"]:
+                self._build_series(ReadRTDose, image_set, self.only_tags,
                                    device=self.device)
 
 

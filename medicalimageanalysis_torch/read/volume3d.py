@@ -14,10 +14,9 @@ import copy
 
 import numpy as np
 
-from medicalimageanalysis_tpu.dicom import generate_uid
-
 from ..config import config
 from ..data import Data
+from ..dicom import generate_uid
 from ..ops import geometry as geo
 from ..ops.volume import assemble_volume
 from ..structure.image import Image
@@ -92,7 +91,7 @@ class Read3D(object):
     def _compute_spacing(self):
         """In-plane spacing fallback chain + slice pitch from IPP projection
         with irregular-spacing detection (reference read/dicom.py:575-623)."""
-        from medicalimageanalysis_tpu.dicom.dataset import value_or
+        from ..dicom.dataset import value_or
         ds = self.image_set[0]
         inplane_spacing = [1, 1]
         # value_or: corrupt DS values decode to None and must take the
@@ -173,7 +172,7 @@ class Read3D(object):
 
         slopes = np.empty(n, dtype=np.float32)
         intercepts = np.empty(n, dtype=np.float32)
-        from medicalimageanalysis_tpu.dicom.dataset import value_or
+        from ..dicom.dataset import value_or
         for i, _slice in enumerate(self.image_set):
             intercepts[i] = value_or(_slice, (0x0028, 0x1052), 0)
             slopes[i] = value_or(_slice, (0x0028, 0x1053), 1)
@@ -258,8 +257,8 @@ class Read3D(object):
         thread pool (native.gather_blocks), skipping the per-slice
         pixel_array objects. Returns None to fall back (compressed,
         synthetic/interpolated slices, odd layouts)."""
-        from medicalimageanalysis_tpu import native
-        from medicalimageanalysis_tpu.dicom.parser import _ArrayTable
+        from .. import native
+        from ..dicom.parser import _ArrayTable
 
         if native.get_lib() is None or n == 0 or rows * cols == 0:
             return None

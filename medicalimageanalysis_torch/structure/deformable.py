@@ -13,39 +13,36 @@ sampled by the warp kernel's ``coords`` mode and whose image by its
 moving image on image geometry alone, without ``rigid_matrix``;
 ``compute_bspline`` and ``create_image`` apply it.
 
-The Display view state, the dose/mask/POI warps, TPS, REG export,
-save/load and the image export wait for later slices; each raises
-``NotImplementedError`` naming its ROADMAP.md item.
+``update_dose`` and ``update_mask`` warp a dose grid or a moving-grid
+mask onto the reference grid through the same two stages (rigid resample
+by the ``affine`` mode, then the inverted field by the ``coords`` and
+``disp`` modes). The Display view state, the POI and ROI-mesh warps, the
+ROI-masked registrations, TPS, REG export, save/load and the image export
+wait for later slices; each raises ``NotImplementedError`` naming its
+ROADMAP.md item.
 """
 
 from __future__ import annotations
 
+from functools import partial
+
 import numpy as np
 import torch
-
-from medicalimageanalysis_tpu.dicom import generate_uid
 
 from ..config import config
 from ..data import Data
 from ..device import as_f32, default_device, full_float32
+from ..dicom import generate_uid
 from ..ops import geometry as geo
 from ..ops.registration.dvf import invert_dvf
 from ..ops.resample import affine_resample, compose_pixel_matrix
 from ..ops.warp import affine_coords, field_warp, warp_disp
+from .common import waits
 
 __all__ = ["Deformable"]
 
 
-def _waits(name, item):
-    """A method of the JAX package's Deformable that a later slice
-    ports; calling it raises."""
-    def method(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"Deformable.{name} is not ported yet (ROADMAP.md queue 1, "
-            f"{item})")
-
-    method.__name__ = name
-    return method
+_waits = partial(waits, "Deformable")
 
 
 def _jacobian_det(d, inv_spacing):
@@ -126,14 +123,22 @@ class Deformable(object):
     def _backend(self, modality_gradient, sigma):
         """Common setup: reference/moving volumes and the cross-modality
         correction. The JAX package also builds blurred ROI masks from
-        ``roi_names``; the port's images carry no ROIs until the
-        structure slice (ROADMAP.md queue 1, item 6), so none is built
-        and the registration runs unmasked, as the JAX package's does
-        for images without those ROIs."""
+        ``roi_names`` where both images hold those ROIs; that masking is
+        not ported yet and raises, and without such ROIs the
+        registration runs unmasked, as the JAX package's does."""
         from ..utils.deformable.torch_backend import DeformableTorch
 
         ref = Data.image[self.reference_name]
         mov = Data.image[self.moving_name]
+        for roi_name in (self.roi_names or []):
+            pair = (ref.rois.get(roi_name), mov.rois.get(roi_name))
+            if all(r is not None and (r.mesh is not None
+                                      or r.contour_pixel is not None)
+                   for r in pair):
+                raise NotImplementedError(
+                    "Deformable: registration masked by roi_names is not "
+                    "ported yet (ROADMAP.md queue 1, item 7, the rest of "
+                    "deformable)")
         backend = DeformableTorch(device=self.device)
         backend.create_sitk_image(ref.array, ref.origin, ref.spacing,
                                   ref.matrix)
@@ -273,6 +278,69 @@ class Deformable(object):
                 "spacing": np.asarray(ref.spacing),
                 "direction": np.asarray(ref.matrix)}
 
+    def update_dose(self, dose_name=None, ratio=1):
+        """Warp a dose grid tied to the moving image through rigid + DVF
+        onto the reference image grid (the adaptive-RT dose warp).
+        Without ``dose_name`` the one dose sharing the moving image's
+        FrameOfReferenceUID is taken. Returns a reference-grid volume
+        dict with a numpy array; background is 0 Gy."""
+        if dose_name is None:
+            mov = Data.image[self.moving_name]
+            candidates = [n for n, d in Data.dose.items()
+                          if d.frame_ref == mov.frame_ref]
+            if not candidates:
+                raise ValueError(
+                    "update_dose: no dose shares the moving image's "
+                    "FrameOfReferenceUID; pass dose_name explicitly")
+            if len(candidates) > 1:
+                raise ValueError(
+                    "update_dose: multiple doses share the moving "
+                    f"image's FrameOfReferenceUID ({candidates}); "
+                    "pass dose_name explicitly")
+            dose_name = candidates[0]
+        dose = Data.dose[dose_name]
+
+        ref = Data.image[self.reference_name]
+        A = compose_pixel_matrix(dose.matrix, dose.spacing, dose.origin,
+                                 ref.matrix, ref.spacing, ref.origin,
+                                 phys_transform=self.rigid_matrix)
+        resampled = affine_resample(np.asarray(dose.array, np.float32), A,
+                                    ref.array.shape, background=0.0,
+                                    device=self.device)
+        warped = self._warp_resampled_to_reference(resampled, 0.0,
+                                                   ratio=ratio)
+        return {"array": warped.cpu().numpy(),
+                "origin": np.asarray(ref.origin),
+                "spacing": np.asarray(ref.spacing),
+                "direction": np.asarray(ref.matrix),
+                "dose_name": dose_name}
+
+    def update_mask(self, mask, ratio=1, threshold=0.5):
+        """Warp a moving-image-grid binary mask onto the reference grid:
+        rigid resample + field warp of the float indicator, then
+        ``>= threshold``. Returns a (Z, Y, X) uint8 numpy mask on the
+        reference grid."""
+        if self.dvf is None:
+            raise ValueError("update_mask: no DVF computed yet")
+        ref = Data.image[self.reference_name]
+        mov = Data.image[self.moving_name]
+        mask = np.asarray(mask, np.float32)
+        expect = tuple(int(v) for v in mov.dimensions)
+        if mask.shape != expect:
+            raise ValueError(
+                f"update_mask: mask shape {mask.shape} != moving "
+                f"image grid {expect}")
+
+        A = compose_pixel_matrix(mov.matrix, mov.spacing, mov.origin,
+                                 ref.matrix, ref.spacing, ref.origin,
+                                 phys_transform=self.rigid_matrix)
+        resampled = affine_resample(mask, A,
+                                    tuple(int(v) for v in ref.dimensions),
+                                    background=0.0, device=self.device)
+        warped = self._warp_resampled_to_reference(resampled, 0.0,
+                                                   ratio=ratio)
+        return (warped >= float(threshold)).to(torch.uint8).cpu().numpy()
+
     def compute_jacobian(self):
         """Jacobian-determinant QA map of T(p) = p + d(p) (det <= 0 marks
         folding). Returns {'det': (Z, Y, X) float32, 'folding_fraction',
@@ -324,8 +392,6 @@ class Deformable(object):
             "Deformable.display: the Display view state arrives with the "
             "structure slice (ROADMAP.md queue 1, item 6)")
 
-    update_dose = _waits("update_dose", "item 8, dose and QA")
-    update_mask = _waits("update_mask", "item 6, structure layer")
     update_pois = _waits("update_pois", "item 6, structure layer")
     compute_tps = _waits("compute_tps", "item 7, the rest of deformable")
     create_reg = _waits("create_reg", "item 7, the rest of deformable")

@@ -1,117 +1,126 @@
-"""Image domain object.
+"""Image domain object + Display view state.
 
-Carried over from medicalimageanalysis_tpu/structure/image.py (``Image``,
-:150-195) with the ``MetadataMixin`` / ``GeometryQueriesMixin`` parts of
-medicalimageanalysis_tpu/structure/common.py that the main path uses. The
-array stays a numpy array, like the JAX package's. ROIs, POIs, the
-Display view state and the exports wait for the structure slice.
+Port of medicalimageanalysis_tpu/structure/image.py: ``Image`` with its
+ROI/POI containers, RTSTRUCT intake, the token-keyed bit-packed ROI mask
+cache and the pooled ``compute_roi_masks`` (always one device pass per
+slicing plane), ``compute_roi_statistics``, and the ``Display`` matrices,
+slice location and ``compute_slice``. The metadata and geometry mixins
+are in structure/common.py. The array stays a numpy array, like the JAX
+package's. The off-axis reslice, the exports, SUV, SEG, margins and the
+other image tools wait for their slices.
 """
 
 from __future__ import annotations
 
+import copy
+import itertools
+
 import numpy as np
 
-from medicalimageanalysis_tpu.dicom import generate_uid
-
+from ..data import Data
+from ..dicom import generate_uid
 from ..ops import geometry as geo
+from .common import GeometryQueriesMixin, MetadataMixin
+from .poi import Poi
+from .roi import Roi
 
-__all__ = ["Image"]
+__all__ = ["Display", "Image"]
 
-
-class MetadataMixin:
-    """Identity-metadata fallback chains."""
-
-    def get_patient_name(self):
-        if "PatientName" in self.tags[0]:
-            return str(self.tags[0].PatientName).split("^")[:3]
-        return "missing"
-
-    def get_mrn(self):
-        if "PatientID" in self.tags[0]:
-            return str(self.tags[0].PatientID)
-        return "missing"
-
-    def get_birthdate(self):
-        if "PatientBirthDate" in self.tags[0]:
-            return str(self.tags[0].PatientBirthDate)
-        return ""
-
-    def get_date(self):
-        for key in ("SeriesDate", "ContentDate", "AcquisitionDate",
-                    "StudyDate"):
-            if key in self.tags[0]:
-                return self.tags[0].get(key)
-        return "00000"
-
-    def get_time(self):
-        for key in ("SeriesTime", "ContentTime", "AcquisitionTime",
-                    "StudyTime"):
-            if key in self.tags[0]:
-                return self.tags[0].get(key)
-        return "00000"
-
-    def get_study_uid(self):
-        if "StudyInstanceUID" in self.tags[0]:
-            return self.tags[0].StudyInstanceUID
-        return "00000.00000"
-
-    def get_series_uid(self):
-        if "SeriesInstanceUID" in self.tags[0]:
-            return self.tags[0].SeriesInstanceUID
-        return "00000.00000"
-
-    def get_acq_number(self):
-        if "AcquisitionNumber" in self.tags[0]:
-            return self.tags[0].AcquisitionNumber
-        return "1"
-
-    def get_frame_ref(self):
-        if "FrameOfReferenceUID" in self.tags[0]:
-            return self.tags[0].FrameOfReferenceUID
-        return "00000.00000"
-
-    def get_window(self):
-        if (0x0028, 0x1050) in self.tags[0] \
-                and (0x0028, 0x1051) in self.tags[0]:
-            center = self.tags[0].WindowCenter
-            width = self.tags[0].WindowWidth
-            if not isinstance(center, float):
-                center = center[0]
-            if not isinstance(width, float):
-                width = width[0]
-            return [int(center) - int(np.round(width / 2)),
-                    int(center) + int(np.round(width / 2))]
-        if self.array is not None:
-            return [np.min(self.array), np.max(self.array)]
-        return [0, 1]
+# Process-global monotonic ids for the ROI mask cache — never reused,
+# unlike id(), which CPython recycles after a Roi is freed.
+_ROI_CACHE_TOKENS = itertools.count(1)
 
 
-class GeometryQueriesMixin:
-    """Center and position queries on the image's own grid."""
+class Display(object):
+    """Slice viewing state + coordinate spaces
+    (reference structure/image.py:39-306)."""
+
+    def __init__(self, image):
+        self.image = image
+
+        self.matrix = copy.deepcopy(self.image.matrix)
+        self.spacing = copy.deepcopy(self.image.spacing)
+        self.origin = copy.deepcopy(self.image.origin)
+
+        self.slice_location = self.image.compute_center(position=False,
+                                                        zyx=True)
+        self.scroll_max = [self.image.dimensions[0] - 1,
+                           self.image.dimensions[1] - 1,
+                           self.image.dimensions[2] - 1]
+        self.secondary_array = None
+        self.misc = {}
 
     def compute_matrix_pixel_to_position(self):
         return geo.pixel_to_position_matrix(self.matrix, self.spacing,
                                             self.origin)
 
-    def compute_center(self, position=True, zyx=False):
-        pixel_index = [int(self.dimensions[2] / 2),
-                       int(self.dimensions[1] / 2),
-                       int(self.dimensions[0] / 2)]
-        if position:
-            m = self.compute_matrix_pixel_to_position()
-            center = geo.apply_homogeneous(pixel_index, m)
-            return np.flip(center) if zyx else center
-        if zyx:
-            return [pixel_index[2], pixel_index[1], pixel_index[0]]
-        return pixel_index
+    def compute_matrix_position_to_pixel(self):
+        return geo.position_to_pixel_matrix(self.matrix, self.spacing,
+                                            self.origin)
 
-    def compute_position(self, xyz):
+    def compute_array(self, slice_plane):
+        """2D slice at the current slice_location on a standard plane."""
+        source = self.image.array if self.secondary_array is None \
+            else self.secondary_array
+        if slice_plane == "Axial":
+            array = source[self.slice_location[0], :, :]
+        elif slice_plane == "Coronal":
+            array = source[:, self.slice_location[1], :]
+        else:
+            array = source[:, :, self.slice_location[2]]
+        return np.asarray(array).astype(np.float32)
+
+    def compute_index_positions(self, xyz):
         m = self.compute_matrix_pixel_to_position()
-        return geo.apply_homogeneous(xyz, m)
+        return geo.apply_homogeneous([xyz[0], xyz[1], xyz[2]], m)
+
+    def compute_offaxis_array(self):
+        raise NotImplementedError(
+            "Display.compute_offaxis_array is not ported yet: "
+            "reslice_rotation — ROADMAP.md queue 1, item 3 (resample)")
+
+    def compute_scroll_max(self):
+        if self.secondary_array is not None:
+            self.scroll_max = [self.secondary_array.shape[0] - 1,
+                               self.secondary_array.shape[1] - 1,
+                               self.secondary_array.shape[2] - 1]
+        else:
+            self.scroll_max = [self.image.dimensions[0] - 1,
+                               self.image.dimensions[1] - 1,
+                               self.image.dimensions[2] - 1]
+
+    def compute_slice(self, slice_plane):
+        """2D slice + its physical placement (replaces compute_vtk_slice,
+        reference structure/image.py:234-284, minus the VTK container)."""
+        source = self.image.array if self.secondary_array is None \
+            else self.secondary_array
+        if slice_plane == "Axial":
+            location = [0, 0, self.slice_location[0]]
+            array_slice = source[self.slice_location[0], :, :]
+        elif slice_plane == "Coronal":
+            location = [0, self.slice_location[1], 0]
+            array_slice = source[:, self.slice_location[1], :]
+        else:
+            location = [self.slice_location[2], 0, 0]
+            array_slice = source[:, :, self.slice_location[2]]
+        m = self.compute_matrix_pixel_to_position()
+        origin = geo.apply_homogeneous(location, m)
+        return {"array": np.asarray(array_slice), "origin": origin,
+                "spacing": self.spacing, "matrix": self.matrix}
+
+    compute_vtk_slice = compute_slice
+
+    def update_slice_location(self, scroll, slice_plane):
+        if slice_plane == "Axial":
+            self.slice_location[0] = scroll
+        elif slice_plane == "Coronal":
+            self.slice_location[1] = scroll
+        else:
+            self.slice_location[2] = scroll
 
 
 class Image(MetadataMixin, GeometryQueriesMixin):
-    """Volume + identity metadata + geometry.
+    """Volume + identity metadata + geometry + ROI/POI containers.
 
     ``image`` is a builder (read/volume3d.Read3D, or the namespace
     interop.image_from_arrays makes) carrying image_set, array,
@@ -154,5 +163,177 @@ class Image(MetadataMixin, GeometryQueriesMixin):
         self.skipped_slice = image.skipped_slice
         self.rgb = image.rgb
 
+        self.camera_position = None
+
         self.visual = {"colormap": "gray", "bounds": None}
         self.misc = {}
+
+        self.display = Display(self)
+
+    # -- intake --------------------------------------------------------
+    def input_rtstruct(self, rtstruct):
+        """Populate ROIs/POIs from a parsed RTSTRUCT (reference
+        structure/image.py:389-413)."""
+        for ii, roi_name in enumerate(rtstruct.roi_names):
+            if roi_name not in self.rois \
+                    or self.rois[roi_name].contour_position is None:
+                self.rois[roi_name] = Roi(
+                    self, position=rtstruct.contours[ii], name=roi_name,
+                    color=rtstruct.roi_colors[ii], visible=False,
+                    filepaths=rtstruct.filepaths)
+
+        for ii, poi_name in enumerate(rtstruct.poi_names):
+            if poi_name not in self.pois \
+                    or self.pois[poi_name].point_position is None:
+                self.pois[poi_name] = Poi(
+                    self, position=rtstruct.points[ii], name=poi_name,
+                    color=rtstruct.poi_colors[ii], visible=False,
+                    filepaths=rtstruct.filepaths)
+
+        Data.match_rois()
+        Data.match_pois()
+
+    def add_roi(self, roi_name=None, color=None, visible=False, path=None,
+                contour=None, plane="Axial"):
+        self.rois[roi_name] = Roi(self, position=contour, name=roi_name,
+                                  color=color, visible=visible,
+                                  filepaths=path, plane=plane)
+        Data.match_rois()
+
+    def add_poi(self, poi_name=None, color=None, visible=False, path=None,
+                point=None):
+        self.pois[poi_name] = Poi(self, position=point, name=poi_name,
+                                  color=color, visible=visible,
+                                  filepaths=path)
+        Data.match_pois()
+
+    def create_roi(self, name=None, color=None, visible=False, filepath=None):
+        self.rois[name] = Roi(self, name=name, color=color, visible=visible,
+                              filepaths=filepath)
+        Data.match_rois()
+
+    # -- ROI statistics --------------------------------------------------
+    def compute_roi_statistics(self, roi_name, values=None):
+        """First-order statistics of a value map inside an ROI (HU on CT,
+        anything voxel-aligned): min/max/mean/median/std + volume_cc +
+        voxel count; NaN statistics for an empty ROI."""
+        from ..utils.metrics import voxel_volume_cc
+
+        mask = np.asarray(self.rois[roi_name].compute_mask()) > 0
+        vals = np.asarray(self.array if values is None else values,
+                          np.float32)
+        if vals.shape != mask.shape:
+            raise ValueError(
+                f"compute_roi_statistics: values shape {vals.shape} "
+                f"!= image grid {mask.shape}")
+        inside = vals[mask]
+        voxel_cc = voxel_volume_cc(self.spacing)
+        empty = inside.size == 0
+        nan = float("nan")
+        return {
+            "ROI": roi_name,
+            "voxels": int(inside.size),
+            "volume_cc": float(inside.size * voxel_cc),
+            "min": nan if empty else float(inside.min()),
+            "max": nan if empty else float(inside.max()),
+            "mean": nan if empty else float(inside.mean()),
+            "median": nan if empty else float(np.median(inside)),
+            "std": nan if empty else float(inside.std()),
+        }
+
+    # -- pooled ROI-mask cache -------------------------------------------
+    # Masks are cached bbox-cropped and bit-packed, keyed on
+    # (roi._mask_cache_token, roi._mask_rev): both wholesale Roi
+    # replacement and any contour/plane rebind (Roi.__setattr__)
+    # invalidate. The token is a process-global monotonic id assigned on
+    # first cache contact, never id(roi): CPython reuses a freed Roi's
+    # address, and an id()-keyed cache could serve a deleted ROI's mask
+    # for its replacement.
+
+    @staticmethod
+    def _roi_cache_key(roi):
+        tok = getattr(roi, "_mask_cache_token", None)
+        if tok is None:
+            tok = next(_ROI_CACHE_TOKENS)
+            object.__setattr__(roi, "_mask_cache_token", tok)
+        return (tok, getattr(roi, "_mask_rev", 0))
+
+    def _roi_mask_cache_get(self, name, roi, reconstruct=True):
+        cache = getattr(self, "_roi_mask_cache", None)
+        ent = cache.get(name) if cache else None
+        if ent is None or ent[0] != self._roi_cache_key(roi):
+            return None
+        if not reconstruct:
+            return True
+        _, shape, bbox, payload, packed = ent
+        out = np.zeros(shape, np.uint8)
+        if bbox is not None:
+            z0, z1, y0, y1, x0, x1 = bbox
+            if packed:
+                n = (z1 - z0) * (y1 - y0) * (x1 - x0)
+                crop = np.unpackbits(payload, count=n).reshape(
+                    z1 - z0, y1 - y0, x1 - x0)
+            else:
+                crop = payload
+            out[z0:z1, y0:y1, x0:x1] = crop
+        return out
+
+    def _roi_mask_cache_put(self, name, roi, mask):
+        if getattr(self, "_roi_mask_cache", None) is None:
+            self._roi_mask_cache = {}
+        mask = np.asarray(mask, np.uint8)
+        key = self._roi_cache_key(roi)
+        zs = np.flatnonzero(mask.any(axis=(1, 2)))
+        if zs.size == 0:
+            self._roi_mask_cache[name] = (key, mask.shape, None, None,
+                                          True)
+            return
+        ys = np.flatnonzero(mask.any(axis=(0, 2)))
+        xs = np.flatnonzero(mask.any(axis=(0, 1)))
+        bbox = (int(zs[0]), int(zs[-1]) + 1, int(ys[0]),
+                int(ys[-1]) + 1, int(xs[0]), int(xs[-1]) + 1)
+        crop = mask[bbox[0]:bbox[1], bbox[2]:bbox[3], bbox[4]:bbox[5]]
+        # packbits collapses any nonzero to 1: exact only for binary
+        # masks; a non-binary mask caches the raw crop instead
+        if crop.max() <= 1:
+            payload, packed = np.packbits(crop), True
+        else:
+            payload, packed = crop.copy(), False
+        self._roi_mask_cache[name] = (key, mask.shape, bbox, payload,
+                                      packed)
+
+    def compute_roi_masks(self, roi_names=None):
+        """Every (or the named) contoured ROI rasterized in one pooled
+        device pass per slicing plane (parallel/batch.rasterize_batch),
+        bit-identical to the per-ROI path; ROIs without contours take
+        their own ``_compute_mask_impl``. Cached masks are served from
+        the cache. Returns {name: (Z, Y, X) uint8}."""
+        from ..parallel.batch import rasterize_batch
+
+        names = list(roi_names if roi_names is not None else self.rois)
+        dims = tuple(int(v) for v in self.dimensions)
+        out = {}
+        plane_of = {}
+        self._pooled_raster_active = True
+        try:
+            for n in names:
+                roi = self.rois[n]
+                cached = self._roi_mask_cache_get(n, roi)
+                if cached is not None:
+                    out[n] = cached
+                elif roi._has_contours():
+                    plane_of[n] = roi.plane
+                else:
+                    out[n] = np.asarray(roi._compute_mask_impl(), np.uint8)
+                    self._roi_mask_cache_put(n, roi, out[n])
+            for plane in sorted(set(plane_of.values())):
+                group = [n for n in names if plane_of.get(n) == plane]
+                masks = rasterize_batch(
+                    [self.rois[n].contour_pixel for n in group], dims,
+                    plane=plane)
+                for i, n in enumerate(group):
+                    out[n] = masks[i]
+                    self._roi_mask_cache_put(n, self.rois[n], out[n])
+        finally:
+            self._pooled_raster_active = False
+        return {n: out[n] for n in names}

@@ -12,10 +12,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from medicalimageanalysis_tpu.dicom import generate_uid
-
 from ..config import config
 from ..data import Data
+from ..dicom import generate_uid
 from ..ops.resample import reslice_transform
 
 __all__ = ["Rigid"]
@@ -102,10 +101,19 @@ class Rigid(object):
             background=config.background_fill, device=self.device)
 
     def update_rois(self, roi_name=None):
-        """Sync the ROI key-set with Data.roi_list. Transforming ROI meshes
-        waits for the structure slice, so a loaded ROI raises."""
-        if Data.roi_list:
-            raise NotImplementedError(
-                "Rigid.update_rois with ROIs loaded: ROI meshes arrive with "
-                "the structure slice (ROADMAP.md queue 1, item 6)")
-        self.rois = {}
+        """Sync the ROI key-set with Data.roi_list. Transforming a visible
+        moving ROI's mesh waits for the mesh slice and raises; the port's
+        ROIs carry no meshes yet."""
+        for name in list(self.rois.keys()):
+            if name not in Data.roi_list:
+                del self.rois[name]
+        for name in Data.roi_list:
+            if name not in self.rois:
+                self.rois[name] = None
+            roi = Data.image[self.moving_name].rois.get(name) \
+                if self.moving_name in Data.image else None
+            if (roi_name is None or name == roi_name) and roi is not None \
+                    and roi.mesh is not None and roi.visible:
+                raise NotImplementedError(
+                    "Rigid.update_rois: transforming ROI meshes is not "
+                    "ported yet (ROADMAP.md queue 1, item 9, mesh)")

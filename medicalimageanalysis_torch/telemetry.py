@@ -41,6 +41,8 @@ class IngestReport:
     failed_files: list = field(default_factory=list)
     failed_series: list = field(default_factory=list)
     images_created: list = field(default_factory=list)
+    doses_created: list = field(default_factory=list)
+    unmatched_rtstructs: list = field(default_factory=list)
     unverified: dict = field(default_factory=dict)
     skipped_slices: dict = field(default_factory=dict)
     warnings: list = field(default_factory=list)
@@ -57,6 +59,8 @@ class IngestReport:
             "failed": len(self.failed_files),
             "failed_series": len(self.failed_series),
             "images": list(self.images_created),
+            "doses": list(self.doses_created),
+            "unmatched_rtstructs": len(self.unmatched_rtstructs),
             "unverified": dict(self.unverified),
             "warnings": len(self.warnings),
             "elapsed_s": round(self.elapsed_s, 4),

@@ -1,1 +1,2 @@
-"""Utilities: the synthetic DICOM series writer."""
+"""Utilities: the synthetic DICOM series writer, contour conversion,
+metrics and the deformable backend."""

@@ -1,10 +1,9 @@
 """Synthetic DICOM series writer.
 
 Carried over from medicalimageanalysis_tpu/utils/creation.py
-(``CreateDicomImage``), on top of the JAX package's jax-free DICOM writer
-(medicalimageanalysis_tpu.dicom.dcmwrite): importing the original pulls in
-jax through its ``utils`` package. Writes test and smoke fixtures; the
-in-memory image builders wait for a later slice.
+(``CreateDicomImage``), on top of the port's copy of the DICOM writer
+(``dicom.dcmwrite``). Writes test and smoke fixtures; the in-memory image
+builders wait for a later slice.
 """
 
 from __future__ import annotations
@@ -14,9 +13,8 @@ import os
 
 import numpy as np
 
-from medicalimageanalysis_tpu.dicom import (Dataset, FileMetaDataset,
-                                            dcmwrite, generate_uid, uids)
-from medicalimageanalysis_tpu.dicom.dictionary import keyword_to_tag
+from ..dicom import Dataset, FileMetaDataset, dcmwrite, generate_uid, uids
+from ..dicom.dictionary import keyword_to_tag
 
 __all__ = ["CreateDicomImage"]
 

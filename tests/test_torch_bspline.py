@@ -8,6 +8,7 @@ import torch
 
 from medicalimageanalysis_tpu.ops.registration import bspline as jbspline
 from medicalimageanalysis_torch.data import Data as TData
+from medicalimageanalysis_torch.device import set_default_device
 from medicalimageanalysis_torch.ops.registration import bspline as tbspline
 
 SHAPE = (16, 24, 32)
@@ -18,8 +19,10 @@ SPACING = (1.2, 1.1, 2.0)            # [sx, sy, sz] mm
 def torch_env():
     TData.clear()
     torch.set_num_threads(1)
+    set_default_device("cpu")
     yield
     TData.clear()
+    set_default_device(None)
 
 
 def pair():

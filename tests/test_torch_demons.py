@@ -17,6 +17,7 @@ from medicalimageanalysis_tpu.ops.registration.demons import (
 from medicalimageanalysis_tpu.ops.registration.dvf import (
     warp_volume as j_warp)
 from medicalimageanalysis_torch.data import Data as TData
+from medicalimageanalysis_torch.device import set_default_device
 from medicalimageanalysis_torch.ops import resample as tresample
 from medicalimageanalysis_torch.ops.registration import demons as tdemons
 from medicalimageanalysis_torch.ops.registration import bspline as tbspline
@@ -29,8 +30,10 @@ SPACING = (1.2, 1.1, 2.0)            # [sx, sy, sz] mm
 def torch_env():
     TData.clear()
     torch.set_num_threads(1)
+    set_default_device("cpu")
     yield
     TData.clear()
+    set_default_device(None)
 
 
 def pair():

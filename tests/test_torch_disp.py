@@ -11,6 +11,7 @@ import jax.numpy as jnp
 
 from medicalimageanalysis_tpu.ops import pallas_warp as jwarp
 from medicalimageanalysis_torch.data import Data as TData
+from medicalimageanalysis_torch.device import set_default_device
 from medicalimageanalysis_torch.ops import warp as twarp
 
 SHAPE = (12, 14, 20)
@@ -21,8 +22,10 @@ BG = -3001.0
 def torch_env():
     TData.clear()
     torch.set_num_threads(1)
+    set_default_device("cpu")
     yield
     TData.clear()
+    set_default_device(None)
 
 
 def smooth_disp(rng, shape=SHAPE, amp=(2.5, 1.5, 1.2)):

@@ -9,6 +9,7 @@ import jax.numpy as jnp  # noqa: F401  (JAX on the CPU, as conftest sets)
 
 from medicalimageanalysis_tpu.ops.registration import dvf as jdvf
 from medicalimageanalysis_torch.data import Data as TData
+from medicalimageanalysis_torch.device import set_default_device
 from medicalimageanalysis_torch.ops.registration import dvf as tdvf
 
 SHAPE = (10, 14, 18)
@@ -19,8 +20,10 @@ SPACING = (1.2, 0.9, 2.5)            # [sx, sy, sz] mm
 def torch_env():
     TData.clear()
     torch.set_num_threads(1)
+    set_default_device("cpu")
     yield
     TData.clear()
+    set_default_device(None)
 
 
 def smooth_field_mm(seed, amp=2.0):

@@ -1,6 +1,7 @@
 """Import hygiene of the PyTorch port: neither the package nor
 ``chip_smoke.py`` may pull in jax, optax or psutil, which the GPU
-machine does not have."""
+machine does not have, nor any module of the JAX package
+(``medicalimageanalysis_tpu``): the port carries its own copies."""
 
 import re
 import subprocess
@@ -10,9 +11,11 @@ from pathlib import Path
 import pytest
 import torch
 
+from medicalimageanalysis_torch.device import set_default_device
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "medicalimageanalysis_torch"
-FORBIDDEN = ("jax", "optax", "psutil")
+FORBIDDEN = ("jax", "optax", "psutil", "medicalimageanalysis_tpu")
 
 PROBE = r"""
 import importlib, json, pkgutil, sys
@@ -33,8 +36,10 @@ def torch_env():
     from medicalimageanalysis_torch.data import Data
     Data.clear()
     torch.set_num_threads(1)
+    set_default_device("cpu")
     yield
     Data.clear()
+    set_default_device(None)
 
 
 def test_port_and_smoke_import_no_jax_optax_psutil():
@@ -53,7 +58,10 @@ def test_port_and_smoke_import_no_jax_optax_psutil():
                  "ops.resample", "ops.registration.dvf",
                  "ops.registration.demons", "ops.registration.bspline",
                  "utils.deformable.torch_backend",
-                 "structure.deformable"):
+                 "structure.deformable", "dicom.parser", "dicom.pixels",
+                 "native", "ops.hist", "ops.dvh", "ops.rasterize",
+                 "structure.roi", "structure.dose", "read.rtstruct",
+                 "read.rtdose", "utils.convert.contour"):
         assert f"medicalimageanalysis_torch.{name}" in report["modules"]
 
 

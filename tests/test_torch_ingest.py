@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import medicalimageanalysis_torch as tmia
 import medicalimageanalysis_tpu as jmia
 from medicalimageanalysis_torch.data import Data as TData
+from medicalimageanalysis_torch.device import set_default_device
 from medicalimageanalysis_torch.ops import volume as tvol
 from medicalimageanalysis_tpu.data import Data as JData
 from medicalimageanalysis_tpu.ops import volume as jvol
@@ -29,8 +30,10 @@ FFS_CASES = {
 def torch_env():
     TData.clear()
     torch.set_num_threads(1)
+    set_default_device("cpu")
     yield
     TData.clear()
+    set_default_device(None)
 
 
 def write(folder, arr, orientation=(1, 0, 0, 0, 1, 0), origin=(3, -4, 5),

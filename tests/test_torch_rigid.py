@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import optax
 
 from medicalimageanalysis_torch.data import Data as TData
+from medicalimageanalysis_torch.device import set_default_device
 from medicalimageanalysis_torch.models import rigid_intensity as tri
 from medicalimageanalysis_torch.ops import geometry as tgeo
 from medicalimageanalysis_torch.parallel import batch as tbatch
@@ -22,8 +23,10 @@ from medicalimageanalysis_tpu.parallel import batch as jbatch
 def torch_env():
     TData.clear()
     torch.set_num_threads(1)
+    set_default_device("cpu")
     yield
     TData.clear()
+    set_default_device(None)
 
 
 def t(a):

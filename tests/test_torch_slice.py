@@ -11,6 +11,7 @@ import medicalimageanalysis_torch as tmia
 import medicalimageanalysis_tpu as jmia
 from medicalimageanalysis_torch import interop
 from medicalimageanalysis_torch.data import Data as TData
+from medicalimageanalysis_torch.device import set_default_device
 from medicalimageanalysis_torch.ops.resample import reslice_grid
 from medicalimageanalysis_torch.utils.creation import CreateDicomImage
 from medicalimageanalysis_tpu.data import Data as JData
@@ -26,8 +27,10 @@ BG = -3001.0
 def torch_env():
     TData.clear()
     torch.set_num_threads(1)
+    set_default_device("cpu")
     yield
     TData.clear()
+    set_default_device(None)
 
 
 def phantom(rng, deg, shift_vox):

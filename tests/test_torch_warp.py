@@ -13,6 +13,7 @@ from medicalimageanalysis_tpu.ops import pallas_warp as jwarp
 from medicalimageanalysis_tpu.ops import resample as jresample
 from medicalimageanalysis_tpu.ops.resample import _affine_resample_jit
 from medicalimageanalysis_torch.data import Data as TData
+from medicalimageanalysis_torch.device import set_default_device
 from medicalimageanalysis_torch.ops import resample as tresample
 from medicalimageanalysis_torch.ops import warp as twarp
 
@@ -24,8 +25,10 @@ BG = -3001.0
 def torch_env():
     TData.clear()
     torch.set_num_threads(1)
+    set_default_device("cpu")
     yield
     TData.clear()
+    set_default_device(None)
 
 
 def smooth_coords(rng, shape=SHAPE):
