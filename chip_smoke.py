@@ -25,8 +25,19 @@ dose-QA path
         -> parallel.batch.dvh_batch;  Deformable.update_dose / update_mask
 
 on the reference series with a six-ROI structure set and a uint32 dose
-grid, and the cohort preprocess at the bench shape. Each phase prints
-one JSON line; any failure raises and exits non-zero. Near the end it
+grid, then the view path
+
+    Image.update_rotation (off-axis display) -> retrieve_array_plane /
+        retrieve_vtk_volume / reset_array;
+    Rigid.update_translation / update_rotation -> the resliced overlay,
+        exact and with config.use_shear_warp (three lane_interp passes)
+
+on the reference series and the fitted rigid (the lane_interp kernel is
+then held against its plain twin at the passes this path ran), the
+oblique entry ops/warp.affine_warp_oblique called alone at the display's
+map (no path calls it; its launches are counted apart), and the cohort
+preprocess at the bench shape. Each phase prints one JSON line; any failure raises
+and exits non-zero. Near the end it
 prints the card's name and power limit (nvidia-smi) and a JSON line with
 every kernel's launches, error, times and bound; the last line is
 
@@ -39,6 +50,7 @@ scipy and the port; nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -80,6 +92,16 @@ PRESCRIPTION_GY = 60.0
 DOSE_SPACING_MM = 2.5
 DOSE_SCALING = 1.5e-8                      # 60 Gy -> 4.0e9 stored
 DVH_BINS = 300
+# the view path (phase_view): the display rotation, the Rigid nudges, and
+# the bound on the shear lane's interior mean |diff| against the exact
+# reslice (HU), fixed from a CPU rehearsal of the phase at (32, 128, 128)
+# (PERF.md §6)
+VIEW_DISPLAY_DEG = 30.0
+VIEW_NUDGE_MM = 1.0
+VIEW_NUDGE_DEG = 2.0
+SHEAR_INTERIOR_HU = 2.0
+SHEAR_MASK_AGREE = 0.93
+PLANES = ("Axial", "Coronal", "Sagittal")
 # the card's published peaks (H100 SXM at 700 W): the bound of a kernel
 # is the larger of its bytes over the memory rate and its operations
 # over the float32 rate outside the tensor cores
@@ -110,13 +132,16 @@ def cuda_ms(fn, reps=10, warmup=2):
 
 
 # the kernels' records in a profile, by the wrapper count they answer to
-WARP_MODES = {"0": "warp_coords", "1": "warp_affine", "2": "warp_disp"}
+WARP_MODES = {"0": "warp_coords", "1": "warp_affine", "2": "warp_disp",
+              "3": "warp_affine_shear"}
 
 
 def kernel_of(key):
     """The wrapper count a device event answers to, or None."""
     if "hist_kernel" in key:
         return "dose_hist"
+    if "lane_interp_kernel" in key:
+        return "lane_interp"
     mode = re.search(r"warp_kernel<\(\(anonymous namespace\)::Mode\)(\d)", key)
     return WARP_MODES[mode.group(1)] if mode else None
 
@@ -135,11 +160,9 @@ def profile_device(fn, expect=()):
     type, start (µs from the first event) and duration. The device
     figures include the four small operations that open the window
     (a few µs)."""
-    from medicalimageanalysis_torch.ops import hist, warp
-
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    before = {**warp.LAUNCHES, **hist.LAUNCHES}
+    before = launch_counts()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         # a trace loses its first device records (PERF.md, PR 3 runs
@@ -152,8 +175,7 @@ def profile_device(fn, expect=()):
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    counted = {k: v - before[k]
-               for k, v in {**warp.LAUNCHES, **hist.LAUNCHES}.items()}
+    counted = {k: v - before[k] for k, v in launch_counts().items()}
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     profiled = dict.fromkeys(counted, 0)
@@ -184,6 +206,13 @@ def profile_device(fn, expect=()):
             or e.device_type == torch.autograd.DeviceType.CUDA
             or e.name.startswith(("cuda", "mia_torch::", "aten::copy_"))]
     return out
+
+
+def launch_counts():
+    """Every wrapper's launch count, by kernel."""
+    from medicalimageanalysis_torch.ops import hist, lane_interp, warp
+
+    return {**warp.LAUNCHES, **hist.LAUNCHES, **lane_interp.LAUNCHES}
 
 
 def check_profile(name, p):
@@ -231,11 +260,11 @@ def phase_device():
 
 
 def phase_build():
-    """The two CUDA sources and the C++ DICOM scanner, built at once (one
-    compiler process each)."""
-    from medicalimageanalysis_torch.ops._build import (build_library,
-                                                       load_hist_library,
-                                                       load_warp_library)
+    """The three CUDA sources and the C++ DICOM scanner, built at once
+    (one compiler process each)."""
+    from medicalimageanalysis_torch.ops._build import (
+        build_library, load_hist_library, load_lane_interp_library,
+        load_warp_library)
     from medicalimageanalysis_torch.read.dicom import load_native_scanner
 
     def timed(fn, *args):
@@ -244,25 +273,28 @@ def phase_build():
         return out, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        warp = pool.submit(timed, build_library, "warp")
-        hist = pool.submit(timed, build_library, "hist")
+    sources = ("warp", "hist", "lane_interp")
+    with ThreadPoolExecutor(max_workers=len(sources) + 1) as pool:
+        builds = {name: pool.submit(timed, build_library, name)
+                  for name in sources}
         scanner = pool.submit(timed, load_native_scanner)
-        (warp_path, warp_ptxas), warp_s = warp.result()
-        (hist_path, hist_ptxas), hist_s = hist.result()
+        built = {name: job.result() for name, job in builds.items()}
         lib, scanner_s = scanner.result()
     assert lib is not None, "DICOM scanner did not build"
     load_warp_library()
     load_hist_library()
+    load_lane_interp_library()
 
     def regs(ptxas):
         return [ln.strip() for ln in ptxas.splitlines()
                 if "registers" in ln or "spill" in ln]
 
-    emit("build", seconds=time.perf_counter() - t0, warp_seconds=warp_s,
-         hist_seconds=hist_s, scanner_seconds=scanner_s,
-         libraries=[os.path.relpath(warp_path), os.path.relpath(hist_path)],
-         ptxas_warp=regs(warp_ptxas), ptxas_hist=regs(hist_ptxas))
+    emit("build", seconds=time.perf_counter() - t0,
+         scanner_seconds=scanner_s,
+         **{f"{name}_seconds": sec for name, (_, sec) in built.items()},
+         libraries=[os.path.relpath(path) for (path, _), _ in built.values()],
+         **{f"ptxas_{name}": regs(ptxas)
+            for name, ((_, ptxas), _) in built.items()})
 
 
 def smooth_warp(gen, shape, dev):
@@ -616,6 +648,197 @@ def phase_hist(gen, dev):
                 ms=main["ms"], plain_ms=main["plain_ms"],
                 bound_ms=main["bound_ms"], bound_by=main["bound_by"],
                 library_ms=None)
+
+
+def lane_case(gen, R, Xs, Xd, dev, special=False):
+    """data (R, Xs) of 500 HU scale and shear-like positions (R, Xd): a
+    slope Xs/Xd and a per-row offset within 5 % of the width, so some
+    positions fall beyond either edge; with ``special`` also exactly
+    -0.5 and Xs - 0.5, their near insides, the tap edges, NaN and +-inf
+    (in place of up to a third of the positions)."""
+    data = torch.randn((R, Xs), generator=gen, device=dev) * 500
+    off = (torch.rand((R, 1), generator=gen, device=dev) * 2 - 1) \
+        * (0.05 * Xs + 1)
+    pos = torch.arange(Xd, device=dev, dtype=torch.float32)[None, :] \
+        * (Xs / Xd) + off
+    if special:
+        values = torch.tensor([-0.5, Xs - 0.5, -0.4999, Xs - 0.5001, 0.0,
+                               Xs - 1.0, max(Xs - 2.0, 0.0), float("nan"),
+                               float("inf"), -float("inf"), -2.0, Xs + 2.0],
+                              device=dev)
+        flat = pos.view(-1)
+        k = min(flat.numel() // 3 + 1, 3 * values.numel())
+        pick = torch.randperm(flat.numel(), generator=gen, device=dev)[:k]
+        flat[pick] = values[torch.arange(k, device=dev) % values.numel()]
+    return data, pos.contiguous()
+
+
+def library_lane_ms(data, pos):
+    """CUDA-event ms of the nearest PyTorch call to lane_interp on the
+    same inputs: 2-D ``F.grid_sample`` (bilinear, align_corners=True) of
+    the (1, 1, R, Xs) image at x = pos and y = the row index, normalised
+    (row-exact up to float32 rounding of the normalisation). Its edge
+    differs: zeros padding blends up to one pixel beyond the row, where
+    the kernel extrapolates half a pixel and returns 0 beyond. The grid
+    is built outside the timed call."""
+    R, Xs = data.shape
+    ys = torch.arange(R, device=data.device, dtype=torch.float32) \
+        * (2.0 / max(R - 1, 1)) - 1.0
+    grid = torch.stack([pos * (2.0 / max(Xs - 1, 1)) - 1.0,
+                        ys[:, None].expand_as(pos)], -1)[None]
+    inp = data[None, None]
+    ms = cuda_ms(lambda: F.grid_sample(inp, grid, mode="bilinear",
+                                       padding_mode="zeros",
+                                       align_corners=True))
+    del grid
+    torch.cuda.empty_cache()
+    return ms
+
+
+def phase_lane_interp(gen, dev, passes):
+    """Kernel against plain twin, bit-equal: the shear lane's passes at
+    the shapes the view path gave the kernel (``passes``: name -> (rows
+    R, source width Xs, destination width Xd), recorded by phase_view),
+    each also with special positions, and the edge cases of
+    tests/test_torch_lane_interp.py (odd R, Xd != Xs, Xs of 1 and 2,
+    R = 1). Kernel and plain ms, the byte bound and its share, and the
+    2-D grid_sample for the passes."""
+    from medicalimageanalysis_torch.ops.lane_interp import lane_interp_plain
+
+    op = torch.ops.mia_torch.lane_interp
+    cases = [(name, R, Xs, Xd, special)
+             for name, (R, Xs, Xd) in passes.items()
+             for special in (False, True)]
+    cases += [("odd_R", 37, 64, 64, True), ("wider", 37, 64, 70, True),
+              ("narrower", 9, 40, 23, True), ("Xs1", 2, 1, 8, True),
+              ("Xs2", 5, 2, 7, True), ("R1_Xs2", 1, 2, 5, True)]
+    rows = {}
+    for name, R, Xs, Xd, special in cases:
+        data, pos = lane_case(gen, R, Xs, Xd, dev, special)
+        k = op(data, pos)
+        p = lane_interp_plain(data, pos)
+        torch.cuda.synchronize()
+        err = max_abs(k, p)
+        key = f"{name}_special" if special and name in passes else name
+        assert bool(torch.isfinite(k).all()), key
+        assert err == 0.0, f"lane_interp {key}: kernel != plain ({err})"
+        row = dict(shape=[R, Xs, Xd], max_abs_err=err)
+        if name in passes and not special:
+            row["ms"] = cuda_ms(lambda: op(data, pos))
+            row["plain_ms"] = cuda_ms(lambda: lane_interp_plain(data, pos),
+                                      reps=3, warmup=1)
+            row["bound_ms"], row["bound_by"] = bound(
+                4 * (R * Xs + 2 * R * Xd), 6 * R * Xd)
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            row["library_ms"] = library_lane_ms(data, pos)
+        rows[key] = row
+        del data, pos, k, p
+    emit("lane_interp", tolerance=0.0, **rows)
+    torch.cuda.empty_cache()
+    main = rows["rotation_pass1"]
+    return dict(max_abs_err=max(r["max_abs_err"] for r in rows.values()),
+                ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=main["library_ms"])
+
+
+def oblique_cases():
+    """Fully oblique output -> input pixel maps about SHAPE's centre
+    (x, y, z order): 30 and 45 degrees about z, 45 about (1, 1, 1)."""
+    from scipy.spatial.transform import Rotation
+
+    Z, Y, X = SHAPE
+    c = np.array([(X - 1) / 2, (Y - 1) / 2, (Z - 1) / 2])
+    out = {}
+    for name, deg, axis in (("z30", 30.0, (0, 0, 1)), ("z45", 45.0, (0, 0, 1)),
+                            ("xyz45", 45.0, (1, 1, 1))):
+        ax = np.asarray(axis, float)
+        R = Rotation.from_rotvec(np.deg2rad(deg) * ax
+                                 / np.linalg.norm(ax)).as_matrix()
+        A = np.eye(4)
+        A[:3, :3] = R
+        A[:3, 3] = c - R @ c
+        out[name] = A
+    return out
+
+
+def relayout(vol, A):
+    """The oblique entry's input relayout for map A (the JAX package's
+    _axis_align_input): (perm, flips, A2, relayouted volume)."""
+    from medicalimageanalysis_torch.ops.resample import _axis_align_input
+
+    al = _axis_align_input(A, tuple(vol.shape))
+    if al is None:
+        return None, (), A, vol
+    perm, flips, A2 = al
+    v = vol.permute(*perm)
+    return perm, flips, A2, (v.flip(flips) if flips else v).contiguous()
+
+
+def phase_warp_affine_shear(gen, dev):
+    """The affine_shear kernel against its plain twin, and the whole
+    oblique entry (V2 build + affine_shear) against the direct affine
+    mode, both bit-equal, at the oblique maps on SHAPE; the V2 build ms,
+    the residual (kernel) ms, their sum against direct affine, V2's
+    shape and the kernel's bound: the logical volume read once and the
+    output written once (every row the kernel reads from V2 holds a
+    cell of the volume; V2's staircase padding is never read)."""
+    from medicalimageanalysis_torch.ops.warp import (
+        affine_coords, affine_warp_fused, affine_warp_oblique, oblique_plan,
+        oblique_v2, warp_affine_shear_plain)
+
+    op = torch.ops.mia_torch.warp_affine_shear
+    vol = torch.randn(SHAPE, generator=gen, device=dev) * 500
+    rows = {}
+    for name, A in oblique_cases().items():
+        perm, flips, A2, volr = relayout(vol, A)
+        plan = oblique_plan(A2, tuple(volr.shape))
+        assert plan is not None, name
+        coef = [float(v) for v in np.float32(A2[:3]).reshape(-1)] + [
+            float(np.float32(plan[k])) for k in ("ky", "kz", "oy", "oz")]
+        v2 = oblique_v2(volr, plan)[None]
+        dims = list(volr.shape)
+        k = op(v2, coef, dims, list(SHAPE), -3001.0)
+        p = warp_affine_shear_plain(v2, coef, dims, SHAPE, -3001.0)
+        torch.cuda.synchronize()
+        err = max_abs(k, p)
+        assert err == 0.0, f"warp_affine_shear {name}: kernel != plain {err}"
+        del p
+        whole = affine_warp_oblique(vol, A2, -3001.0, SHAPE, plan,
+                                    perm=perm, flips=flips)
+        direct = affine_warp_fused(volr, A2, -3001.0, SHAPE)
+        torch.cuda.synchronize()
+        assert torch.equal(whole, direct), f"oblique {name} != affine"
+        assert torch.equal(k[0], direct)
+        inside = float((direct != -3001.0).float().mean())
+        del whole, direct
+        v2_ms = cuda_ms(lambda: oblique_v2(volr, plan))
+        ms = cuda_ms(lambda: op(v2, coef, dims, list(SHAPE), -3001.0))
+        row = dict(v2_shape=list(v2.shape[1:]), plan=plan,
+                   max_abs_err=err, inside_share=inside, v2_ms=v2_ms, ms=ms,
+                   oblique_ms=v2_ms + ms,
+                   affine_ms=cuda_ms(lambda: affine_warp_fused(
+                       volr, A2, -3001.0, SHAPE)),
+                   plain_ms=cuda_ms(lambda: warp_affine_shear_plain(
+                       v2, coef, dims, SHAPE, -3001.0), reps=2, warmup=1))
+        row["bound_ms"], row["bound_by"] = bound(
+            4 * (volr.numel() + k.numel()), 30 * k.numel())
+        if name == "z30":
+            cz, cy, cx = affine_coords(torch.as_tensor(
+                A2, dtype=torch.float32, device=dev), SHAPE)
+            row["library_ms"] = library_sample_ms(volr[None], cz, cy, cx)
+            del cz, cy, cx
+        rows[name] = row
+        del v2, k, volr
+        torch.cuda.empty_cache()
+    emit("warp_affine_shear", shape=list(SHAPE), tolerance=0.0, **rows)
+    del vol
+    torch.cuda.empty_cache()
+    main = rows["z30"]
+    return dict(max_abs_err=max(r["max_abs_err"] for r in rows.values()),
+                ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=main["library_ms"])
 
 
 # ---------------------------------------------------------------------------
@@ -1156,6 +1379,172 @@ def phase_dose_qa(folder, names, dev):
     return img_name, dose_name
 
 
+def shear_against_exact(shear, exact, dev):
+    """(share of voxels whose valid masks agree, mean |diff| in HU over
+    the voxels valid in both and 2 voxels inside them: a 5^3 box
+    erosion) of a shear-lane reslice against the exact one."""
+    s = torch.as_tensor(shear, device=dev)
+    e = torch.as_tensor(exact, device=dev)
+    agree = float(((s != -3001.0) == (e != -3001.0)).float().mean())
+    outside = ((s == -3001.0) | (e == -3001.0)).float()[None, None]
+    interior = F.max_pool3d(outside, 5, stride=1, padding=2)[0, 0] == 0
+    assert int(interior.sum()) > 0.3 * interior.numel()
+    return agree, float((s - e).abs()[interior].mean())
+
+
+@contextlib.contextmanager
+def recording_shear_passes(log):
+    """Append (rows R, source width Xs, destination width Xd) of every
+    shear_x pass that ops/resample runs inside the block to ``log``: the
+    shapes the shear lane gives the lane_interp kernel."""
+    from medicalimageanalysis_torch.ops import resample
+
+    run = resample.shear_x
+
+    def shear_x(vol, pos_x):
+        Z, Y, Xs = vol.shape
+        log.append((Z * Y, Xs, int(pos_x.shape[-1])))
+        return run(vol, pos_x)
+
+    resample.shear_x = shear_x
+    try:
+        yield log
+    finally:
+        resample.shear_x = run
+
+
+def phase_view(names, rigid, dev):
+    """The view path at full width on the reference series and the fitted
+    rigid. The off-axis display: Image.update_rotation(r_z=30), its
+    secondary array against the plain affine twin of the same matrix on
+    the card (bit-equal); retrieve_array_plane on the three planes,
+    retrieve_slice, retrieve_vtk_volume, reset_array. The Rigid nudges:
+    update_translation (the overlay refreshed by Display.compute_reslice)
+    and update_rotation, each with config.use_shear_warp False, then
+    True; each shear reslice against the exact reslice of the same matrix
+    (shape and origin equal, valid masks agreeing on SHEAR_MASK_AGREE of
+    voxels, interior mean |diff| below SHEAR_INTERIOR_HU). ms per view
+    update. Returns the number of shear reslices, the shapes of their
+    lane_interp passes ("<nudge>_pass<i>": (R, Xs, Xd)) and the display's
+    output -> input pixel map and output shape."""
+    from medicalimageanalysis_torch.config import config
+    from medicalimageanalysis_torch.data import Data
+    from medicalimageanalysis_torch.ops.resample import rotation_grid
+    from medicalimageanalysis_torch.ops.warp import warp_affine_plain
+
+    def timed(fn):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    img = Data.image[names["ref"]]
+    _, rotate_ms = timed(lambda: img.update_rotation(r_z=VIEW_DISPLAY_DEG))
+    sec = img.display.secondary_array
+    A, shape, _ = rotation_grid(img.array.shape, img.matrix, img.spacing,
+                                img.origin, img.display.matrix)
+    assert sec.shape == shape and sec.dtype == np.float32
+    assert np.isfinite(sec).all()
+    vol = torch.as_tensor(img.array, device=dev).to(torch.float32)
+    coef = [float(v) for v in np.float32(A[:3]).reshape(-1)]
+    plain = warp_affine_plain(vol[None], coef, shape, -3001.0)[0]
+    assert np.array_equal(sec, plain.cpu().numpy()), \
+        "display reslice != plain affine"
+    del plain, vol
+    planes, planes_ms = timed(lambda: {p: img.retrieve_array_plane(p)
+                                       for p in PLANES})
+    for p, a in planes.items():
+        assert a.ndim == 2 and np.isfinite(a).all(), p
+    slices = {p: img.retrieve_slice(p) for p in PLANES}
+    assert all(np.isfinite(s["origin"]).all() for s in slices.values())
+    vtk, vtk_ms = timed(img.retrieve_vtk_volume)
+    assert np.array_equal(vtk["array"], sec)
+    assert np.allclose(vtk["origin"], img.display.origin)
+    display = dict(display_deg=VIEW_DISPLAY_DEG, out_shape=list(shape),
+                   inside_share=float((sec != -3001.0).mean()),
+                   update_rotation_ms=rotate_ms, planes_ms=planes_ms,
+                   retrieve_vtk_volume_ms=vtk_ms, equal_to_plain=True)
+    del sec, vtk
+    img.reset_array()
+    assert img.display.secondary_array is None
+
+    nudges = {"translation": lambda: rigid.update_translation(
+                  t_x=VIEW_NUDGE_MM),
+              "rotation": lambda: rigid.update_rotation(r_z=VIEW_NUDGE_DEG)}
+    rows, n_shear, passes = {}, 0, {}
+    for nudge, step in nudges.items():
+        for shear in (False, True):
+            config.use_shear_warp = shear
+
+            def update():
+                step()
+                if nudge == "translation":    # the overlay refreshed
+                    rigid.display.compute_reslice()
+                return {p: rigid.retrieve_array_plane(p) for p in PLANES}
+
+            with recording_shear_passes([]) as log:
+                planes, ms = timed(update)
+            config.use_shear_warp = False
+            out = rigid.display.array
+            assert np.isfinite(out).all()
+            assert any(a is not None for a in planes.values())
+            row = dict(ms=ms, out_shape=list(out.shape))
+            assert len(log) == (3 if shear else 0), log
+            if shear:
+                n_shear += 1
+                for i, rxx in enumerate(log):
+                    passes[f"{nudge}_pass{i + 1}"] = rxx
+                row["lane_passes"] = [list(rxx) for rxx in log]
+                exact = rigid.create_image()
+                assert out.shape == exact["array"].shape
+                assert np.array_equal(rigid.display.origin, exact["origin"])
+                row["mask_agree"], row["interior_mean_abs_hu"] = \
+                    shear_against_exact(out, exact["array"], dev)
+                assert row["mask_agree"] >= SHEAR_MASK_AGREE, row
+                assert row["interior_mean_abs_hu"] < SHEAR_INTERIOR_HU, row
+                del exact
+            rows[f"{nudge}_{'shear' if shear else 'exact'}"] = row
+    emit("view", shape=list(SHAPE), display=display,
+         interior_limit_hu=SHEAR_INTERIOR_HU,
+         mask_agree_limit=SHEAR_MASK_AGREE, rigid=rows)
+    return dict(n_shear=n_shear, passes=passes, display_map=(A, shape))
+
+
+def phase_oblique_entry(names, A, shape, dev):
+    """The oblique entry (affine_warp_oblique: one V2 build by the coords
+    mode, one affine_shear launch), called on its own at the off-axis
+    display's map: bit-equal to the plain affine twin of that map, which
+    the display's secondary array equals. No path of the port calls it
+    (affine_resample keeps the direct affine mode for every map), so its
+    launches are counted apart from the view path's."""
+    from medicalimageanalysis_torch.data import Data
+    from medicalimageanalysis_torch.ops.warp import (affine_warp_oblique,
+                                                     oblique_plan,
+                                                     warp_affine_plain)
+
+    vol = torch.as_tensor(Data.image[names["ref"]].array,
+                          device=dev).to(torch.float32)
+    perm, flips, A2, volr = relayout(vol, np.asarray(A, np.float64))
+    plan = oblique_plan(A2, tuple(volr.shape))
+    assert plan is not None
+    v2_shape = [plan["Z2"], plan["Y2"], int(volr.shape[2])]
+    del volr
+    sync(dev)
+    t0 = time.perf_counter()
+    oblique = affine_warp_oblique(vol, A2, -3001.0, shape, plan, perm=perm,
+                                  flips=flips)
+    sync(dev)
+    ms = 1e3 * (time.perf_counter() - t0)
+    coef = [float(v) for v in np.float32(A[:3]).reshape(-1)]
+    plain = warp_affine_plain(vol[None], coef, shape, -3001.0)[0]
+    assert torch.equal(oblique, plain), "oblique entry != display reslice"
+    emit("oblique_entry", out_shape=list(shape), v2_shape=v2_shape, ms=ms,
+         equal_to_display=True)
+    del vol, oblique, plain
+    torch.cuda.empty_cache()
+
+
 def phase_ingest(folder, dev):
     import medicalimageanalysis_torch as mia
     from medicalimageanalysis_torch.data import Data
@@ -1316,7 +1705,8 @@ def main():
               "card", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from medicalimageanalysis_torch.ops import hist, warp
+    from medicalimageanalysis_torch.config import config
+    from medicalimageanalysis_torch.ops import hist, lane_interp, warp
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1327,15 +1717,13 @@ def main():
     kernels = {"warp_coords": phase_warp_coords(gen, dev),
                "warp_affine": phase_warp_affine(gen, dev),
                "warp_disp": phase_warp_disp(gen, dev),
-               "dose_hist": phase_hist(gen, dev)}
+               "dose_hist": phase_hist(gen, dev),
+               "warp_affine_shear": phase_warp_affine_shear(gen, dev)}
 
     def reset_counts():
-        for counts in (warp.LAUNCHES, hist.LAUNCHES):
+        for counts in (warp.LAUNCHES, hist.LAUNCHES, lane_interp.LAUNCHES):
             for key in counts:
                 counts[key] = 0
-
-    def read_counts():
-        return {**warp.LAUNCHES, **hist.LAUNCHES}
 
     with tempfile.TemporaryDirectory(prefix="mia_smoke_") as folder:
         truth, ref = write_pair(cpu_gen, folder)
@@ -1343,28 +1731,52 @@ def main():
         names = phase_ingest(folder, dev)
         rigid, warm = phase_rigid(names, truth)
         phase_reslice(rigid, dev)
-        rigid_launches = read_counts()     # ... and ends here
+        rigid_launches = launch_counts()   # ... and ends here
         deformed = os.path.join(folder, "deformed")
         write_deformed(ref, deformed)
         del ref
         reset_counts()                     # the deformable path starts here
         names = phase_deformable(deformed, names, dev)
         phase_deformable_variants(names, dev)
-        deformable_launches = read_counts()    # ... and ends here
+        deformable_launches = launch_counts()  # ... and ends here
         reset_counts()                     # the dose-QA path starts here
         img_name, dose_name = phase_dose_qa(folder, names, dev)
-        dose_qa_launches = read_counts()   # ... and ends here
+        dose_qa_launches = launch_counts()  # ... and ends here
+        reset_counts()                     # the view path starts here
+        view = phase_view(names, rigid, dev)
+        view_launches = launch_counts()    # ... and ends here
+        reset_counts()      # the oblique entry alone, at the display's map
+        phase_oblique_entry(names, *view["display_map"], dev)
+        oblique_launches = launch_counts()
+    # lane_interp against its plain twin at the passes the view path ran
+    kernels["lane_interp"] = phase_lane_interp(gen, dev, view["passes"])
     assert rigid_launches["warp_coords"] and rigid_launches["warp_affine"], \
         f"a kernel of the rigid path never launched: {rigid_launches}"
-    assert all(deformable_launches[k] for k in warp.LAUNCHES), \
+    assert all(deformable_launches[k] for k in
+               ("warp_coords", "warp_affine", "warp_disp")), \
         f"a kernel of the deformable path never launched: " \
         f"{deformable_launches}"
     assert all(dose_qa_launches[k] for k in
                ("dose_hist", "warp_affine", "warp_coords", "warp_disp")), \
         f"a kernel of the dose-QA path never launched: {dose_qa_launches}"
+    # three lane_interp passes per shear reslice; the exact reslices (the
+    # display, its volume bundle, two Rigid nudges and two comparisons).
+    # No view route reaches the oblique entry: affine_resample keeps the
+    # direct affine mode for every map
+    assert view_launches["lane_interp"] == 3 * view["n_shear"], \
+        view_launches
+    assert view_launches["warp_affine"] >= 6, view_launches
+    assert view_launches["warp_affine_shear"] == 0, view_launches
+    assert view_launches["warp_coords"] == 0, view_launches
+    # the oblique entry called alone: one V2 build, one affine_shear
+    assert oblique_launches == dict(
+        {k: 0 for k in oblique_launches}, warp_coords=1,
+        warp_affine_shear=1), oblique_launches
     launches = {k: rigid_launches[k] + deformable_launches[k]
-                for k in warp.LAUNCHES}
+                for k in ("warp_coords", "warp_affine", "warp_disp")}
     launches["dose_hist"] = dose_qa_launches["dose_hist"]
+    launches["lane_interp"] = view_launches["lane_interp"]
+    launches["warp_affine_shear"] = view_launches["warp_affine_shear"]
 
     # the paths' calls again, each under the profiler: the hand-written
     # kernel, not a plain path, must be what ran on the card. The
@@ -1379,9 +1791,19 @@ def main():
 
     fixed = Data.image[names["ref"]].array
     moving = Data.image[names["deformed"]].array
+
+    def shear_reslice():
+        config.use_shear_warp = True
+        try:
+            rigid.display.compute_reslice()
+        finally:
+            config.use_shear_warp = False
+
     profiles = {
         "rigid": profile_device(rigid.compute_intensity, ["warp_coords"]),
         "reslice": profile_device(rigid.create_image, ["warp_affine"]),
+        # one Rigid view reslice through the shear-warp lane
+        "shear_reslice": profile_device(shear_reslice, ["lane_interp"]),
         # one full-size demons level (50 iterations) and one B-spline call
         # (100 steps), each from host arrays to a host field
         "demons_level": profile_device(lambda: demons_registration(
@@ -1415,7 +1837,9 @@ def main():
     emit("kernel_ran", launches=launches,
          launches_rigid_path=rigid_launches,
          launches_deformable_path=deformable_launches,
-         launches_dose_qa_path=dose_qa_launches, **profiles)
+         launches_dose_qa_path=dose_qa_launches,
+         launches_view_path=view_launches,
+         launches_oblique_entry=oblique_launches, **profiles)
     for name, p in profiles.items():
         check_profile(name, p)
     phase_preprocess(cpu_gen, dev)
@@ -1428,12 +1852,22 @@ def main():
              "source": "medicalimageanalysis_torch/csrc/warp.cu",
              "replaces": "medicalimageanalysis_tpu/ops/pallas_warp.py:181",
              "launches": launches[name], **kernels[name]}
-            for name in ("warp_coords", "warp_affine", "warp_disp")]
+            for name in ("warp_coords", "warp_affine", "warp_disp",
+                         "warp_affine_shear")]
+    # affine_shear is reached only by affine_warp_oblique called directly,
+    # which no path calls: 0 launches on the paths, its own count beside
+    rows[-1]["launches_oblique_entry"] = oblique_launches["warp_affine_shear"]
     rows.append({"name": "dose_hist", "route": "cuda",
                  "source": "medicalimageanalysis_torch/csrc/hist.cu",
                  "replaces":
                  "medicalimageanalysis_tpu/ops/pallas_kernels.py:29",
                  "launches": launches["dose_hist"], **kernels["dose_hist"]})
+    rows.append({"name": "lane_interp", "route": "cuda",
+                 "source": "medicalimageanalysis_torch/csrc/lane_interp.cu",
+                 "replaces":
+                 "medicalimageanalysis_tpu/ops/pallas_kernels.py:93",
+                 "launches": launches["lane_interp"],
+                 **kernels["lane_interp"]})
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

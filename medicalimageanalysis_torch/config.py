@@ -2,8 +2,12 @@
 
 Carried over from medicalimageanalysis_tpu/config.py with identical
 defaults, for the constants the ported slices read; the others (mesh,
-ICP, B-spline) arrive with their slices. The TPU execution knobs
-(jit_ingest, mesh axes, the shear-warp lane) have no counterpart here.
+ICP, B-spline) arrive with their slices. ``use_shear_warp`` keeps the JAX
+package's meaning: ``reslice_transform`` (``Rigid.create_image`` and the
+Rigid view updates) takes the three-pass shear-warp lane
+(ops/resample.affine_resample_shear, the lane_interp kernel on the card)
+instead of the exact one-pass affine warp. The other TPU execution knobs
+(jit_ingest, mesh axes) have no counterpart here.
 """
 
 from dataclasses import dataclass
@@ -14,6 +18,7 @@ class MiaConfig:
     background_fill: float = -3001.0
     contour_decimals: int = 3
     spacing_tolerance_mm: float = 0.01
+    use_shear_warp: bool = False
 
 
 config = MiaConfig()

@@ -2,18 +2,29 @@
 //
 // Replaces medicalimageanalysis_tpu/ops/pallas_warp.py::_warp_kernel in its
 // `coords` and `disp` modes (each with and without the fused coordinate
-// gradients) and its `affine` mode. It computes what the TPU kernel
-// computes: an exact 8-tap trilinear sample of B volumes (Z, Y, X) per
-// output voxel, taps clamped to the edge, samples outside [0, dim-1] set to
-// `background`; with kGrad also d/d(cz, cy, cx) from the same taps, 0
-// outside. The modes differ only in
-// where a voxel's sample coordinate comes from:
+// gradients) and its `affine` and `affine_shear` modes. It computes what
+// the TPU kernel computes: an exact 8-tap trilinear sample of B volumes
+// (Z, Y, X) per output voxel, taps clamped to the edge, samples outside
+// [0, dim-1] set to `background`; with kGrad also d/d(cz, cy, cx) from the
+// same taps, 0 outside. The modes differ in where a voxel's sample
+// coordinate comes from:
 //   kCoords  three (Zo, Yo, Xo) coordinate volumes (registration);
 //   kAffine  12 coefficients over the output index (reslice);
 //   kDisp    the output index plus a planar (3, Zo, Yo, Xo) voxel
 //            displacement, rows (x, y, z), shared by the B volumes
 //            (demons, DVF inversion and composition, B-spline, deformed
-//            reslice). One f32 add per axis, so the twin stays bit-equal.
+//            reslice). One f32 add per axis, so the twin stays bit-equal;
+//   kAffineShear  kAffine's coordinates, taps and fractions over the
+//            logical (Z, Y, X), but the taps are read from the staircase-
+//            sheared copy V2 (Z2, Y2, X) of the volume,
+//            V2[z + oz - stair(kz, x), y + oy - stair(ky, x), x] = V[z, y, x],
+//            stair(k, x) = floor(k*x + 0.5) in float32 (ops/warp._stair):
+//            each x tap reads its own rows. The 8 values combine in
+//            kAffine's order, so on an exact V2 the result is bit-equal to
+//            kAffine on V (the oblique entry, ops/warp.affine_warp_oblique).
+//            The TPU needed the shear to keep a tile's rows inside its
+//            VMEM slab; here the rows are read from global memory, and the
+//            mode costs V2's build (PERF.md).
 //
 // What bounds it: a gather. Each output voxel reads 8 scattered floats per
 // volume and writes 1 (4 with gradients), so the kernel is bound by device
@@ -41,11 +52,25 @@
 
 namespace {
 
-enum class Mode { kCoords, kAffine, kDisp };
+enum class Mode { kCoords, kAffine, kDisp, kAffineShear };
 
 struct Coef {
   float c[12];  // row-major output (x, y, z, 1) -> input (x, y, z)
 };
+
+struct Shear {   // kAffineShear: the staircase of V2 (Z2, Y2, X)
+  float ky, kz, oy, oz;
+  int Z2, Y2;
+};
+
+// row of V2 that holds row `r` (z or y) of V at column x: r + o - stair(k, x),
+// in float (exact for these integers), clamped to [0, n-1] before the cast
+__device__ __forceinline__ int stair_row(int r, float o, float k, int x,
+                                         int n) {
+  const float stair = floorf(k * (float)x + 0.5f);
+  const float row = ((float)r + o) - stair;
+  return (int)fminf(fmaxf(row, 0.f), (float)(n - 1));
+}
 
 template <Mode M, bool kGrad>
 __global__ void warp_kernel(const float* __restrict__ vol, int B, int Z,
@@ -53,10 +78,13 @@ __global__ void warp_kernel(const float* __restrict__ vol, int B, int Z,
                             const float* __restrict__ cyp,
                             const float* __restrict__ cxp,
                             const float* __restrict__ dsp, Coef coef,
-                            int Yo, int Xo, int64_t n, float bg,
+                            Shear sh, int Yo, int Xo, int64_t n, float bg,
                             float* __restrict__ out, float* __restrict__ gz,
                             float* __restrict__ gy, float* __restrict__ gx) {
-  const int64_t vstride = (int64_t)Z * Y * X;
+  // (Z, Y, X) are the logical dims; kAffineShear's volumes are V2
+  const int64_t vstride = M == Mode::kAffineShear
+                              ? (int64_t)sh.Z2 * sh.Y2 * X
+                              : (int64_t)Z * Y * X;
   const float zmax = (float)(Z - 1);
   const float ymax = (float)(Y - 1);
   const float xmax = (float)(X - 1);
@@ -114,16 +142,40 @@ __global__ void warp_kernel(const float* __restrict__ vol, int B, int Z,
     const int x1 = min(x0 + 1, X - 1);
     const int y1 = min(y0 + 1, Y - 1);
     const int z1 = min(z0 + 1, Z - 1);
-    const int64_t r00 = ((int64_t)z0 * Y + y0) * X;
-    const int64_t r01 = ((int64_t)z0 * Y + y1) * X;
-    const int64_t r10 = ((int64_t)z1 * Y + y0) * X;
-    const int64_t r11 = ((int64_t)z1 * Y + y1) * X;
+    // element offsets of the 8 taps: (z, y) rows of the x0 taps (a) and
+    // of the x1 taps (b); one set of rows unless the volume is sheared
+    int64_t a00, a01, a10, a11, b00, b01, b10, b11;
+    if constexpr (M == Mode::kAffineShear) {
+      const int za0 = stair_row(z0, sh.oz, sh.kz, x0, sh.Z2);
+      const int za1 = stair_row(z1, sh.oz, sh.kz, x0, sh.Z2);
+      const int zb0 = stair_row(z0, sh.oz, sh.kz, x1, sh.Z2);
+      const int zb1 = stair_row(z1, sh.oz, sh.kz, x1, sh.Z2);
+      const int ya0 = stair_row(y0, sh.oy, sh.ky, x0, sh.Y2);
+      const int ya1 = stair_row(y1, sh.oy, sh.ky, x0, sh.Y2);
+      const int yb0 = stair_row(y0, sh.oy, sh.ky, x1, sh.Y2);
+      const int yb1 = stair_row(y1, sh.oy, sh.ky, x1, sh.Y2);
+      a00 = ((int64_t)za0 * sh.Y2 + ya0) * X + x0;
+      a01 = ((int64_t)za0 * sh.Y2 + ya1) * X + x0;
+      a10 = ((int64_t)za1 * sh.Y2 + ya0) * X + x0;
+      a11 = ((int64_t)za1 * sh.Y2 + ya1) * X + x0;
+      b00 = ((int64_t)zb0 * sh.Y2 + yb0) * X + x1;
+      b01 = ((int64_t)zb0 * sh.Y2 + yb1) * X + x1;
+      b10 = ((int64_t)zb1 * sh.Y2 + yb0) * X + x1;
+      b11 = ((int64_t)zb1 * sh.Y2 + yb1) * X + x1;
+    } else {
+      const int64_t r00 = ((int64_t)z0 * Y + y0) * X;
+      const int64_t r01 = ((int64_t)z0 * Y + y1) * X;
+      const int64_t r10 = ((int64_t)z1 * Y + y0) * X;
+      const int64_t r11 = ((int64_t)z1 * Y + y1) * X;
+      a00 = r00 + x0; a01 = r01 + x0; a10 = r10 + x0; a11 = r11 + x0;
+      b00 = r00 + x1; b01 = r01 + x1; b10 = r10 + x1; b11 = r11 + x1;
+    }
     for (int b = 0; b < B; ++b) {
       const float* v = vol + (int64_t)b * vstride;
-      const float c000 = v[r00 + x0], c001 = v[r00 + x1];
-      const float c010 = v[r01 + x0], c011 = v[r01 + x1];
-      const float c100 = v[r10 + x0], c101 = v[r10 + x1];
-      const float c110 = v[r11 + x0], c111 = v[r11 + x1];
+      const float c000 = v[a00], c001 = v[b00];
+      const float c010 = v[a01], c011 = v[b01];
+      const float c100 = v[a10], c101 = v[b10];
+      const float c110 = v[a11], c111 = v[b11];
       const float c00 = c000 * gfx + c001 * fx;
       const float c01 = c010 * gfx + c011 * fx;
       const float c10 = c100 * gfx + c101 * fx;
@@ -163,12 +215,12 @@ extern "C" int mia_warp_coords(const float* vol, int B, int Z, int Y, int X,
   Coef none{};
   if (want_grad) {
     warp_kernel<Mode::kCoords, true><<<blocks_for(n), kThreads, 0, s>>>(
-        vol, B, Z, Y, X, cz, cy, cx, nullptr, none, Yo, Xo, n, bg, out, gz,
-        gy, gx);
+        vol, B, Z, Y, X, cz, cy, cx, nullptr, none, Shear{}, Yo, Xo, n, bg,
+        out, gz, gy, gx);
   } else {
     warp_kernel<Mode::kCoords, false><<<blocks_for(n), kThreads, 0, s>>>(
-        vol, B, Z, Y, X, cz, cy, cx, nullptr, none, Yo, Xo, n, bg, out,
-        nullptr, nullptr, nullptr);
+        vol, B, Z, Y, X, cz, cy, cx, nullptr, none, Shear{}, Yo, Xo, n, bg,
+        out, nullptr, nullptr, nullptr);
   }
   return (int)cudaGetLastError();
 }
@@ -182,8 +234,8 @@ extern "C" int mia_warp_affine(const float* vol, int B, int Z, int Y, int X,
   Coef coef;
   for (int k = 0; k < 12; ++k) coef.c[k] = coef12[k];  // host array
   warp_kernel<Mode::kAffine, false><<<blocks_for(n), kThreads, 0, s>>>(
-      vol, B, Z, Y, X, nullptr, nullptr, nullptr, nullptr, coef, Yo, Xo, n,
-      bg, out, nullptr, nullptr, nullptr);
+      vol, B, Z, Y, X, nullptr, nullptr, nullptr, nullptr, coef, Shear{}, Yo,
+      Xo, n, bg, out, nullptr, nullptr, nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -199,12 +251,32 @@ extern "C" int mia_warp_disp(const float* vol, int B, int Z, int Y, int X,
   Coef none{};
   if (want_grad) {
     warp_kernel<Mode::kDisp, true><<<blocks_for(n), kThreads, 0, s>>>(
-        vol, B, Z, Y, X, nullptr, nullptr, nullptr, disp, none, Yo, Xo, n,
-        bg, out, gz, gy, gx);
+        vol, B, Z, Y, X, nullptr, nullptr, nullptr, disp, none, Shear{}, Yo,
+        Xo, n, bg, out, gz, gy, gx);
   } else {
     warp_kernel<Mode::kDisp, false><<<blocks_for(n), kThreads, 0, s>>>(
-        vol, B, Z, Y, X, nullptr, nullptr, nullptr, disp, none, Yo, Xo, n,
-        bg, out, nullptr, nullptr, nullptr);
+        vol, B, Z, Y, X, nullptr, nullptr, nullptr, disp, none, Shear{}, Yo,
+        Xo, n, bg, out, nullptr, nullptr, nullptr);
   }
+  return (int)cudaGetLastError();
+}
+
+// affine_shear: v2 (B, Z2, Y2, X), the staircase-sheared copy of volumes
+// of logical dims (Z, Y, X); coef16 = the 12 affine coefficients, then ky,
+// kz, oy, oz (host array); output (B, Zo, Yo, Xo).
+extern "C" int mia_warp_affine_shear(const float* v2, int B, int Z2, int Y2,
+                                     int X, int Z, int Y,
+                                     const float* coef16, int Zo, int Yo,
+                                     int Xo, float bg, float* out,
+                                     void* stream) {
+  const int64_t n = (int64_t)Zo * Yo * Xo;
+  if (n == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Coef coef;
+  for (int k = 0; k < 12; ++k) coef.c[k] = coef16[k];
+  const Shear sh{coef16[12], coef16[13], coef16[14], coef16[15], Z2, Y2};
+  warp_kernel<Mode::kAffineShear, false><<<blocks_for(n), kThreads, 0, s>>>(
+      v2, B, Z, Y, X, nullptr, nullptr, nullptr, nullptr, coef, sh, Yo, Xo,
+      n, bg, out, nullptr, nullptr, nullptr);
   return (int)cudaGetLastError();
 }

@@ -6,8 +6,9 @@ PyTorch's headers takes minutes) and ``ctypes`` loads it. Each library
 lands in ``build/torch_ext/`` at the root of the checkout, named by a hash
 of its source and flags, so an edited kernel is rebuilt and a stale one is
 never loaded. Nothing is built when this module is imported: the first
-launch calls :func:`load_warp_library` or :func:`load_hist_library`, and
-two sources may build at once (each ``nvcc`` writes its own file).
+launch calls :func:`load_warp_library`, :func:`load_hist_library` or
+:func:`load_lane_interp_library`, and several sources may build at once
+(each ``nvcc`` writes its own file).
 
 Flags: ``--fmad=false`` keeps every float32 operation rounded on its own,
 so the kernels are bit-equal to their plain PyTorch twins;
@@ -25,7 +26,7 @@ import subprocess
 from pathlib import Path
 
 __all__ = ["NVCC_FLAGS", "build_dir", "build_library", "load_hist_library",
-           "load_warp_library"]
+           "load_lane_interp_library", "load_warp_library"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ("-O3", "--fmad=false", "-std=c++17",
@@ -80,6 +81,9 @@ def load_warp_library():
     lib.mia_warp_disp.restype = i
     lib.mia_warp_disp.argtypes = [p, i, i, i, i, p, i, i, i, f, p, p, p, p,
                                   i, p]
+    lib.mia_warp_affine_shear.restype = i
+    lib.mia_warp_affine_shear.argtypes = [p, i, i, i, i, i, i, p, i, i, i, f,
+                                          p, p]
     return lib
 
 
@@ -91,4 +95,16 @@ def load_hist_library():
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.mia_dose_hist.restype = i
     lib.mia_dose_hist.argtypes = [p, p, i64, p, i, p, p]
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_lane_interp_library():
+    """The per-row linear interpolation kernel's ctypes handle, built on
+    first use."""
+    path, _ = build_library("lane_interp")
+    lib = ctypes.CDLL(str(path))
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.mia_lane_interp.restype = i
+    lib.mia_lane_interp.argtypes = [p, p, i64, i, i, p, p]
     return lib

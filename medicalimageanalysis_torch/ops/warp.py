@@ -1,7 +1,7 @@
 """Exact trilinear warp: a hand-written CUDA kernel and its plain twin.
 
 Port of medicalimageanalysis_tpu/ops/pallas_warp.py. The TPU kernel
-(``_warp_kernel``) becomes csrc/warp.cu in three of its modes:
+(``_warp_kernel``) becomes csrc/warp.cu in its four modes:
 
 - ``coords``: sample B volumes at absolute (cz, cy, cx) voxel coordinates,
   optionally with the exact coordinate gradients from the same taps
@@ -11,13 +11,18 @@ Port of medicalimageanalysis_tpu/ops/pallas_warp.py. The TPU kernel
 - ``disp``: the coordinates are the output index plus a planar
   (3, Zo, Yo, Xo) voxel displacement, rows (x, y, z), optionally with
   the coordinate gradients (demons, DVF inversion and composition, the
-  B-spline fit, the deformed reslice).
+  B-spline fit, the deformed reslice);
+- ``affine_shear``: the ``affine`` sample, taps and fractions over the
+  logical volume, read from its staircase-sheared copy V2 (the oblique
+  entry :func:`affine_warp_oblique`, whose V2 one ``coords`` launch
+  builds).
 
 Each is registered as a PyTorch operator, ``torch.ops.mia_torch.
-warp_coords`` / ``warp_affine`` / ``warp_disp``. The dispatcher picks
-the implementation by the tensors' device and nothing else: a CPU tensor
-runs the plain PyTorch twin (``warp_coords_plain`` / ``warp_affine_plain``
-/ ``warp_disp_plain``), a CUDA tensor launches the kernel or raises.
+warp_coords`` / ``warp_affine`` / ``warp_disp`` / ``warp_affine_shear``.
+The dispatcher picks the implementation by the tensors' device and
+nothing else: a CPU tensor runs the plain PyTorch twin
+(``warp_coords_plain`` / ``warp_affine_plain`` / ``warp_disp_plain`` /
+``warp_affine_shear_plain``), a CUDA tensor launches the kernel or raises.
 
 Semantics (those of ops/resample._trilinear in the JAX package): taps
 clamp to the volume edge, samples outside ``[0, dim-1]`` take
@@ -25,35 +30,46 @@ clamp to the volume edge, samples outside ``[0, dim-1]`` take
 in the kernel's order, so the two are bit-equal on the card.
 
 The TPU kernel's slab/window machinery (``_pick_config``,
-``fits_warp_caps``, ``required_window``, the overflow counter and the
-``window`` / ``with_overflow`` arguments) has no counterpart: the CUDA
-kernel reads global memory directly and serves every coordinate map.
+``fits_warp_caps``, ``required_window``, the overflow counter, the
+``window`` / ``with_overflow`` arguments and ``oblique_plan``'s VMEM
+gates) has no counterpart: the CUDA kernel reads global memory directly
+and serves every coordinate map.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 from torch import Tensor
 
-__all__ = ["LAUNCHES", "affine_coords", "affine_warp_fused", "field_warp",
-           "field_warp_disp", "make_disp_sampler", "make_warp_sampler",
-           "warp_affine_plain", "warp_coords_plain", "warp_disp",
-           "warp_disp_plain"]
+__all__ = ["LAUNCHES", "affine_coords", "affine_warp_fused",
+           "affine_warp_oblique", "field_warp", "field_warp_disp",
+           "make_disp_sampler", "make_warp_sampler", "oblique_plan",
+           "oblique_v2", "warp_affine_plain", "warp_affine_shear_plain",
+           "warp_coords_plain", "warp_disp", "warp_disp_plain"]
 
 # Kernel launches per operator; a run reads them to show that its main
 # path went through the kernels. Only the CUDA implementations add to them.
-LAUNCHES = {"warp_coords": 0, "warp_affine": 0, "warp_disp": 0}
+LAUNCHES = {"warp_coords": 0, "warp_affine": 0, "warp_disp": 0,
+            "warp_affine_shear": 0}
 
 
 # ---------------------------------------------------------------------------
 # plain twin
 # ---------------------------------------------------------------------------
-def _sample_plain(vol, cz, cy, cx, background, want_grad):
+def _sample_plain(vol, cz, cy, cx, background, want_grad, shear=None):
     """vol (B, Z, Y, X) f32; coordinates (any shape S) f32 ->
-    out (B, *S) [, gz, gy, gx (B, *S)], in the kernel's operation order."""
+    out (B, *S) [, gz, gy, gx (B, *S)], in the kernel's operation order.
+
+    With ``shear`` = (Z, Y, ky, kz, oy, oz), ``vol`` is the sheared copy
+    V2 (B, Z2, Y2, X) of volumes of logical dims (Z, Y, X), read as the
+    ``affine_shear`` kernel reads it (:func:`_stair_row`)."""
     B, Z, Y, X = vol.shape
+    if shear is not None:
+        Z2, Y2 = Z, Y
+        Z, Y, ky, kz, oy, oz = shear
     inside = ((cx >= 0) & (cx <= X - 1) & (cy >= 0) & (cy <= Y - 1)
               & (cz >= 0) & (cz <= Z - 1))
     x0f, y0f, z0f = torch.floor(cx), torch.floor(cy), torch.floor(cz)
@@ -71,8 +87,13 @@ def _sample_plain(vol, cz, cy, cx, background, want_grad):
     flat = vol.reshape(B, -1)
 
     def take(zi, yi, xi):
-        idx = ((zi * Y + yi) * X + xi).reshape(-1)
-        return flat.index_select(1, idx).reshape((B,) + tuple(cx.shape))
+        if shear is None:
+            idx = (zi * Y + yi) * X + xi
+        else:
+            idx = (_stair_row(zi, oz, kz, xi, Z2) * Y2
+                   + _stair_row(yi, oy, ky, xi, Y2)) * X + xi
+        return flat.index_select(1, idx.reshape(-1)).reshape(
+            (B,) + tuple(cx.shape))
 
     c000, c001 = take(z0, y0, x0), take(z0, y0, x1)
     c010, c011 = take(z0, y1, x0), take(z0, y1, x1)
@@ -110,6 +131,19 @@ def warp_affine_plain(vol, coef, out_shape, background=0.0):
     A = torch.tensor(coef, dtype=torch.float32, device=vol.device)
     cz, cy, cx = affine_coords(A.reshape(3, 4), out_shape)
     return _sample_plain(vol, cz, cy, cx, float(background), False)[0]
+
+
+def warp_affine_shear_plain(v2, coef16, logical_dims, out_shape,
+                            background=0.0):
+    """Plain PyTorch ``affine_shear`` mode: v2 (B, Z2, Y2, X) f32, the
+    staircase-sheared copy of volumes of ``logical_dims`` (Z, Y, X);
+    ``coef16`` the 12 affine coefficients of :func:`warp_affine_plain`,
+    then ky, kz, oy, oz -> (B, Zo, Yo, Xo)."""
+    c = torch.tensor(coef16, dtype=torch.float32, device=v2.device)
+    cz, cy, cx = affine_coords(c[:12].reshape(3, 4), out_shape)
+    Z, Y, _ = (int(v) for v in logical_dims)
+    return _sample_plain(v2, cz, cy, cx, float(background), False,
+                         shear=(Z, Y, c[12], c[13], c[14], c[15]))[0]
 
 
 def _base_grid(shape_zyx, device):
@@ -154,6 +188,15 @@ def _warp_affine_op(vol: Tensor, coef: list[float], out_shape: list[int],
 def _warp_disp_op(vol: Tensor, disp: Tensor, background: float,
                   want_grad: bool) -> list[Tensor]:
     return warp_disp_plain(vol, disp, background, want_grad)
+
+
+@torch.library.custom_op("mia_torch::warp_affine_shear", mutates_args=(),
+                         device_types="cpu")
+def _warp_affine_shear_op(v2: Tensor, coef16: list[float],
+                          logical_dims: list[int], out_shape: list[int],
+                          background: float) -> Tensor:
+    return warp_affine_shear_plain(v2, coef16, logical_dims, out_shape,
+                                   background)
 
 
 def _check_f32_cuda(name, t, device):
@@ -249,6 +292,34 @@ def _warp_disp_cuda(vol, disp, background, want_grad):
     _raise_on(err, "warp_disp")
     LAUNCHES["warp_disp"] += 1
     return outs
+
+
+@_warp_affine_shear_op.register_kernel("cuda")
+def _warp_affine_shear_cuda(v2, coef16, logical_dims, out_shape, background):
+    from ._build import load_warp_library
+
+    dev = v2.device
+    _check_f32_cuda("v2", v2, dev)
+    if v2.dim() != 4 or len(coef16) != 16 or len(logical_dims) != 3 \
+            or len(out_shape) != 3 or int(logical_dims[2]) != v2.shape[3]:
+        raise ValueError("warp_affine_shear: v2 (B, Z2, Y2, X), 16 "
+                         "coefficients, logical dims (Z, Y, X) and a 3-d "
+                         f"out_shape, got {tuple(v2.shape)}, {len(coef16)}, "
+                         f"{list(logical_dims)}, {list(out_shape)}")
+    lib = load_warp_library()
+    B, Z2, Y2, X = v2.shape
+    Z, Y = int(logical_dims[0]), int(logical_dims[1])
+    Zo, Yo, Xo = (int(s) for s in out_shape)
+    out = torch.empty((B, Zo, Yo, Xo), dtype=torch.float32, device=dev)
+    c16 = (ctypes.c_float * 16)(*[float(v) for v in coef16])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.mia_warp_affine_shear(v2.data_ptr(), B, Z2, Y2, X, Z, Y,
+                                        c16, Zo, Yo, Xo, float(background),
+                                        out.data_ptr(), stream)
+    _raise_on(err, "warp_affine_shear")
+    LAUNCHES["warp_affine_shear"] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -402,3 +473,115 @@ def make_disp_sampler(vol, background=0.0):
         return out[0] if squeeze else out
 
     return sample
+
+
+# ---------------------------------------------------------------------------
+# Oblique affine resample: the staircase-shear factorization
+#
+#   warp(V, A) == warp_shear(shear(V, ky, kz), A, ky, kz)
+#
+# where shear is an exact integer row permutation
+#   V2[z + oz - stair(kz, x), y + oy - stair(ky, x), x] = V[z, y, x],
+#   stair(k, x) = floor(k*x + 0.5),  ky = A10/A00, kz = A20/A00,
+# built by one ``coords`` launch in the transposed (z, x, y) layout with
+# integer coordinates (an exact copy), then sampled by the
+# ``affine_shear`` kernel. On the TPU it kept each output tile's rows in a
+# VMEM slab window; on the card the direct ``affine`` mode serves every
+# map, and this route pays V2's build on top (PERF.md).
+# ---------------------------------------------------------------------------
+def _round_up(v, m):
+    return -(-int(v) // m) * m
+
+
+def _stair(k, x):
+    """The staircase shift floor(f32(k) * f32(x) + 0.5) in float32: ONE
+    formula for the planner, the V2 builder, the plain twin and (in
+    csrc/warp.cu) the kernel, so all four round identically. ``x`` a
+    tensor (the result stays on its device) or a number (a float)."""
+    if isinstance(x, torch.Tensor):
+        k = torch.as_tensor(k, dtype=torch.float32, device=x.device)
+        return torch.floor(k * x.to(torch.float32) + 0.5)
+    return float(np.floor(np.float32(k) * np.float32(x) + np.float32(0.5)))
+
+
+def _stair_row(r, o, k, x, n):
+    """Row of V2 holding row ``r`` (z or y, int64) of the volume at column
+    ``x`` (int64): r + o - stair(k, x) in float32, clamped to [0, n-1]
+    before the cast, as the kernel computes it."""
+    row = (r.to(torch.float32) + o) - _stair(k, x)
+    return row.clamp(0, n - 1).to(torch.int64)
+
+
+def oblique_plan(pixel_matrix, vol_shape_zyx):
+    """The staircase-shear plan of an (x, y, z) pixel matrix over a
+    (Z, Y, X) volume: dict(ky, kz, oy, oz, Z2, Y2) for
+    :func:`affine_warp_oblique`, or None where the factorization does not
+    apply (the x column too weak, |A00| < 0.35, or a slope steeper than
+    1.05). The fields are computed as the JAX package computes them; its
+    VMEM gates and residual ``window`` have no counterpart."""
+    A = np.asarray(pixel_matrix, np.float64)
+    R = A[:3, :3]
+    a00 = R[0, 0]
+    if abs(a00) < 0.35:
+        return None
+    ky = R[1, 0] / a00
+    kz = R[2, 0] / a00
+    if abs(ky) > 1.05 or abs(kz) > 1.05:
+        return None
+    Z, Y, X = (int(v) for v in vol_shape_zyx)
+    # sheared dims: the staircases are monotone, extremes at x endpoints
+    ez = int(_stair(kz, X - 1))
+    ey = int(_stair(ky, X - 1))
+    return dict(ky=float(ky), kz=float(kz), oy=int(max(0, ey)),
+                oz=int(max(0, ez)), Z2=int(_round_up(Z + abs(ez), 16)),
+                Y2=int(_round_up(Y + abs(ey), 16)))
+
+
+def oblique_v2(vol, plan):
+    """The staircase-sheared copy V2 (Z2, Y2, X) of ``vol`` (Z, Y, X)
+    float32: one ``coords`` launch in the (z, x, y) layout, where the
+    per-column row shift is an integer coordinate (the taps degenerate to
+    an exact copy; rows outside the volume take 0)."""
+    Z, Y, X = vol.shape
+    Z2, Y2 = plan["Z2"], plan["Y2"]
+    kap = torch.tensor([plan["ky"], plan["kz"], plan["oy"], plan["oz"]],
+                       dtype=torch.float32, device=vol.device)
+    vt = vol.transpose(1, 2).contiguous()                  # (Z, X, Y)
+    opts = dict(dtype=torch.float32, device=vol.device)
+    z2 = torch.arange(Z2, **opts)[:, None, None]
+    xc = torch.arange(X, **opts)[None, :, None]
+    y2 = torch.arange(Y2, **opts)[None, None, :]
+    sh = (Z2, X, Y2)
+    cz = (z2 - kap[3] + _stair(kap[1], xc)).expand(sh).contiguous()
+    cy = xc.expand(sh).contiguous()
+    cx = (y2 - kap[2] + _stair(kap[0], xc)).expand(sh).contiguous()
+    v2t = torch.ops.mia_torch.warp_coords(vt[None], cz, cy, cx, 0.0,
+                                          False)[0][0]
+    return v2t.transpose(1, 2).contiguous()                # (Z2, Y2, X)
+
+
+def affine_warp_oblique(volume, pixel_matrix, background, out_shape, plan,
+                        perm=None, flips=None):
+    """Affine resample through the staircase-shear factorization: the
+    optional input relayout (``perm`` / ``flips``, as
+    ``resample._axis_align_input`` gives them), V2 (:func:`oblique_v2`),
+    then one ``affine_shear`` launch. ``plan`` comes from
+    :func:`oblique_plan` for the relayouted matrix and volume. volume
+    (Z, Y, X) -> (Zo, Yo, Xo) float32 on its device, bit-equal to
+    :func:`affine_warp_fused` of the relayouted volume wherever V2 is an
+    exact copy (finite volumes). No overflow count: the kernel has no
+    slab."""
+    vol = torch.as_tensor(volume).to(torch.float32)
+    if perm is not None:
+        vol = vol.permute(*perm)
+    if flips:
+        vol = vol.flip(tuple(flips))
+    vol = vol.contiguous()
+    v2 = oblique_v2(vol, plan)
+    A = torch.as_tensor(pixel_matrix, dtype=torch.float32).cpu()
+    coef = [float(v) for v in A[:3, :].reshape(12)] + [
+        float(np.float32(plan[k])) for k in ("ky", "kz", "oy", "oz")]
+    out = torch.ops.mia_torch.warp_affine_shear(
+        v2[None], coef, list(vol.shape), [int(s) for s in out_shape],
+        float(background))
+    return out[0]

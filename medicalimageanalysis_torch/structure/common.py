@@ -1,18 +1,22 @@
-"""Metadata and geometry mixins shared by Image and Dose.
+"""Metadata, geometry and view mixins shared by Image and Dose.
 
 Carried over from medicalimageanalysis_tpu/structure/common.py
-(``MetadataMixin``, ``GeometryQueriesMixin``). The view operations
-(``ViewOpsMixin``: rotation, the ``retrieve_*`` queries) wait for the
-Display view slice (ROADMAP.md queue 1, item 6).
+(``MetadataMixin``, ``GeometryQueriesMixin``, ``ViewOpsMixin``). The view
+operations reslice on the device: ``update_rotation`` and
+``retrieve_vtk_volume`` through ops/resample.reslice_rotation (the warp
+kernel's ``affine`` mode on the card).
 """
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
+from scipy.spatial.transform import Rotation
 
 from ..ops import geometry as geo
 
-__all__ = ["GeometryQueriesMixin", "MetadataMixin", "waits"]
+__all__ = ["GeometryQueriesMixin", "MetadataMixin", "ViewOpsMixin", "waits"]
 
 
 def waits(owner, name, item):
@@ -167,3 +171,88 @@ class GeometryQueriesMixin:
     def compute_position(self, xyz):
         m = self.display.compute_matrix_pixel_to_position()
         return geo.apply_homogeneous(xyz, m)
+
+
+class ViewOpsMixin:
+    """Display-state view operations
+    (reference structure/image.py:1223-1412)."""
+
+    def reset_array(self):
+        self.display.secondary_array = None
+        self.display.matrix = copy.deepcopy(self.matrix)
+        self.display.origin = copy.deepcopy(self.origin)
+        self.display.slice_location = self.compute_center(position=False,
+                                                          zyx=True)
+
+    def retrieve_angles(self, order="ZXY"):
+        rotation = Rotation.from_matrix(self.display.matrix[:3, :3])
+        return rotation.as_euler(order, degrees=True)
+
+    def retrieve_array_plane(self, slice_plane):
+        return self.display.compute_array(slice_plane=slice_plane)
+
+    def retrieve_slice_location(self, slice_plane):
+        if slice_plane == "Axial":
+            return self.display.slice_location[0]
+        if slice_plane == "Coronal":
+            return self.display.slice_location[1]
+        return self.display.slice_location[2]
+
+    def retrieve_slice_position(self, slice_plane=None):
+        m = self.display.compute_matrix_pixel_to_position()
+        if slice_plane is None:
+            location = [self.display.slice_location[2],
+                        self.display.slice_location[1],
+                        self.display.slice_location[0]]
+        elif slice_plane == "Axial":
+            location = [0, 0, self.display.slice_location[0]]
+        elif slice_plane == "Coronal":
+            location = [0, self.display.slice_location[1], 0]
+        else:
+            location = [self.display.slice_location[2], 0, 0]
+        return geo.apply_homogeneous(location, m)
+
+    def retrieve_scroll_max(self, slice_plane):
+        if slice_plane == "Axial":
+            return self.display.scroll_max[0]
+        if slice_plane == "Coronal":
+            return self.display.scroll_max[1]
+        return self.display.scroll_max[2]
+
+    def retrieve_slice(self, slice_plane):
+        return self.display.compute_slice(slice_plane)
+
+    retrieve_vtk_slice = retrieve_slice
+
+    def retrieve_vtk_volume(self, slice_plane=None):
+        """Volume bundle in the CURRENT display frame: the base grid
+        bundle with an identity display rotation, otherwise the volume
+        resliced through the full display matrix (as
+        ``Display.compute_offaxis_array`` reslices) into an
+        identity-direction grid."""
+        disp = np.asarray(self.display.matrix, dtype=np.float64)
+        base = np.asarray(self.matrix, dtype=np.float64)
+        if np.allclose(disp, base):
+            return self.create_volume()
+        from ..ops.resample import reslice_rotation
+        arr, new_origin = reslice_rotation(
+            np.asarray(self.array), base, np.asarray(self.spacing),
+            np.asarray(self.origin), disp)
+        return {"array": arr,
+                "origin": np.asarray(new_origin, dtype=float),
+                "spacing": np.asarray(self.spacing, dtype=float),
+                "direction": np.eye(3)}
+
+    def update_rotation(self, r_x=0, r_y=0, r_z=0, base=True):
+        if r_x != 0 or r_y != 0 or r_z != 0:
+            r = Rotation.from_euler("xyz", [r_x, r_y, r_z], degrees=True)
+            new_matrix = r.as_matrix()
+            if base:
+                self.display.matrix = new_matrix @ copy.deepcopy(self.matrix)
+            else:
+                self.display.matrix = new_matrix @ self.display.matrix
+            self.display.compute_offaxis_array()
+            self.display.compute_scroll_max()
+        else:
+            self.display.compute_scroll_max()
+            self.reset_array()

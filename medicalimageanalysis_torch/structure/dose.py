@@ -1,7 +1,8 @@
 """Dose domain object + DVH analytics.
 
 Port of medicalimageanalysis_tpu/structure/dose.py: the ``Dose``
-constructor, ``create_volume``, ``compute_dose_statistics``,
+constructor, the view operations (``ViewOpsMixin``, the off-axis reslice
+of the image Display), ``create_volume``, ``compute_dose_statistics``,
 ``compute_roi_dose_array`` (the dose grid resampled onto the image grid by
 the warp kernel's ``affine`` mode, background 0 Gy),
 ``compute_roi_dose_statistics`` (ops/dvh) and ``compute_dvh_curve``
@@ -23,7 +24,7 @@ from ..dicom import generate_uid
 from ..ops.dvh import dvh_statistics
 from ..ops.hist import dose_below_histogram
 from ..ops.resample import affine_resample, compose_pixel_matrix
-from .common import GeometryQueriesMixin, MetadataMixin, waits
+from .common import GeometryQueriesMixin, MetadataMixin, ViewOpsMixin, waits
 from .image import Display as ImageDisplay
 
 __all__ = ["Display", "Dose"]
@@ -37,7 +38,7 @@ class Display(ImageDisplay):
     structure/dose.py:35-314 duplicates it verbatim)."""
 
 
-class Dose(MetadataMixin, GeometryQueriesMixin):
+class Dose(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
     """3D dose grid + metadata + DVH analytics
     (reference structure/dose.py:317-1124). The array stays a numpy
     float32 array in Gy, like the JAX package's."""

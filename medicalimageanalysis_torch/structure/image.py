@@ -3,11 +3,13 @@
 Port of medicalimageanalysis_tpu/structure/image.py: ``Image`` with its
 ROI/POI containers, RTSTRUCT intake, the token-keyed bit-packed ROI mask
 cache and the pooled ``compute_roi_masks`` (always one device pass per
-slicing plane), ``compute_roi_statistics``, and the ``Display`` matrices,
-slice location and ``compute_slice``. The metadata and geometry mixins
-are in structure/common.py. The array stays a numpy array, like the JAX
-package's. The off-axis reslice, the exports, SUV, SEG, margins and the
-other image tools wait for their slices.
+slicing plane), ``compute_roi_statistics``, ``create_volume``, and the
+``Display`` matrices, slice location, ``compute_slice`` and the off-axis
+reslice (``compute_offaxis_array``, the warp kernel's ``affine`` mode on
+the card). The metadata, geometry and view mixins are in
+structure/common.py. The array stays a numpy array, like the JAX
+package's. The exports, SUV, SEG, margins and the other image tools wait
+for their slices.
 """
 
 from __future__ import annotations
@@ -17,10 +19,11 @@ import itertools
 
 import numpy as np
 
+from ..config import config
 from ..data import Data
 from ..dicom import generate_uid
 from ..ops import geometry as geo
-from .common import GeometryQueriesMixin, MetadataMixin
+from .common import GeometryQueriesMixin, MetadataMixin, ViewOpsMixin
 from .poi import Poi
 from .roi import Roi
 
@@ -75,9 +78,39 @@ class Display(object):
         return geo.apply_homogeneous([xyz[0], xyz[1], xyz[2]], m)
 
     def compute_offaxis_array(self):
-        raise NotImplementedError(
-            "Display.compute_offaxis_array is not ported yet: "
-            "reslice_rotation — ROADMAP.md queue 1, item 3 (resample)")
+        """Off-axis reslice through the current display matrix
+        (reference structure/image.py:160-215; the device warp instead of
+        vtkImageReslice). The resliced volume becomes ``secondary_array``,
+        which ``compute_array`` and ``compute_slice`` then read."""
+        from ..ops.resample import reslice_rotation
+
+        loc = np.flip(self.slice_location)
+        base_position_matrix = self.compute_matrix_pixel_to_position()
+        slice_position = geo.apply_homogeneous(
+            [loc[0], loc[1], loc[2]], base_position_matrix)
+
+        resliced, new_origin = reslice_rotation(
+            self.image.array, self.image.matrix, self.image.spacing,
+            self.image.origin, self.matrix,
+            background=config.background_fill)
+        self.origin = np.asarray(new_origin)
+
+        dimensions = (resliced.shape[2], resliced.shape[1],
+                      resliced.shape[0])
+        position_to_pixel_matrix = self.compute_matrix_position_to_pixel()
+        location = geo.apply_homogeneous(slice_position,
+                                         position_to_pixel_matrix)
+        self.slice_location = list(
+            np.flip(np.round(location)).astype(np.int32))
+        self.scroll_max = [dimensions[2] - 1, dimensions[1] - 1,
+                           dimensions[0] - 1]
+        for i in range(3):
+            if self.slice_location[i] > dimensions[2 - i] - 1:
+                self.slice_location[i] = dimensions[2 - i] - 1
+            if self.slice_location[i] < 0:
+                self.slice_location[i] = 0
+
+        self.secondary_array = resliced
 
     def compute_scroll_max(self):
         if self.secondary_array is not None:
@@ -119,7 +152,7 @@ class Display(object):
             self.slice_location[2] = scroll
 
 
-class Image(MetadataMixin, GeometryQueriesMixin):
+class Image(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
     """Volume + identity metadata + geometry + ROI/POI containers.
 
     ``image`` is a builder (read/volume3d.Read3D, or the namespace
@@ -211,6 +244,18 @@ class Image(MetadataMixin, GeometryQueriesMixin):
         self.rois[name] = Roi(self, name=name, color=color, visible=visible,
                               filepaths=filepath)
         Data.match_rois()
+
+    # -- grid bundle (replaces create_sitk_image, image.py:906-930) -----
+    def create_volume(self, empty=False):
+        """Array + geometry bundle (the SimpleITK-image equivalent)."""
+        arr = np.zeros([int(d) for d in self.dimensions][::-1],
+                       dtype=np.uint8) if empty else np.asarray(self.array)
+        return {"array": arr,
+                "origin": np.asarray(self.origin, dtype=float),
+                "spacing": np.asarray(self.spacing, dtype=float),
+                "direction": np.asarray(self.matrix, dtype=float)}
+
+    create_sitk_image = create_volume
 
     # -- ROI statistics --------------------------------------------------
     def compute_roi_statistics(self, roi_name, values=None):

@@ -1,23 +1,164 @@
-"""Rigid registration object.
+"""Rigid registration object + Display.
 
-Carried over from medicalimageanalysis_tpu/structure/rigid.py (``Rigid``:
-registry naming :188-241, ``compute_intensity`` :321-339,
-``create_image`` :548-566). The matrix semantics are identical:
-``matrix @ combo_matrix`` maps reference -> moving physical space and
-``inverse`` flips the roles. ICP, ROI transforms, the Display view state
-and the exports wait for later slices.
+Carried over from medicalimageanalysis_tpu/structure/rigid.py (the
+``Display`` view state :29-185; ``Rigid``: registry naming :188-241,
+``compute_intensity`` :321-339, ``create_image`` :548-566,
+``pre_alignment`` :640-673, the ``retrieve_*`` queries :676-733 and the
+view updates ``update_rotation`` / ``update_translation`` :771-805). The
+matrix semantics are identical: ``matrix @ combo_matrix`` maps reference
+-> moving physical space and ``inverse`` flips the roles. The reslice
+behind the view runs on the device (``reslice_transform``: the warp
+kernel's ``affine`` mode, or with ``config.use_shear_warp`` the
+lane_interp kernel's three passes). ICP, ROI mesh transforms and the
+exports wait for later slices.
 """
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
+from scipy.spatial.transform import Rotation
 
 from ..config import config
 from ..data import Data
 from ..dicom import generate_uid
+from ..ops import geometry as geo
 from ..ops.resample import reslice_transform
 
-__all__ = ["Rigid"]
+__all__ = ["Display", "Rigid"]
+
+
+class Display(object):
+    """Resampled-moving-volume view state
+    (reference structure/rigid.py:33-408)."""
+
+    def __init__(self, rigid):
+        self.rigid = rigid
+
+        self.origin = None
+        self.spacing = None
+        self.array = None
+        self.matrix = np.identity(4)
+
+        self.slice_location = [0, 0, 0]
+        self.scroll_max = [0, 0, 0]
+        self.offset = {"Axial": [0, 0], "Coronal": [0, 0],
+                       "Sagittal": [0, 0]}
+        self.misc = {}
+
+    def compute_array_slice(self, slice_plane):
+        array_slice = None
+        if slice_plane == "Axial":
+            if 0 <= self.slice_location[0] < self.array.shape[0]:
+                array_slice = self.array[self.slice_location[0], :, :] \
+                    .astype(np.double)
+        elif slice_plane == "Coronal":
+            if 0 <= self.slice_location[1] < self.array.shape[1]:
+                array_slice = self.array[:, self.slice_location[1], :] \
+                    .astype(np.double)
+        else:
+            if 0 <= self.slice_location[2] < self.array.shape[2]:
+                array_slice = self.array[:, :, self.slice_location[2]] \
+                    .astype(np.double)
+        return array_slice
+
+    def compute_offset(self):
+        """Pixel offsets of the resliced grid vs the base image origin
+        (reference structure/rigid.py:85-107)."""
+        if self.rigid.inverse:
+            pos = Data.image[self.rigid.moving_name].origin
+        else:
+            pos = Data.image[self.rigid.reference_name].origin
+
+        self.offset["Axial"][0] = (self.origin[0] - pos[0]) / self.spacing[0]
+        self.offset["Axial"][1] = (self.origin[1] - pos[1]) / self.spacing[1]
+        self.offset["Coronal"][0] = (self.origin[0] - pos[0]) / self.spacing[0]
+        self.offset["Coronal"][1] = (self.origin[2] - pos[2]) / self.spacing[2]
+        self.offset["Sagittal"][0] = (self.origin[1] - pos[1]) \
+            / self.spacing[1]
+        self.offset["Sagittal"][1] = (self.origin[2] - pos[2]) \
+            / self.spacing[2]
+
+    def _base_matrix(self):
+        if self.rigid.inverse:
+            return copy.deepcopy(Data.image[self.rigid.reference_name].matrix)
+        return copy.deepcopy(Data.image[self.rigid.moving_name].matrix)
+
+    def compute_matrix_pixel_to_position(self):
+        return geo.pixel_to_position_matrix(self._base_matrix(),
+                                            self.spacing, self.origin)
+
+    def compute_matrix_position_to_pixel(self):
+        return geo.position_to_pixel_matrix(self._base_matrix(),
+                                            self.spacing, self.origin)
+
+    def compute_mesh_slice(self, roi_name=None, location=None,
+                           slice_plane=None, return_pixel=False):
+        raise NotImplementedError(
+            "Rigid Display.compute_mesh_slice is not ported yet: ROI meshes "
+            "(ROADMAP.md queue 1, item 9, mesh)")
+
+    def compute_reslice(self):
+        """Pull the transformed moving volume (reference
+        structure/rigid.py:225-247, the device warp instead of VTK)."""
+        out = self.rigid.create_image()
+        self.origin = np.asarray(out["origin"])
+        self.spacing = tuple(out["spacing"])
+        self.array = out["array"]
+        self.compute_offset()
+        self.compute_scroll_max()
+
+    def compute_slice_location(self, position=None):
+        """Derive the slice location from the counterpart image's display
+        state (reference structure/rigid.py:249-270)."""
+        if position is None:
+            if self.rigid.inverse:
+                src = Data.image[self.rigid.moving_name].display
+            else:
+                src = Data.image[self.rigid.reference_name].display
+            source_location = np.flip(src.slice_location)
+            position = src.compute_index_positions(source_location)
+
+        self.slice_location = np.flip(np.round(
+            (position - self.origin) / self.spacing).astype(np.int32))
+
+    def compute_slice_origin(self, slice_plane):
+        m = self.compute_matrix_pixel_to_position()
+        if slice_plane == "Axial":
+            location = [0, 0, self.slice_location[0]]
+        elif slice_plane == "Coronal":
+            location = [0, self.slice_location[1], 0]
+        else:
+            location = [self.slice_location[2], 0, 0]
+        return geo.apply_homogeneous(location, m)
+
+    def compute_scroll_max(self):
+        if self.array is not None:
+            self.scroll_max = [self.array.shape[0] - 1,
+                               self.array.shape[1] - 1,
+                               self.array.shape[2] - 1]
+
+    def compute_slice(self, slice_plane):
+        array_slice = self.compute_array_slice(slice_plane)
+        return {"array": array_slice,
+                "origin": self.compute_slice_origin(slice_plane),
+                "spacing": self.spacing, "matrix": self.matrix}
+
+    compute_vtk_slice = compute_slice
+
+    def convert_position_to_pixel(self, position=None):
+        m = self.compute_matrix_position_to_pixel()
+        return [geo.apply_homogeneous(np.asarray(p, dtype=np.float64), m)
+                for p in position]
+
+    def update_slice_location(self, scroll, slice_plane):
+        if slice_plane == "Axial":
+            self.slice_location[0] = scroll
+        elif slice_plane == "Coronal":
+            self.slice_location[1] = scroll
+        else:
+            self.slice_location[2] = scroll
 
 
 class Rigid(object):
@@ -41,6 +182,8 @@ class Rigid(object):
         self.inverse = False
         self.misc = {}
         self.rigid_name = self.add_rigid(rigid_name)
+
+        self.display = Display(self)
         if matrix is not None:
             self.update_rois()
 
@@ -99,6 +242,134 @@ class Rigid(object):
             mov_img.array, mov_img.matrix, mov_img.spacing, mov_img.origin,
             T, Data.image[ref].spacing,
             background=config.background_fill, device=self.device)
+
+    def pre_alignment(self, superior=False, center=False, origin=False):
+        """Rapid programmatic initializations of the translation
+        (reference structure/rigid.py:763-785, which implements only
+        ``origin``; the JAX package implements all three):
+
+        - ``superior``: match the cranial (max physical z) bounds, with
+          x/y centered;
+        - ``center``: match the 3D volume centers;
+        - ``origin``: match the voxel-(0,0,0) origins.
+
+        The matrix maps reference -> moving physical space, so the
+        translation is always (moving landmark - reference landmark)."""
+        ref_img = Data.image[self.reference_name]
+        mov_img = Data.image[self.moving_name]
+        if superior:
+            ref_c = np.asarray(ref_img.compute_center(), np.float64)
+            mov_c = np.asarray(mov_img.compute_center(), np.float64)
+            ref_b = ref_img.compute_bounds()
+            mov_b = mov_img.compute_bounds()
+            self.matrix[:3, 3] = [mov_c[0] - ref_c[0],
+                                  mov_c[1] - ref_c[1],
+                                  mov_b[5] - ref_b[5]]
+        elif center:
+            ref_c = np.asarray(ref_img.compute_center(), np.float64)
+            mov_c = np.asarray(mov_img.compute_center(), np.float64)
+            self.matrix[:3, 3] = mov_c - ref_c
+        elif origin:
+            self.matrix[:3, 3] = (mov_img.origin - ref_img.origin)
+
+    # -- queries ----------------------------------------------------------
+    def retrieve_angles(self, order="ZXY"):
+        rotation = Rotation.from_matrix(self.matrix[:3, :3])
+        return rotation.as_euler(order, degrees=True)
+
+    def retrieve_array_plane(self, slice_plane, solo=None, position=None):
+        if self.display.array is None:
+            self.display.compute_reslice()
+            self.display.compute_scroll_max()
+        if solo is None:
+            self.display.compute_slice_location(position=position)
+        return self.display.compute_array_slice(slice_plane=slice_plane)
+
+    def retrieve_center(self):
+        image_name = self.moving_name if self.inverse \
+            else self.reference_name
+        original_center = Data.image[image_name].compute_center()
+        center_h = np.array([original_center[0], original_center[1],
+                             original_center[2], 1.0])
+        return (self.matrix @ self.combo_matrix @ center_h)[:3]
+
+    def retrieve_offset(self, slice_plane):
+        return self.display.offset[slice_plane]
+
+    def retrieve_slice_location(self, slice_plane):
+        if slice_plane == "Axial":
+            return self.display.slice_location[0]
+        if slice_plane == "Coronal":
+            return self.display.slice_location[1]
+        return self.display.slice_location[2]
+
+    def retrieve_slice_position(self, slice_plane=None):
+        m = self.display.compute_matrix_pixel_to_position()
+        if slice_plane is None:
+            location = [self.display.slice_location[2],
+                        self.display.slice_location[1],
+                        self.display.slice_location[0]]
+        elif slice_plane == "Axial":
+            location = [0, 0, self.display.slice_location[0]]
+        elif slice_plane == "Coronal":
+            location = [0, self.display.slice_location[1], 0]
+        else:
+            location = [self.display.slice_location[2], 0, 0]
+        return geo.apply_homogeneous(location, m)
+
+    def retrieve_scroll_max(self, slice_plane):
+        if slice_plane == "Axial":
+            return self.display.scroll_max[0]
+        if slice_plane == "Coronal":
+            return self.display.scroll_max[1]
+        return self.display.scroll_max[2]
+
+    def retrieve_translation(self):
+        return self.matrix[:3, 3]
+
+    def retrieve_slice(self, slice_plane):
+        return self.display.compute_slice(slice_plane)
+
+    retrieve_vtk_slice = retrieve_slice
+
+    # -- interactive updates ----------------------------------------------
+    def update_rotation(self, center=None, r_x=0, r_y=0, r_z=0):
+        """Rotate-about-center composition T_pos @ R @ T_neg @ matrix
+        (reference structure/rigid.py:1001-1038), then the view's
+        reslice."""
+        if center is None:
+            center = self.retrieve_center()
+
+        R_mat = Rotation.from_euler("xyz", [r_x, r_y, r_z],
+                                    degrees=True).as_matrix()
+        R = np.identity(4)
+        R[:3, :3] = R_mat
+        T_neg = np.identity(4)
+        T_neg[:3, 3] = -np.array(center)
+        T_pos = np.identity(4)
+        T_pos[:3, 3] = np.array(center)
+
+        self.matrix = (T_pos @ R @ T_neg) @ self.matrix
+        self.display.compute_reslice()
+        self.display.compute_scroll_max()
+        self.update_rois()
+
+    def update_translation(self, t_x=0, t_y=0, t_z=0):
+        """(reference structure/rigid.py:1040-1070): the view's origin
+        moves; no reslice."""
+        T = np.identity(4)
+        T[0, 3] = t_x
+        T[1, 3] = t_y
+        T[2, 3] = t_z
+        self.matrix = self.matrix @ T
+
+        if self.display.origin is not None:
+            self.display.origin[0] -= t_x
+            self.display.origin[1] -= t_y
+            self.display.origin[2] -= t_z
+            self.display.compute_offset()
+            self.display.compute_scroll_max()
+        self.update_rois()
 
     def update_rois(self, roi_name=None):
         """Sync the ROI key-set with Data.roi_list. Transforming a visible

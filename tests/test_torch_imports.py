@@ -61,7 +61,8 @@ def test_port_and_smoke_import_no_jax_optax_psutil():
                  "structure.deformable", "dicom.parser", "dicom.pixels",
                  "native", "ops.hist", "ops.dvh", "ops.rasterize",
                  "structure.roi", "structure.dose", "read.rtstruct",
-                 "read.rtdose", "utils.convert.contour"):
+                 "read.rtdose", "utils.convert.contour", "ops.lane_interp",
+                 "structure.common", "structure.image", "config"):
         assert f"medicalimageanalysis_torch.{name}" in report["modules"]
 
 

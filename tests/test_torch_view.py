@@ -1,0 +1,542 @@
+"""The view path in both packages, on the CPU: the off-axis display
+(``Image`` / ``Dose`` ``update_rotation`` -> ``reslice_rotation``), the
+Rigid view updates (``update_translation`` / ``update_rotation`` /
+``retrieve_*`` / ``pre_alignment``, the reslice with and without
+``config.use_shear_warp``), the shear-warp lane itself
+(``affine_resample_shear``, ``reslice_transform``) and the point
+samplers (``trilinear_gather``, ``map_coordinates_trilinear``,
+``make_trilinear_sampler``). The JAX package runs its XLA gather and its
+Pallas kernels in interpret mode; the port runs its plain twins.
+
+Tolerances, stated per check:
+- the exact reslices (``affine`` mode): f32 rounding of the lerp plus a
+  few ulp of sample coordinate times the largest step between
+  neighbours (XLA on the CPU contracts the coefficient sums into FMAs,
+  the port does not: ROADMAP.md queue 3); the background mask flips
+  only at voxels whose sample lies within 1e-4 voxel of a face;
+- the shear-warp lane: 1e-4 on unit-std smooth volumes (the same FMA
+  difference in the three passes' positions); the decomposition chosen
+  is identical; the valid mask differs only where the composed
+  coordinate lies within 1e-4 of -0.5 or dim - 0.5;
+- geometry (origins, matrices, offsets, angles): 1e-9; slice locations
+  and scroll limits: equal;
+- the samplers: 1e-6 * max|vol| on values, 5e-6 on coordinate VJPs.
+"""
+
+import numpy as np
+import pytest
+import torch
+from scipy import ndimage
+from scipy.spatial.transform import Rotation
+
+import jax
+import jax.numpy as jnp
+
+import medicalimageanalysis_torch as tmia
+import medicalimageanalysis_tpu as jmia
+from helpers import write_ct_series
+from medicalimageanalysis_torch.config import config as tconfig
+from medicalimageanalysis_torch.data import Data as TData
+from medicalimageanalysis_torch.device import set_default_device
+from medicalimageanalysis_torch.ops import lane_interp as tli
+from medicalimageanalysis_torch.ops import resample as tresample
+from medicalimageanalysis_torch.ops import warp as twarp
+from medicalimageanalysis_tpu.config import config as jconfig
+from medicalimageanalysis_tpu.data import Data as JData
+from medicalimageanalysis_tpu.ops import resample as jresample
+from medicalimageanalysis_tpu.structure.rigid import Rigid as JRigid
+from test_deformable_dose import write_rtdose_file
+
+BG = -3001.0
+PLANES = ("Axial", "Coronal", "Sagittal")
+
+
+@pytest.fixture(autouse=True)
+def torch_env():
+    TData.clear()
+    JData.clear()
+    torch.set_num_threads(1)
+    set_default_device("cpu")
+    yield
+    TData.clear()
+    JData.clear()
+    tconfig.use_shear_warp = False
+    jconfig.use_shear_warp = False
+    set_default_device(None)
+
+
+def boundary_distance(A, out_shape, vol_shape):
+    """Per output voxel, the float64 distance of its affine sample from
+    the nearest face of [0, dim-1]."""
+    zz, yy, xx = np.mgrid[0:out_shape[0], 0:out_shape[1],
+                          0:out_shape[2]].astype(np.float64)
+    A = np.asarray(A, np.float64)
+    d = np.full(tuple(out_shape), np.inf)
+    for row, n in ((0, vol_shape[2]), (1, vol_shape[1]), (2, vol_shape[0])):
+        c = A[row, 0] * xx + A[row, 1] * yy + A[row, 2] * zz + A[row, 3]
+        d = np.minimum(d, np.minimum(np.abs(c), np.abs(c - (n - 1))))
+    return d
+
+
+def assert_affine_close(out, ref, dist, vol, bg=BG):
+    """The exact-reslice rule of the module docstring."""
+    out, ref = np.asarray(out), np.asarray(ref)
+    assert out.shape == ref.shape
+    vol = np.asarray(vol, np.float32)
+    coord_err = 4 * np.spacing(np.float32(max(max(vol.shape), *out.shape)))
+    max_step = max(np.abs(np.diff(vol, axis=k)).max() for k in range(3))
+    both = (out != bg) & (ref != bg)
+    np.testing.assert_allclose(out[both], ref[both], rtol=0,
+                               atol=3 * coord_err * max_step
+                               + 1e-6 * np.abs(vol).max())
+    flip = (out == bg) != (ref == bg)
+    assert np.all(dist[flip] < 1e-4)
+
+
+def shear_edge_distance(M, t, out_shape, vol_shape):
+    """Per output voxel, the float64 distance of the composed coordinate
+    M o + t of the shear decomposition from -0.5 or dim - 0.5."""
+    o = np.stack(np.meshgrid(*(np.arange(n, dtype=np.float64)
+                               for n in out_shape), indexing="ij"), -1)
+    cin = o @ np.asarray(M, np.float64).T + np.asarray(t, np.float64)
+    lim = np.asarray(vol_shape, np.float64) - 0.5
+    return np.minimum(np.abs(cin + 0.5), np.abs(cin - lim)).min(-1)
+
+
+def assert_shear_close(out, ref, dist, tol):
+    out, ref = np.asarray(out), np.asarray(ref)
+    assert out.shape == ref.shape
+    both = (out != BG) & (ref != BG)
+    assert both.mean() > 0.3
+    np.testing.assert_allclose(out[both], ref[both], rtol=0, atol=tol)
+    flip = (out == BG) != (ref == BG)
+    assert np.all(dist[flip] < 1e-4)
+
+
+def smooth_volume(rng, shape):
+    vol = ndimage.gaussian_filter(rng.normal(size=shape), 2.0)
+    return (vol / vol.std()).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# resample: reslice_rotation, the shear-warp lane, the point samplers
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("angles", [(0, 0, 10), (5, -8, 12)])
+def test_reslice_rotation_matches_jax(angles):
+    rng = np.random.default_rng(sum(angles) + 50)
+    vol = rng.normal(size=(10, 24, 20)).astype(np.float32) * 300
+    spacing = np.array([0.8, 0.9, 2.0])
+    origin = np.array([-10.0, 4.0, -7.5])
+    base = Rotation.from_euler("z", 3, degrees=True).as_matrix()
+    display = Rotation.from_euler("xyz", angles,
+                                  degrees=True).as_matrix() @ base
+    out, origin_t = tresample.reslice_rotation(vol, base, spacing, origin,
+                                               display, background=BG)
+    ref, origin_j = jresample.reslice_rotation(vol, base, spacing, origin,
+                                               display, background=BG)
+    assert isinstance(out, np.ndarray) and out.dtype == np.float32
+    np.testing.assert_allclose(origin_t, origin_j, rtol=0, atol=1e-9)
+    A, shape, _ = tresample.rotation_grid(vol.shape, base, spacing, origin,
+                                          display)
+    assert out.shape == shape and shape[1] > vol.shape[1]
+    assert_affine_close(out, ref, boundary_distance(A, shape, vol.shape),
+                        vol)
+
+
+def shear_maps():
+    ctr = np.array([20.0, 16.0, 12.0])
+
+    def about(R, t=(0.3, -0.4, 0.2)):
+        A = np.eye(4)
+        A[:3, :3] = R
+        A[:3, 3] = ctr - R @ ctr + np.asarray(t)
+        return A
+
+    return {
+        "10deg": about(Rotation.from_euler("z", 10, degrees=True)
+                       .as_matrix()),
+        "80deg": about(Rotation.from_euler("z", 80, degrees=True)
+                       .as_matrix()),
+        "95deg": about(Rotation.from_euler("yx", [95, 12], degrees=True)
+                       .as_matrix()),
+        "xyz": about(Rotation.from_euler("xyz", [8, -12, 15], degrees=True)
+                     .as_matrix(), (2.5, -1.5, 3.0)),
+    }
+
+
+@pytest.mark.parametrize("name", ["10deg", "80deg", "95deg", "xyz"])
+def test_affine_resample_shear_matches_jax(name):
+    rng = np.random.default_rng(3)
+    vol = smooth_volume(rng, (24, 32, 40))
+    A = shear_maps()[name]
+    # the same decomposition: permutation, permuted map, coefficients
+    volP, AP, dec = tresample._permuted_shear_decompose(
+        torch.from_numpy(vol), A)
+    volJ, APJ, decJ = jresample._permuted_shear_decompose(vol, A)
+    assert tuple(volP.shape) == tuple(volJ.shape)
+    np.testing.assert_array_equal(AP, APJ)
+    for a, b in zip(dec, decJ):
+        np.testing.assert_array_equal(a, b)
+
+    before = tli.LAUNCHES["lane_interp"]
+    out = tresample.affine_resample_shear(vol, A, vol.shape, background=BG,
+                                          device="cpu")
+    assert tli.LAUNCHES["lane_interp"] == before
+    ref = jresample.affine_resample_shear(vol, A, vol.shape, background=BG,
+                                          interpret=True)
+    dist = shear_edge_distance(dec[1], dec[2], vol.shape, volP.shape)
+    assert_shear_close(out.numpy(), ref, dist, 1e-4)
+
+
+def test_shear_lane_ignores_the_callers_tf32_setting():
+    """The in-bounds mask is elementwise float32: the result is the same
+    bits whatever matmul precision or cuDNN TF32 setting the caller
+    chose."""
+    vol = smooth_volume(np.random.default_rng(4), (12, 16, 20))
+    A = shear_maps()["xyz"]
+    exact = tresample.affine_resample_shear(vol, A, vol.shape, BG,
+                                            device="cpu")
+    prec = torch.get_float32_matmul_precision()
+    cudnn = torch.backends.cudnn.allow_tf32
+    try:
+        torch.set_float32_matmul_precision("medium")
+        torch.backends.cudnn.allow_tf32 = True
+        loose = tresample.affine_resample_shear(vol, A, vol.shape, BG,
+                                                device="cpu")
+    finally:
+        torch.set_float32_matmul_precision(prec)
+        torch.backends.cudnn.allow_tf32 = cudnn
+    assert torch.equal(exact, loose)
+
+
+@pytest.mark.parametrize("deg", [10.0, 80.0, 95.0])
+def test_reslice_transform_shear_flag_matches_jax(deg):
+    rng = np.random.default_rng(int(deg))
+    vol = smooth_volume(rng, (16, 24, 24))
+    T = np.eye(4)
+    T[:3, :3] = Rotation.from_euler("z", deg, degrees=True).as_matrix()
+    T[:3, 3] = [2.0, -1.0, 0.5]
+    kw = dict(vol_matrix=np.eye(3), vol_spacing=[1, 1, 1],
+              vol_origin=[0, 0, 0], phys_transform=T,
+              out_spacing=[1, 1, 1], background=BG)
+    exact_t = tresample.reslice_transform(vol, device="cpu", **kw)
+    exact_j = jresample.reslice_transform(vol, **kw)
+    A, shape, _, _ = tresample.reslice_grid(vol.shape, np.eye(3), [1, 1, 1],
+                                            [0, 0, 0], T, [1, 1, 1])
+    assert_affine_close(exact_t["array"], exact_j["array"],
+                        boundary_distance(A, shape, vol.shape), vol)
+    tconfig.use_shear_warp = True
+    jconfig.use_shear_warp = True
+    fast_t = tresample.reslice_transform(vol, device="cpu", **kw)
+    fast_j = jresample.reslice_transform(vol, **kw)
+    for key in ("origin", "spacing", "dimensions"):
+        np.testing.assert_array_equal(fast_t[key], exact_t[key])
+        np.testing.assert_allclose(fast_t[key], fast_j[key], rtol=0,
+                                   atol=1e-9)
+    volP, _, dec = tresample._permuted_shear_decompose(
+        torch.from_numpy(vol), A)
+    assert dec is not None
+    dist = shear_edge_distance(dec[1], dec[2], shape, volP.shape)
+    assert_shear_close(fast_t["array"], fast_j["array"], dist, 1e-4)
+    # the lane against the exact reslice: the JAX package's own bound
+    both = (exact_t["array"] > -3000) & (fast_t["array"] > -3000)
+    interior = ndimage.binary_erosion(both, iterations=2)
+    d = np.abs(exact_t["array"] - fast_t["array"])[interior]
+    assert d.mean() < 0.02
+
+
+def test_point_samplers_match_jax():
+    rng = np.random.default_rng(12)
+    vol = rng.normal(size=(8, 10, 12)).astype(np.float32)
+    hi = np.array([12, 10, 8], np.float32)
+    pts = rng.uniform(-1.5, hi + 0.5, (7, 9, 3)).astype(np.float32)
+    atol = 1e-6 * np.abs(vol).max()
+
+    out = tresample.trilinear_gather(vol, pts, background=BG)
+    ref = np.asarray(jresample.trilinear_gather(vol, pts, background=BG))
+    assert out.shape == (7, 9)
+    np.testing.assert_array_equal(out.numpy() == BG, ref == BG)
+    assert 0 < (ref == BG).sum() < ref.size
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=atol)
+    # default background: the config fill
+    np.testing.assert_array_equal(
+        tresample.trilinear_gather(vol, pts).numpy() == -3001.0, ref == BG)
+
+    zyx = np.moveaxis(pts[..., ::-1], -1, 0).copy()
+    out = tresample.map_coordinates_trilinear(vol, zyx, background=0.0)
+    ref = np.asarray(jresample.map_coordinates_trilinear(
+        vol, jnp.asarray(zyx), background=0.0))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=atol)
+
+    w = rng.normal(size=(7, 9)).astype(np.float32)
+    sample_j = jresample.make_trilinear_sampler(vol, background=0.5)
+    val_j, grad_j = jax.value_and_grad(
+        lambda c: jnp.sum(sample_j(c) * w))(jnp.asarray(pts))
+    coords = torch.from_numpy(pts).requires_grad_(True)
+    sample_t = tresample.make_trilinear_sampler(torch.from_numpy(vol),
+                                                background=0.5)
+    val_t = (sample_t(coords) * torch.from_numpy(w)).sum()
+    val_t.backward()
+    np.testing.assert_allclose(float(val_t.detach()), float(val_j),
+                               rtol=1e-5)
+    np.testing.assert_allclose(coords.grad.numpy(), np.asarray(grad_j),
+                               rtol=0, atol=5e-6)
+    assert np.abs(coords.grad.numpy()).max() > 0.1
+
+
+# ---------------------------------------------------------------------------
+# the off-axis display: Image and Dose
+# ---------------------------------------------------------------------------
+def read_both(folder):
+    jmia.read_dicoms(folder_path=str(folder))
+    tmia.read_dicoms(folder_path=str(folder))
+
+
+def assert_display_matches(t, j, vol, bg=BG):
+    """An Image's or Dose's display state, field by field."""
+    td, jd = t.display, j.display
+    np.testing.assert_allclose(td.matrix, jd.matrix, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(td.origin, jd.origin, rtol=0, atol=1e-9)
+    assert [int(v) for v in td.slice_location] \
+        == [int(v) for v in jd.slice_location]
+    assert [int(v) for v in td.scroll_max] == [int(v) for v in jd.scroll_max]
+    A, shape, _ = tresample.rotation_grid(vol.shape, t.matrix, t.spacing,
+                                          t.origin, td.matrix)
+    dist = boundary_distance(A, shape, vol.shape)
+    assert td.secondary_array.shape == shape
+    assert_affine_close(td.secondary_array, jd.secondary_array, dist, vol,
+                        bg)
+    loc = [int(v) for v in td.slice_location]
+    cuts = {"Axial": (loc[0], slice(None), slice(None)),
+            "Coronal": (slice(None), loc[1], slice(None)),
+            "Sagittal": (slice(None), slice(None), loc[2])}
+    for plane in PLANES:
+        a = t.retrieve_array_plane(plane)
+        b = j.retrieve_array_plane(plane)
+        assert a.dtype == np.float32
+        np.testing.assert_array_equal(a, td.secondary_array[cuts[plane]])
+        np.testing.assert_array_equal(b, jd.secondary_array[cuts[plane]])
+        st, sj = t.retrieve_slice(plane), j.retrieve_slice(plane)
+        np.testing.assert_allclose(st["origin"], sj["origin"], rtol=0,
+                                   atol=1e-9)
+        np.testing.assert_array_equal(st["array"], a)
+        assert t.retrieve_slice_location(plane) \
+            == j.retrieve_slice_location(plane)
+        assert t.retrieve_scroll_max(plane) == j.retrieve_scroll_max(plane)
+        np.testing.assert_allclose(t.retrieve_slice_position(plane),
+                                   j.retrieve_slice_position(plane),
+                                   rtol=0, atol=1e-9)
+    np.testing.assert_allclose(t.retrieve_slice_position(),
+                               j.retrieve_slice_position(), rtol=0,
+                               atol=1e-9)
+    np.testing.assert_allclose(t.retrieve_angles(), j.retrieve_angles(),
+                               rtol=0, atol=1e-9)
+    vt, vj = t.retrieve_vtk_volume(), j.retrieve_vtk_volume()
+    np.testing.assert_allclose(vt["origin"], vj["origin"], rtol=0,
+                               atol=1e-9)
+    np.testing.assert_array_equal(vt["direction"], vj["direction"])
+    np.testing.assert_array_equal(vt["spacing"], vj["spacing"])
+    assert_affine_close(vt["array"], vj["array"], dist, vol, bg)
+
+
+def test_image_offaxis_display_matches_jax(tmp_path):
+    rng = np.random.default_rng(21)
+    arr = rng.integers(-500, 500, size=(10, 24, 24)).astype(np.int16)
+    write_ct_series(tmp_path / "ct", arr, spacing=(1, 1), thickness=1.0)
+    read_both(tmp_path)
+    t, j = TData.image["CT 01"], JData.image["CT 01"]
+    vol = np.asarray(t.array, np.float32)
+    assert t.display.secondary_array is None
+    vt0 = t.retrieve_vtk_volume()             # no rotation: the base grid
+    np.testing.assert_array_equal(vt0["array"], t.array)
+
+    t.update_rotation(r_z=10)
+    j.update_rotation(r_z=10)
+    assert t.display.secondary_array.shape[1] >= 24
+    assert_display_matches(t, j, vol)
+    # a second nudge composed onto the display matrix
+    t.update_rotation(r_x=4, r_y=-3, base=False)
+    j.update_rotation(r_x=4, r_y=-3, base=False)
+    assert_display_matches(t, j, vol)
+
+    for img in (t, j):
+        img.reset_array()
+    assert t.display.secondary_array is None
+    np.testing.assert_array_equal(t.display.matrix, j.display.matrix)
+    np.testing.assert_array_equal(t.display.origin, j.display.origin)
+    assert list(t.display.slice_location) == list(j.display.slice_location)
+    np.testing.assert_array_equal(t.retrieve_array_plane("Axial"),
+                                  j.retrieve_array_plane("Axial"))
+    # a zero rotation resets too
+    t.update_rotation(r_z=10)
+    t.update_rotation()
+    assert t.display.secondary_array is None
+
+
+def test_dose_offaxis_display_matches_jax(tmp_path):
+    rng = np.random.default_rng(22)
+    info = write_ct_series(tmp_path / "ct",
+                           rng.integers(-100, 100, size=(6, 16, 16))
+                           .astype(np.int16), origin=(-8.0, -8.0, -6.0),
+                           spacing=(1.0, 1.0), thickness=2.0)
+    zz, yy, xx = np.mgrid[0:8, 0:14, 0:12].astype(np.float64)
+    gy = 5.0 + 55.0 * np.exp(-((xx - 6) ** 2 + (yy - 7) ** 2
+                               + (zz - 4) ** 2) / 30.0)
+    dose_info = dict(info, origin=np.array([-9.5, -9.0, -7.0]),
+                     spacing=np.array([1.5, 1.5]), thickness=2.5)
+    write_rtdose_file(tmp_path / "ct" / "rd.dcm",
+                      np.round(gy / 1e-3).astype(np.uint32), dose_info,
+                      scaling=1e-3)
+    read_both(tmp_path)
+    assert TData.dose_list == JData.dose_list == ["RTDOSE 01"]
+    t, j = TData.dose["RTDOSE 01"], JData.dose["RTDOSE 01"]
+    t.update_rotation(r_z=10)
+    j.update_rotation(r_z=10)
+    assert_display_matches(t, j, np.asarray(t.array, np.float32))
+    t.reset_array()
+    assert t.display.secondary_array is None
+
+
+# ---------------------------------------------------------------------------
+# the Rigid view updates
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def two_images(tmp_path):
+    rng = np.random.default_rng(23)
+    base = np.zeros((12, 32, 32), np.float32)
+    zz, yy, xx = np.mgrid[0:12, 0:32, 0:32]
+    base += 800 * np.exp(-(((zz - 6) / 3.0) ** 2 + ((yy - 14) / 6.0) ** 2
+                           + ((xx - 18) / 5.0) ** 2))
+    base += rng.normal(0, 5, base.shape)
+    moved = np.roll(base, shift=(0, 3, -2), axis=(0, 1, 2))
+    write_ct_series(tmp_path / "a", base.astype(np.int16),
+                    spacing=(1, 1), thickness=2.0)
+    write_ct_series(tmp_path / "b", moved.astype(np.int16),
+                    origin=(-98.0, -121.0, -50.0), spacing=(1, 1),
+                    thickness=2.0, modality="MR")
+    read_both(tmp_path)
+    names = sorted(TData.image_list)
+    assert names == sorted(JData.image_list)
+    ct = [n for n in names if TData.image[n].modality == "CT"][0]
+    mr = [n for n in names if TData.image[n].modality == "MR"][0]
+    return ct, mr
+
+
+def assert_rigid_view_matches(t, j, tol=None):
+    td, jd = t.display, j.display
+    np.testing.assert_allclose(t.matrix, j.matrix, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(td.origin, jd.origin, rtol=0, atol=1e-9)
+    assert tuple(td.spacing) == tuple(jd.spacing)
+    for plane in PLANES:
+        np.testing.assert_allclose(t.retrieve_offset(plane),
+                                   j.retrieve_offset(plane), rtol=0,
+                                   atol=1e-9)
+    mov = TData.image[t.moving_name]
+    vol = np.asarray(mov.array, np.float32)
+    A, shape, _, _ = tresample.reslice_grid(
+        vol.shape, mov.matrix, mov.spacing, mov.origin, t.matrix,
+        TData.image[t.reference_name].spacing)
+    if tol is None:
+        assert_affine_close(td.array, jd.array,
+                            boundary_distance(A, shape, vol.shape), vol)
+    else:
+        volP, _, dec = tresample._permuted_shear_decompose(
+            torch.from_numpy(vol), A)
+        dist = shear_edge_distance(dec[1], dec[2], shape, volP.shape)
+        assert_shear_close(td.array, jd.array, dist, tol)
+    for plane in PLANES:
+        a = t.retrieve_array_plane(plane)
+        b = j.retrieve_array_plane(plane)
+        assert (a is None) == (b is None)
+        assert t.retrieve_slice_location(plane) \
+            == j.retrieve_slice_location(plane)
+        assert t.retrieve_scroll_max(plane) == j.retrieve_scroll_max(plane)
+        np.testing.assert_allclose(t.retrieve_slice_position(plane),
+                                   j.retrieve_slice_position(plane),
+                                   rtol=0, atol=1e-9)
+        st, sj = t.retrieve_slice(plane), j.retrieve_slice(plane)
+        np.testing.assert_allclose(st["origin"], sj["origin"], rtol=0,
+                                   atol=1e-9)
+    np.testing.assert_allclose(t.retrieve_angles(), j.retrieve_angles(),
+                               rtol=0, atol=1e-9)
+    np.testing.assert_allclose(t.retrieve_center(), j.retrieve_center(),
+                               rtol=0, atol=1e-9)
+    np.testing.assert_array_equal(t.retrieve_translation(),
+                                  j.retrieve_translation())
+
+
+def test_rigid_view_updates_match_jax(two_images):
+    ct, mr = two_images
+    t, j = tmia.Rigid(ct, mr), JRigid(ct, mr)
+    for rigid in (t, j):
+        rigid.pre_alignment(origin=True)
+    np.testing.assert_array_equal(t.matrix, j.matrix)
+    for rigid in (t, j):
+        assert rigid.retrieve_array_plane("Axial") is not None
+    assert_rigid_view_matches(t, j)
+
+    for rigid in (t, j):
+        rigid.update_translation(t_x=5, t_y=-2, t_z=1)
+    np.testing.assert_allclose(t.retrieve_translation(),
+                               np.asarray(TData.image[mr].origin)
+                               - np.asarray(TData.image[ct].origin)
+                               + [5, -2, 1])
+    # the translation moves the view's origin; no reslice
+    np.testing.assert_allclose(t.display.origin, j.display.origin,
+                               rtol=0, atol=1e-9)
+    for rigid in (t, j):
+        rigid.update_rotation(r_z=10)
+    assert abs(t.retrieve_angles(order="ZXY")[0] - 10) < 1e-3
+    assert_rigid_view_matches(t, j)
+    for rigid in (t, j):
+        rigid.update_rotation(center=[0, 0, 0], r_x=3, r_y=-4)
+    assert_rigid_view_matches(t, j)
+
+
+def test_rigid_view_updates_shear_flag_match_jax(two_images):
+    ct, mr = two_images
+    t, j = tmia.Rigid(ct, mr), JRigid(ct, mr)
+    tconfig.use_shear_warp = True
+    jconfig.use_shear_warp = True
+    for rigid in (t, j):
+        rigid.pre_alignment(origin=True)
+        rigid.update_rotation(r_z=7)
+    vol = np.asarray(TData.image[mr].array, np.float32)
+    max_step = max(np.abs(np.diff(vol, axis=k)).max() for k in range(3))
+    # 1e-4 of unit std, on a CT whose steps reach max_step HU a voxel
+    assert_rigid_view_matches(t, j, tol=1e-4 * max_step)
+    exact = tresample.reslice_transform(
+        vol, TData.image[mr].matrix, TData.image[mr].spacing,
+        TData.image[mr].origin, t.matrix, TData.image[ct].spacing,
+        device="cpu")
+    before = dict(tli.LAUNCHES)
+    shear = tmia.Rigid(ct, mr, matrix=t.matrix.copy()).create_image()
+    assert tli.LAUNCHES == before
+    np.testing.assert_array_equal(shear["array"], t.display.array)
+    assert shear["array"].shape == exact["array"].shape
+    np.testing.assert_array_equal(shear["origin"], exact["origin"])
+    agree = (shear["array"] != BG) == (exact["array"] != BG)
+    assert agree.mean() > 0.93
+    tconfig.use_shear_warp = False
+    jconfig.use_shear_warp = False
+    for rigid in (t, j):
+        rigid.update_rotation(r_z=-2)
+    assert_rigid_view_matches(t, j)
+
+
+@pytest.mark.parametrize("mode", ["superior", "center", "origin"])
+def test_pre_alignment_matches_jax(two_images, mode):
+    ct, mr = two_images
+    t, j = tmia.Rigid(ct, mr), JRigid(ct, mr)
+    for rigid in (t, j):
+        rigid.pre_alignment(**{mode: True})
+    np.testing.assert_allclose(t.matrix, j.matrix, rtol=0, atol=1e-12)
+    assert np.abs(t.matrix[:3, 3]).max() > 0
+
+
+def test_rigid_mesh_slice_waits_for_item_9(two_images):
+    ct, mr = two_images
+    rigid = tmia.Rigid(ct, mr)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        rigid.display.compute_mesh_slice("Body", slice_plane="Axial")
+    assert twarp.LAUNCHES["warp_affine_shear"] == 0
