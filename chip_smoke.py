@@ -39,7 +39,7 @@ map (no path calls it; its launches are counted apart), and the cohort
 preprocess at the bench shape. Each phase prints one JSON line; any failure raises
 and exits non-zero. Near the end it
 prints the card's name and power limit (nvidia-smi) and a JSON line with
-every kernel's launches, error, times and bound; the last line is
+every kernel's launches, error, times, bound and ms lost; the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -107,6 +107,7 @@ PLANES = ("Axial", "Coronal", "Sagittal")
 # over the float32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+SLEEP_CYCLES = 20_000_000        # cuda_ms's hold: ~10 ms at 1.98 GHz
 
 
 def emit(phase, **fields):
@@ -118,11 +119,16 @@ def max_abs(a, b):
 
 
 def cuda_ms(fn, reps=10, warmup=2):
-    """Mean device time of ``fn()`` over ``reps`` launches (CUDA events)."""
+    """Mean device time of ``fn()`` over ``reps`` launches (CUDA events).
+    A sleep kernel (about 10 ms) holds the stream while the host queues
+    the launches, so a launch shorter than the host's time to queue it is
+    timed on the device, not at the host's rate."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -215,6 +221,38 @@ def launch_counts():
     return {**warp.LAUNCHES, **hist.LAUNCHES, **lane_interp.LAUNCHES}
 
 
+def launch_shapes():
+    """The warp wrappers' launches by (operator, B, gradients, output
+    dims) since the counts were last reset."""
+    from medicalimageanalysis_torch.ops import warp
+
+    return dict(warp.LAUNCH_SHAPES)
+
+
+def shape_rows(shapes):
+    """launch_shapes() as JSON rows [operator, B, grad, "ZxYxX", count]."""
+    return [[k, B, int(g), "x".join(map(str, shape)), n]
+            for (k, B, g, shape), n in sorted(shapes.items())]
+
+
+def ms_lost(kernel, timed, shapes):
+    """Sum over ``kernel``'s launches at a shape its phase timed of
+    launches x (ms - bound ms), with the launches it covers and those at
+    shapes the phase did not time (``timed``: timed_key -> row)."""
+    lost, covered, untimed = 0.0, 0, 0
+    for (k, B, grad, shape), n in shapes.items():
+        if k != kernel:
+            continue
+        row = timed.get(timed_key(B, grad, shape))
+        if row is None:
+            untimed += n
+            continue
+        lost += n * (row["ms"] - row["bound_ms"])
+        covered += n
+    return dict(ms_lost=lost, launches_timed_shapes=covered,
+                launches_untimed_shapes=untimed)
+
+
 def check_profile(name, p):
     assert p["profiled"] == p["wrapper_launches"], \
         f"{name}: profiled kernel records {p['profiled']} != counted " \
@@ -297,9 +335,10 @@ def phase_build():
             for name, ((_, ptxas), _) in built.items()})
 
 
-def smooth_warp(gen, shape, dev):
+def smooth_warp(gen, shape, dev, special=True):
     """A smooth random warp of the (Z, Y, X) grid with ~5 % of points
-    pushed outside, exact dim-1 edges, -0.0, NaN, +-inf and 1e30."""
+    pushed outside; with ``special`` also exact dim-1 edges, -0.0, NaN,
+    +-inf and 1e30."""
     Z, Y, X = shape
     zz = torch.arange(Z, device=dev, dtype=torch.float32)[:, None, None]
     yy = torch.arange(Y, device=dev, dtype=torch.float32)[None, :, None]
@@ -311,14 +350,16 @@ def smooth_warp(gen, shape, dev):
     out = torch.rand(shape, generator=gen, device=dev) < 0.05
     cz[out] = cz[out] + Z * torch.sign(torch.randn(
         int(out.sum()), generator=gen, device=dev))
-    special = torch.tensor([0.0, -0.0, float("nan"), float("inf"),
-                            -float("inf"), 1e30, -1e30], device=dev)
-    n = special.numel()
+    if not special:
+        return cz, cy, cx
+    values = torch.tensor([0.0, -0.0, float("nan"), float("inf"),
+                           -float("inf"), 1e30, -1e30], device=dev)
+    n = values.numel()
     for c, hi in ((cz, Z - 1), (cy, Y - 1), (cx, X - 1)):
         flat = c.view(-1)
         pick = torch.randint(0, flat.numel(), (64,), generator=gen,
                              device=dev)
-        flat[pick[:n]] = special
+        flat[pick[:n]] = values
         flat[pick[n:n + 16]] = float(hi)            # exact far edge
         flat[pick[n + 16:n + 32]] = 0.0             # exact near edge
     return cz, cy, cx
@@ -374,40 +415,95 @@ def pyramid_shapes():
     return [tuple(max(n // s, 2) for n in SHAPE) for s in (4, 2, 1)]
 
 
+def misaligned(t):
+    """A contiguous copy of ``t`` whose data starts 4 bytes past an 8-byte
+    boundary: the kernel must take its rows one float at a time."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 8 != 0
+    return out
+
+
+# where tiles and vectors are ragged (csrc/warp.cu: tiles of 64 x 8 output
+# voxels in coords and disp, 2 a thread as float2 where Xo is even and the
+# rows aligned, at most 4 volumes a launch): name -> (B, volume dims,
+# output dims, misaligned coordinate or displacement rows). Each runs on a
+# smooth field and on one with special values (NaN, +-inf, 1e30, exact
+# edges)
+WARP_EDGES = {"x131_y9_z6": (1, (6, 9, 131), (6, 9, 131), False),
+              "z1_y7_x130": (2, (1, 7, 130), (1, 7, 130), False),
+              "out_ne_vol": (1, (10, 20, 70), (6, 9, 131), False),
+              "B5_split": (5, (5, 16, 132), (5, 16, 132), False),
+              "misaligned": (4, (4, 10, 128), (4, 10, 128), True),
+              "x4_y3_z3": (3, (3, 3, 4), (3, 3, 4), False)}
+
+
+def edge_cases():
+    """(name, B, volume dims, output dims, misaligned, field) of every
+    ragged-edge check: each WARP_EDGES case on both fields."""
+    return [(name, B, vshape, oshape, mis, field)
+            for name, (B, vshape, oshape, mis) in WARP_EDGES.items()
+            for field in ("smooth", "special")]
+
+
+def timed_key(B, want_grad, shape):
+    """The key of a timed row: a launch's (B, gradients, output dims)."""
+    return (int(B), bool(want_grad), tuple(int(s) for s in shape))
+
+
 def phase_warp_coords(gen, dev):
     """Kernel against plain version at every grid the main path gives the
     kernel: B=1 with and without gradients at each pyramid level, and a
-    batch of two at full size."""
+    batch of two at full size; then the ragged edges (WARP_EDGES), each
+    with and without gradients on a smooth and a special warp. Each timed
+    row carries its bound (``timed``: for the launches by shape)."""
     from medicalimageanalysis_torch.ops.warp import warp_coords_plain
 
     op = torch.ops.mia_torch.warp_coords
     bg = -3001.0
-    rows = {}
+    rows, timed = {}, {}
+
+    def check(key, vol, cz, cy, cx, want):
+        k = op(vol, cz, cy, cx, bg, want)
+        p = warp_coords_plain(vol, cz, cy, cx, bg, want)
+        torch.cuda.synchronize()
+        errs = [max_abs(a, b) for a, b in zip(k, p)]
+        assert all(torch.isfinite(t).all() for t in k)
+        assert errs == [0.0] * len(errs), \
+            f"warp_coords {key}: kernel != plain {errs}"
+        return errs
+
     for shape in pyramid_shapes():
         cz, cy, cx = smooth_warp(gen, shape, dev)
         for B in ((1, 2) if shape == SHAPE else (1,)):
             vol = torch.randn((B,) + shape, generator=gen, device=dev) * 500
             for want in (False, True):
-                k = op(vol, cz, cy, cx, bg, want)
-                p = warp_coords_plain(vol, cz, cy, cx, bg, want)
-                torch.cuda.synchronize()
-                errs = [max_abs(a, b) for a, b in zip(k, p)]
                 key = "x".join(map(str, shape)) + f"_B{B}_grad{int(want)}"
-                assert all(torch.isfinite(t).all() for t in k)
-                assert errs == [0.0] * len(errs), \
-                    f"warp_coords {key}: kernel != plain {errs}"
+                errs = check(key, vol, cz, cy, cx, want)
                 ms = cuda_ms(lambda: op(vol, cz, cy, cx, bg, want))
                 plain_ms = cuda_ms(
                     lambda: warp_coords_plain(vol, cz, cy, cx, bg, want),
                     reps=3, warmup=1)
                 rows[key] = dict(max_abs_err=errs, ms=ms, plain_ms=plain_ms)
+                rows[key]["bound_ms"], rows[key]["bound_by"] = warp_bound(
+                    vol[0].numel(), cz.numel(), B, 3, want)
+                timed[timed_key(B, want, shape)] = rows[key]
                 if shape == SHAPE and B == 1 and want:
                     rows[key]["library_ms"] = library_sample_ms(
                         vol, cz, cy, cx, want_grad=True)
-                    rows[key]["bound_ms"], rows[key]["bound_by"] = \
-                        warp_bound(vol[0].numel(), cz.numel(), 1, 3, True)
-            del vol, k, p
+            del vol
         del cz, cy, cx
+    for name, B, vshape, oshape, mis, field in edge_cases():
+        vol = torch.randn((B,) + vshape, generator=gen, device=dev) * 500
+        cz, cy, cx = smooth_warp(gen, oshape, dev, special=field == "special")
+        if mis:
+            cz, cy, cx = (misaligned(c) for c in (cz, cy, cx))
+        for want in (False, True):
+            key = f"edge_{name}_{field}_grad{int(want)}"
+            rows[key] = dict(B=B, vol=list(vshape), out=list(oshape),
+                             max_abs_err=check(key, vol, cz, cy, cx, want))
+        del vol, cz, cy, cx
     emit("warp_coords", tolerance=0.0, **rows)
     torch.cuda.empty_cache()
     # the registration's finest-level call
@@ -415,7 +511,7 @@ def phase_warp_coords(gen, dev):
     return dict(max_abs_err=max(max(r["max_abs_err"]) for r in rows.values()),
                 ms=main["ms"], plain_ms=main["plain_ms"],
                 bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-                library_ms=main["library_ms"])
+                library_ms=main["library_ms"], timed=timed)
 
 
 def affine_cases():
@@ -465,16 +561,19 @@ def phase_warp_affine(gen, dev):
     cz, cy, cx = affine_coords(torch.as_tensor(
         affine_cases()["near_identity"], device=dev), SHAPE)
     main["library_ms"] = library_sample_ms(vol, cz, cy, cx)
-    main["bound_ms"], main["bound_by"] = warp_bound(
-        vol.numel(), cz.numel(), 1, 0, False)
+    for row in rows.values():
+        row["bound_ms"], row["bound_by"] = warp_bound(
+            vol.numel(), cz.numel(), 1, 0, False)
     del cz, cy, cx
     emit("warp_affine", shape=list(SHAPE), tolerance=0.0, **rows)
     del vol
     torch.cuda.empty_cache()
+    # the path's launches at SHAPE weighed by the near-identity map's time
     return dict(max_abs_err=max(r["max_abs_err"] for r in rows.values()),
                 ms=main["ms"], plain_ms=main["plain_ms"],
                 bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-                library_ms=main["library_ms"])
+                library_ms=main["library_ms"],
+                timed={timed_key(1, False, SHAPE): main})
 
 
 def smooth_disp(gen, shape, dev, special=False):
@@ -516,34 +615,43 @@ def phase_warp_disp(gen, dev):
     batch the deformable path gives the kernel: B=1 with gradients (the
     B-spline sampler), B=3 without (DVF inversion and composition warp a
     field), B=4 without (the fast-demons stack), each on a smooth field
-    and on one mixing in NaN, +-inf, +-1e30 and exact-edge displacements.
-    Times are taken on the smooth fields."""
+    and on one mixing in NaN, +-inf, +-1e30 and exact-edge displacements;
+    then the ragged edges (WARP_EDGES), each with and without gradients
+    on a smooth and a special field. Times are taken on the smooth
+    fields; each timed row carries its bound (``timed``)."""
     from medicalimageanalysis_torch.ops.warp import warp_disp_plain
 
     op = torch.ops.mia_torch.warp_disp
     bg = 0.0
-    rows = {}
+    rows, timed = {}, {}
+
+    def check(key, vol, disp, want):
+        k = op(vol, disp, bg, want)
+        p = warp_disp_plain(vol, disp, bg, want)
+        torch.cuda.synchronize()
+        errs = [max_abs(a, b) for a, b in zip(k, p)]
+        assert all(torch.isfinite(t).all() for t in k)
+        assert errs == [0.0] * len(errs), \
+            f"warp_disp {key}: kernel != plain {errs}"
+        return errs
+
     for shape in pyramid_shapes():
         for field in ("smooth", "special"):
             disp = smooth_disp(gen, shape, dev, special=field == "special")
             for B, want in ((1, True), (3, False), (4, False)):
                 vol = smooth_disp(gen, shape, dev) if B == 3 else \
                     torch.randn((B,) + shape, generator=gen, device=dev) * 500
-                k = op(vol, disp, bg, want)
-                p = warp_disp_plain(vol, disp, bg, want)
-                torch.cuda.synchronize()
-                errs = [max_abs(a, b) for a, b in zip(k, p)]
                 key = "x".join(map(str, shape)) \
                     + f"_B{B}_grad{int(want)}_{field}"
-                assert all(torch.isfinite(t).all() for t in k)
-                assert errs == [0.0] * len(errs), \
-                    f"warp_disp {key}: kernel != plain {errs}"
-                row = dict(max_abs_err=errs)
+                row = dict(max_abs_err=check(key, vol, disp, want))
                 if field == "smooth":
                     row["ms"] = cuda_ms(lambda: op(vol, disp, bg, want))
                     row["plain_ms"] = cuda_ms(
                         lambda: warp_disp_plain(vol, disp, bg, want),
                         reps=3, warmup=1)
+                    row["bound_ms"], row["bound_by"] = warp_bound(
+                        vol[0].numel(), disp[0].numel(), B, 3, want)
+                    timed[timed_key(B, want, shape)] = row
                 if field == "smooth" and shape == SHAPE and B == 4:
                     zz, yy, xx = (torch.arange(n, device=dev,
                                                dtype=torch.float32)
@@ -552,11 +660,19 @@ def phase_warp_disp(gen, dev):
                         vol, zz[:, None, None] + disp[2],
                         yy[None, :, None] + disp[1],
                         xx[None, None, :] + disp[0])
-                    row["bound_ms"], row["bound_by"] = warp_bound(
-                        vol[0].numel(), disp[0].numel(), B, 3, want)
                 rows[key] = row
-                del vol, k, p
+                del vol
             del disp
+    for name, B, vshape, oshape, mis, field in edge_cases():
+        vol = torch.randn((B,) + vshape, generator=gen, device=dev) * 500
+        disp = smooth_disp(gen, oshape, dev, special=field == "special")
+        if mis:
+            disp = misaligned(disp)
+        for want in (False, True):
+            key = f"edge_{name}_{field}_grad{int(want)}"
+            rows[key] = dict(B=B, vol=list(vshape), out=list(oshape),
+                             max_abs_err=check(key, vol, disp, want))
+        del vol, disp
     emit("warp_disp", tolerance=0.0, **rows)
     torch.cuda.empty_cache()
     # the fast-demons iteration's call at full size
@@ -564,7 +680,7 @@ def phase_warp_disp(gen, dev):
     return dict(max_abs_err=max(max(r["max_abs_err"]) for r in rows.values()),
                 ms=main["ms"], plain_ms=main["plain_ms"],
                 bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-                library_ms=main["library_ms"])
+                library_ms=main["library_ms"], timed=timed)
 
 
 def hist_case(gen, n, thresholds, dev, valid_all=False):
@@ -739,7 +855,9 @@ def phase_lane_interp(gen, dev, passes):
     return dict(max_abs_err=max(r["max_abs_err"] for r in rows.values()),
                 ms=main["ms"], plain_ms=main["plain_ms"],
                 bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-                library_ms=main["library_ms"])
+                library_ms=main["library_ms"],
+                lost=sum(r["ms"] - r["bound_ms"] for r in rows.values()
+                         if "ms" in r))
 
 
 def oblique_cases():
@@ -838,7 +956,7 @@ def phase_warp_affine_shear(gen, dev):
     return dict(max_abs_err=max(r["max_abs_err"] for r in rows.values()),
                 ms=main["ms"], plain_ms=main["plain_ms"],
                 bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-                library_ms=main["library_ms"])
+                library_ms=main["library_ms"], timed={})
 
 
 # ---------------------------------------------------------------------------
@@ -1724,6 +1842,7 @@ def main():
         for counts in (warp.LAUNCHES, hist.LAUNCHES, lane_interp.LAUNCHES):
             for key in counts:
                 counts[key] = 0
+        warp.LAUNCH_SHAPES.clear()
 
     with tempfile.TemporaryDirectory(prefix="mia_smoke_") as folder:
         truth, ref = write_pair(cpu_gen, folder)
@@ -1732,6 +1851,7 @@ def main():
         rigid, warm = phase_rigid(names, truth)
         phase_reslice(rigid, dev)
         rigid_launches = launch_counts()   # ... and ends here
+        shapes = {"rigid": launch_shapes()}
         deformed = os.path.join(folder, "deformed")
         write_deformed(ref, deformed)
         del ref
@@ -1739,12 +1859,15 @@ def main():
         names = phase_deformable(deformed, names, dev)
         phase_deformable_variants(names, dev)
         deformable_launches = launch_counts()  # ... and ends here
+        shapes["deformable"] = launch_shapes()
         reset_counts()                     # the dose-QA path starts here
         img_name, dose_name = phase_dose_qa(folder, names, dev)
         dose_qa_launches = launch_counts()  # ... and ends here
+        shapes["dose_qa"] = launch_shapes()
         reset_counts()                     # the view path starts here
         view = phase_view(names, rigid, dev)
         view_launches = launch_counts()    # ... and ends here
+        shapes["view"] = launch_shapes()
         reset_counts()      # the oblique entry alone, at the display's map
         phase_oblique_entry(names, *view["display_map"], dev)
         oblique_launches = launch_counts()
@@ -1772,11 +1895,23 @@ def main():
     assert oblique_launches == dict(
         {k: 0 for k in oblique_launches}, warp_coords=1,
         warp_affine_shear=1), oblique_launches
-    launches = {k: rigid_launches[k] + deformable_launches[k]
-                for k in ("warp_coords", "warp_affine", "warp_disp")}
-    launches["dose_hist"] = dose_qa_launches["dose_hist"]
-    launches["lane_interp"] = view_launches["lane_interp"]
-    launches["warp_affine_shear"] = view_launches["warp_affine_shear"]
+    # every kernel's launches on the four paths, and the warp launches by
+    # shape over them
+    paths = (rigid_launches, deformable_launches, dose_qa_launches,
+             view_launches)
+    launches = {k: sum(p[k] for p in paths) for k in rigid_launches}
+    all_shapes = {}
+    for per_path in shapes.values():
+        for key, n in per_path.items():
+            all_shapes[key] = all_shapes.get(key, 0) + n
+    assert sum(all_shapes.values()) == sum(
+        launches[k] for k in WARP_MODES.values()), (all_shapes, launches)
+    for name in WARP_MODES.values():
+        kernels[name].update(ms_lost(name, kernels[name].pop("timed"),
+                                     all_shapes))
+    kernels["dose_hist"].update(ms_lost=None)   # no launch shapes recorded
+    # lane_interp: each pass shape the view path ran, timed once
+    kernels["lane_interp"]["ms_lost"] = kernels["lane_interp"].pop("lost")
 
     # the paths' calls again, each under the profiler: the hand-written
     # kernel, not a plain path, must be what ran on the card. The
@@ -1839,7 +1974,9 @@ def main():
          launches_deformable_path=deformable_launches,
          launches_dose_qa_path=dose_qa_launches,
          launches_view_path=view_launches,
-         launches_oblique_entry=oblique_launches, **profiles)
+         launches_oblique_entry=oblique_launches,
+         launch_shapes={k: shape_rows(v) for k, v in shapes.items()},
+         **profiles)
     for name, p in profiles.items():
         check_profile(name, p)
     phase_preprocess(cpu_gen, dev)

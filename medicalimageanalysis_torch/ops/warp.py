@@ -39,12 +39,14 @@ and serves every coordinate map.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
 from torch import Tensor
 
-__all__ = ["LAUNCHES", "affine_coords", "affine_warp_fused",
+__all__ = ["LAUNCHES", "LAUNCH_SHAPES", "MAX_B", "affine_coords",
+           "affine_warp_fused", "batch_chunks", "check_index_range",
            "affine_warp_oblique", "field_warp", "field_warp_disp",
            "make_disp_sampler", "make_warp_sampler", "oblique_plan",
            "oblique_v2", "warp_affine_plain", "warp_affine_shear_plain",
@@ -54,6 +56,11 @@ __all__ = ["LAUNCHES", "affine_coords", "affine_warp_fused",
 # path went through the kernels. Only the CUDA implementations add to them.
 LAUNCHES = {"warp_coords": 0, "warp_affine": 0, "warp_disp": 0,
             "warp_affine_shear": 0}
+# The same launches by (operator, volumes B, gradients, output (Zo, Yo,
+# Xo)): a run weighs each shape's kernel time against its bound with them.
+LAUNCH_SHAPES = {}
+
+MAX_B = 4                 # volumes per launch (csrc/warp.cu kMaxB)
 
 
 # ---------------------------------------------------------------------------
@@ -212,6 +219,39 @@ def _raise_on(err, what):
         raise RuntimeError(f"{what} launch failed: CUDA error {err}")
 
 
+def batch_chunks(B):
+    """(first volume, count) of each launch for B volumes: the kernel
+    takes at most MAX_B volumes a launch."""
+    return [(b0, min(MAX_B, B - b0)) for b0 in range(0, int(B), MAX_B)]
+
+
+def check_index_range(what, *shapes):
+    """Raise unless every (.., Z, Y, X) shape has fewer than 2^31 voxels
+    per volume: the kernel's offsets inside a volume are int32."""
+    for shape in shapes:
+        voxels = math.prod(int(s) for s in shape[-3:])
+        if voxels >= 2 ** 31:
+            raise ValueError(f"{what}: a volume of {tuple(shape[-3:])} has "
+                             f"{voxels} >= 2^31 voxels, beyond the kernel's "
+                             "int32 offsets")
+
+
+def _launch(kernel, vol, outs, want_grad, call):
+    """``call(vol_ptr, nb, out_ptrs)`` once for each chunk of at most
+    MAX_B volumes of ``vol`` (B, ...) and the matching rows of ``outs``
+    (each (B, Zo, Yo, Xo)); counts each launch and its shape."""
+    shape = tuple(outs[0].shape[1:])
+    vstep = 4 * math.prod(vol.shape[1:])
+    ostep = 4 * math.prod(shape)
+    for b0, nb in batch_chunks(vol.shape[0]):
+        ptr = [o.data_ptr() + b0 * ostep for o in outs] \
+            + [None] * (4 - len(outs))
+        _raise_on(call(vol.data_ptr() + b0 * vstep, nb, ptr), kernel)
+        LAUNCHES[kernel] += 1
+        key = (kernel, nb, bool(want_grad), shape)
+        LAUNCH_SHAPES[key] = LAUNCH_SHAPES.get(key, 0) + 1
+
+
 @_warp_coords_op.register_kernel("cuda")
 def _warp_coords_cuda(vol, cz, cy, cx, background, want_grad):
     from ._build import load_warp_library
@@ -225,20 +265,19 @@ def _warp_coords_cuda(vol, cz, cy, cx, background, want_grad):
                          f"(Zo, Yo, Xo) coordinate tensors, got "
                          f"{tuple(vol.shape)}, {tuple(cz.shape)}, "
                          f"{tuple(cy.shape)}, {tuple(cx.shape)}")
+    check_index_range("warp_coords", vol.shape, cz.shape)
     lib = load_warp_library()
     B, Z, Y, X = vol.shape
     Zo, Yo, Xo = cz.shape
     outs = [torch.empty((B, Zo, Yo, Xo), dtype=torch.float32, device=dev)
             for _ in range(4 if want_grad else 1)]
-    ptr = [o.data_ptr() for o in outs] + [None] * (4 - len(outs))
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = lib.mia_warp_coords(
-            vol.data_ptr(), B, Z, Y, X, cz.data_ptr(), cy.data_ptr(),
-            cx.data_ptr(), Zo, Yo, Xo, float(background), ptr[0], ptr[1],
-            ptr[2], ptr[3], int(bool(want_grad)), stream)
-    _raise_on(err, "warp_coords")
-    LAUNCHES["warp_coords"] += 1
+        _launch("warp_coords", vol, outs, want_grad,
+                lambda v, nb, ptr: lib.mia_warp_coords(
+                    v, nb, Z, Y, X, cz.data_ptr(), cy.data_ptr(),
+                    cx.data_ptr(), Zo, Yo, Xo, float(background), ptr[0],
+                    ptr[1], ptr[2], ptr[3], int(bool(want_grad)), stream))
     return outs
 
 
@@ -251,6 +290,7 @@ def _warp_affine_cuda(vol, coef, out_shape, background):
     if vol.dim() != 4 or len(coef) != 12 or len(out_shape) != 3:
         raise ValueError("warp_affine: vol (B, Z, Y, X), 12 coefficients and "
                          "a 3-d out_shape")
+    check_index_range("warp_affine", vol.shape, out_shape)
     lib = load_warp_library()
     B, Z, Y, X = vol.shape
     Zo, Yo, Xo = (int(s) for s in out_shape)
@@ -258,11 +298,10 @@ def _warp_affine_cuda(vol, coef, out_shape, background):
     c12 = (ctypes.c_float * 12)(*[float(v) for v in coef])
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = lib.mia_warp_affine(vol.data_ptr(), B, Z, Y, X, c12, Zo, Yo,
-                                  Xo, float(background), out.data_ptr(),
-                                  stream)
-    _raise_on(err, "warp_affine")
-    LAUNCHES["warp_affine"] += 1
+        _launch("warp_affine", vol, [out], False,
+                lambda v, nb, ptr: lib.mia_warp_affine(
+                    v, nb, Z, Y, X, c12, Zo, Yo, Xo, float(background),
+                    ptr[0], stream))
     return out
 
 
@@ -277,20 +316,19 @@ def _warp_disp_cuda(vol, disp, background, want_grad):
         raise ValueError("warp_disp: vol (B, Z, Y, X) and disp "
                          f"(3, Zo, Yo, Xo), got {tuple(vol.shape)}, "
                          f"{tuple(disp.shape)}")
+    check_index_range("warp_disp", vol.shape, disp.shape)
     lib = load_warp_library()
     B, Z, Y, X = vol.shape
     _, Zo, Yo, Xo = disp.shape
     outs = [torch.empty((B, Zo, Yo, Xo), dtype=torch.float32, device=dev)
             for _ in range(4 if want_grad else 1)]
-    ptr = [o.data_ptr() for o in outs] + [None] * (4 - len(outs))
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = lib.mia_warp_disp(
-            vol.data_ptr(), B, Z, Y, X, disp.data_ptr(), Zo, Yo, Xo,
-            float(background), ptr[0], ptr[1], ptr[2], ptr[3],
-            int(bool(want_grad)), stream)
-    _raise_on(err, "warp_disp")
-    LAUNCHES["warp_disp"] += 1
+        _launch("warp_disp", vol, outs, want_grad,
+                lambda v, nb, ptr: lib.mia_warp_disp(
+                    v, nb, Z, Y, X, disp.data_ptr(), Zo, Yo, Xo,
+                    float(background), ptr[0], ptr[1], ptr[2], ptr[3],
+                    int(bool(want_grad)), stream))
     return outs
 
 
@@ -306,6 +344,7 @@ def _warp_affine_shear_cuda(v2, coef16, logical_dims, out_shape, background):
                          "coefficients, logical dims (Z, Y, X) and a 3-d "
                          f"out_shape, got {tuple(v2.shape)}, {len(coef16)}, "
                          f"{list(logical_dims)}, {list(out_shape)}")
+    check_index_range("warp_affine_shear", v2.shape, out_shape)
     lib = load_warp_library()
     B, Z2, Y2, X = v2.shape
     Z, Y = int(logical_dims[0]), int(logical_dims[1])
@@ -314,11 +353,10 @@ def _warp_affine_shear_cuda(v2, coef16, logical_dims, out_shape, background):
     c16 = (ctypes.c_float * 16)(*[float(v) for v in coef16])
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = lib.mia_warp_affine_shear(v2.data_ptr(), B, Z2, Y2, X, Z, Y,
-                                        c16, Zo, Yo, Xo, float(background),
-                                        out.data_ptr(), stream)
-    _raise_on(err, "warp_affine_shear")
-    LAUNCHES["warp_affine_shear"] += 1
+        _launch("warp_affine_shear", v2, [out], False,
+                lambda v, nb, ptr: lib.mia_warp_affine_shear(
+                    v, nb, Z2, Y2, X, Z, Y, c16, Zo, Yo, Xo,
+                    float(background), ptr[0], stream))
     return out
 
 

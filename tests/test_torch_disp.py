@@ -152,3 +152,48 @@ def test_cpu_tensors_take_the_plain_twin():
     res = torch.ops.mia_torch.warp_disp(vol, disp, 0.0, True)
     assert [tuple(r.shape) for r in res] == [(2, 3, 4, 5)] * 4
     assert twarp.LAUNCHES == before
+
+
+@pytest.mark.parametrize("B,want_grad", [(5, False), (5, True), (4, True)])
+def test_disp_wrapper_splits_batches_and_records_shapes(monkeypatch, B,
+                                                        want_grad):
+    """The CUDA wrapper's host logic with the library replaced (no card
+    here): B > 4 volumes go out in launches of at most 4, each at its
+    volume and output rows, with one field for all; each launch is
+    counted once and by (B, gradients, output dims)."""
+    import contextlib
+    import types
+
+    from medicalimageanalysis_torch.ops import _build
+
+    calls = []
+
+    class Lib:
+        def mia_warp_disp(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(_build, "load_warp_library", lambda: Lib())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(twarp, "LAUNCHES", dict.fromkeys(twarp.LAUNCHES, 0))
+    monkeypatch.setattr(twarp, "LAUNCH_SHAPES", {})
+    vol = torch.zeros(B, 6, 7, 8)
+    disp = torch.zeros(3, 2, 3, 5)
+    outs = twarp._warp_disp_cuda(vol, disp, 0.0, want_grad)
+    assert len(outs) == (4 if want_grad else 1)
+    assert all(tuple(o.shape) == (B, 2, 3, 5) for o in outs)
+    chunks = twarp.batch_chunks(B)
+    assert [a[1] for a in calls] == [nb for _, nb in chunks]
+    for (b0, _), a in zip(chunks, calls):
+        assert a[0] == vol.data_ptr() + 4 * b0 * 6 * 7 * 8
+        assert a[5] == disp.data_ptr()
+        assert a[10] == outs[0].data_ptr() + 4 * b0 * 30
+        assert a[14] == int(want_grad)
+    assert twarp.LAUNCHES["warp_disp"] == len(chunks)
+    assert twarp.LAUNCH_SHAPES == {
+        ("warp_disp", nb, want_grad, (2, 3, 5)): sum(
+            1 for _, m in chunks if m == nb) for _, nb in chunks}
+

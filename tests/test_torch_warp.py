@@ -215,3 +215,113 @@ def test_cpu_tensors_take_the_plain_twin():
     torch.ops.mia_torch.warp_affine(vol, [1.0, 0, 0, 0, 0, 1.0, 0, 0, 0, 0,
                                           1.0, 0], [2, 2, 2], 0.0)
     assert twarp.LAUNCHES == before
+
+
+class _FakeWarpLibrary:
+    """Records each kernel call of the CUDA wrappers, for their host logic
+    on the CPU (no card here): entry point, volumes B and pointers."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def call(*args):
+            self.calls.append((name, args))
+            return 0
+        return call
+
+
+@pytest.fixture
+def fake_warp_library(monkeypatch):
+    import contextlib
+    import types
+
+    from medicalimageanalysis_torch.ops import _build
+
+    lib = _FakeWarpLibrary()
+    monkeypatch.setattr(_build, "load_warp_library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(twarp, "LAUNCHES", dict.fromkeys(twarp.LAUNCHES, 0))
+    monkeypatch.setattr(twarp, "LAUNCH_SHAPES", {})
+    return lib
+
+
+@pytest.mark.parametrize("B,chunks", [(1, [(0, 1)]), (4, [(0, 4)]),
+                                      (5, [(0, 4), (4, 1)]),
+                                      (9, [(0, 4), (4, 4), (8, 1)])])
+def test_batch_chunks_split_into_launches_of_at_most_four(B, chunks):
+    assert twarp.batch_chunks(B) == chunks
+    assert twarp.MAX_B == 4
+
+
+def test_check_index_range_refuses_2_31_voxels():
+    twarp.check_index_range("t", (3, 128, 512, 512), (2, 1024, 1024, 2047))
+    with pytest.raises(ValueError, match="2\\^31"):
+        twarp.check_index_range("t", (1, 1024, 1024, 2048))
+    with pytest.raises(ValueError, match="2\\^31"):
+        twarp.check_index_range("t", (2, 4, 4), (2048, 1024, 1024))
+
+
+@pytest.mark.parametrize("want_grad", [False, True])
+def test_coords_wrapper_splits_batches_and_records_shapes(
+        fake_warp_library, want_grad):
+    """B=6 volumes: two launches (4 + 2), each at the right volume and
+    output rows, counted once each and by shape."""
+    vol = torch.zeros(6, 3, 4, 5)
+    c = torch.zeros(2, 3, 7)
+    outs = twarp._warp_coords_cuda(vol, c, c, c, 0.0, want_grad)
+    assert [tuple(o.shape) for o in outs] == \
+        [(6, 2, 3, 7)] * (4 if want_grad else 1)
+    calls = fake_warp_library.calls
+    assert [name for name, _ in calls] == ["mia_warp_coords"] * 2
+    (_, a0), (_, a1) = calls
+    assert (a0[1], a1[1]) == (4, 2)
+    assert a1[0] - a0[0] == 4 * 4 * 3 * 4 * 5          # 4 volumes on
+    assert a1[12] - a0[12] == 4 * 4 * 2 * 3 * 7        # 4 output rows on
+    assert a0[12] == outs[0].data_ptr()
+    if want_grad:
+        assert [a1[k] - a0[k] for k in (13, 14, 15)] == [4 * 4 * 42] * 3
+    else:
+        assert (a0[13], a0[14], a0[15]) == (None, None, None)
+    assert twarp.LAUNCHES["warp_coords"] == 2
+    assert twarp.LAUNCH_SHAPES == {
+        ("warp_coords", 4, want_grad, (2, 3, 7)): 1,
+        ("warp_coords", 2, want_grad, (2, 3, 7)): 1}
+
+
+def test_affine_wrappers_refuse_volumes_beyond_int32(fake_warp_library):
+    vol = torch.zeros(1, 2, 2, 2)
+    coef = [1.0, 0, 0, 0, 0, 1.0, 0, 0, 0, 0, 1.0, 0]
+    with pytest.raises(ValueError, match="2\\^31"):
+        twarp._warp_affine_cuda(vol, coef, [2048, 1024, 1024], 0.0)
+    assert fake_warp_library.calls == []
+    twarp._warp_affine_cuda(vol, coef, [3, 2, 2], 0.0)
+    assert twarp.LAUNCH_SHAPES == {("warp_affine", 1, False, (3, 2, 2)): 1}
+
+
+def test_build_compiles_warp_with_fmad_false(monkeypatch, tmp_path):
+    """Bit-equality with the plain version rests on nvcc not contracting
+    a*(1-f) + b*f into FMAs: the warp source is compiled with
+    --fmad=false, for sm_90a."""
+    import subprocess
+
+    from medicalimageanalysis_torch.ops import _build
+
+    seen = []
+
+    def run(cmd, **kw):
+        seen.append(cmd)
+        open(cmd[cmd.index("-o") + 1], "wb").close()
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(_build, "build_dir", lambda: tmp_path)
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build.subprocess, "run", run)
+    path, _ = _build.build_library("warp")
+    (cmd,) = seen
+    assert cmd[-1].endswith("csrc/warp.cu") and path.parent == tmp_path
+    assert "--fmad=false" in cmd and "--fmad=true" not in cmd
+    assert "-gencode=arch=compute_90a,code=sm_90a" in cmd
