@@ -143,8 +143,10 @@ WARP_MODES = {"0": "warp_coords", "1": "warp_affine", "2": "warp_disp",
 
 
 def kernel_of(key):
-    """The wrapper count a device event answers to, or None."""
-    if "hist_kernel" in key:
+    """The wrapper count a device event answers to, or None. A dose_hist
+    call launches two kernels; only its main pass (dose_hist_count)
+    answers, not its finish (dose_hist_finish)."""
+    if "dose_hist_count" in key:
         return "dose_hist"
     if "lane_interp_kernel" in key:
         return "lane_interp"
@@ -705,20 +707,25 @@ def hist_case(gen, n, thresholds, dev, valid_all=False):
     return dose, valid
 
 
-def phase_hist(gen, dev):
-    """Kernel against plain twin, bit-equal on the counts, for N in {1,
-    2047, 2049, 13 M} with 300 sorted thresholds and with 23 unsorted,
-    repeated ones (NaN, +-inf, -0.0 among them), one case of 1100
-    thresholds (three slices of bins in one launch) and one whose top
-    bins hold more than 2^24 voxels. Kernel and plain ms for each.
+def hist_bound(n, n_bins):
+    """bound() of the function at N voxels and n_bins thresholds, not of
+    any design: the bytes (dose and valid read once, thresholds read,
+    counts written) against ceil(log2(n_bins + 1)) compares a voxel, a
+    binary search of the sorted thresholds."""
+    return bound(4 * (2 * n + n_bins) + 8 * n_bins,
+                 n * math.ceil(math.log2(n_bins + 1)))
 
-    The bound is the function's, not this design's: the bytes (dose and
-    valid read once, thresholds read, counts written) against about
-    ceil(log2(n_bins + 1)) compares per voxel, a binary search of the
-    sorted thresholds."""
-    from medicalimageanalysis_torch.ops.hist import _hist_plain
 
-    op = torch.ops.mia_torch.dose_hist
+def hist_cases(gen, dev):
+    """The histogram's checked cases, as (key, dose, valid, thresholds),
+    made one at a time: N in {1, 2047, 2049, 13 M} with 300 sorted
+    thresholds and with 23 unsorted, repeated ones (NaN, +-inf, -0.0
+    among them), one case of 1100 thresholds, one whose top bins hold
+    more than 2^24 voxels, 13 M doses all inside one threshold interval
+    (peaked), 20,000 unsorted thresholds (above the shared-memory
+    histogram's limit), thresholds in pairs of -0.0 and 0.0 against many
+    signed zero doses, and the dvh_batch shape (33,554,432 voxels, 32
+    bins, a 0/1 mask as valid)."""
     sorted_thr = torch.linspace(0.0, 66.0, DVH_BINS, device=dev)
     base = torch.tensor([0.0, 5.0, 5.0, 60.0, -0.0, float("nan"),
                          float("inf"), -float("inf"), 30.0, 1e-40, 65.0,
@@ -730,30 +737,69 @@ def phase_hist(gen, dev):
              for n in (1, 2047, 2049, 13_000_000)
              for name, thr in (("300sorted", sorted_thr),
                                ("23unsorted", mixed))]
-    many = torch.cat([torch.linspace(-1.0, 71.0, 1092, device=dev),
-                      base[:8]])
-    many = many[torch.randperm(many.numel(), generator=gen, device=dev)]
-    cases.append(("n1000003_1100unsorted", 1_000_003, many, False))
-    cases.append(("n20000000_300sorted_allvalid", 20_000_000, sorted_thr,
-                  True))
-    rows = {}
+
+    def shuffled(lo, hi, k):
+        t = torch.cat([torch.linspace(lo, hi, k - 8, device=dev), base[:8]])
+        return t[torch.randperm(k, generator=gen, device=dev)]
+
+    zeros = torch.tensor([-0.0, 0.0, 0.0, -0.0, 5.0, -5.0, 1e-40, -1e-40,
+                          float("nan"), 60.0], device=dev)
+    dvh_batch_thr = torch.arange(32, dtype=torch.float32, device=dev) * 5.0
+    cases += [("n1000003_1100unsorted", 1_000_003, shuffled(-1.0, 71.0, 1100),
+               False),
+              ("n20000000_300sorted_allvalid", 20_000_000, sorted_thr, True),
+              ("n13000000_300sorted_peaked", 13_000_000, sorted_thr, True),
+              ("n1000000_20000unsorted", 1_000_000,
+               shuffled(-1.0, 71.0, 20_000), False),
+              ("n1000000_signed_zeros", 1_000_000, zeros, False),
+              ("n33554432_32_mask", 33_554_432, dvh_batch_thr, False)]
     for key, n, thr, valid_all in cases:
         dose, valid = hist_case(gen, n, thr, dev, valid_all)
+        if key.endswith("peaked"):       # every dose in (s_271, s_272)
+            lo, hi = float(thr[271]), float(thr[272])
+            dose = lo + (hi - lo) * (0.05 + 0.9 * torch.rand(
+                n, generator=gen, device=dev))
+            assert bool(((dose > lo) & (dose < hi)).all())
+        elif key.endswith("signed_zeros"):
+            dose[::7] = 0.0
+            dose[::11] = -0.0
+        elif key.endswith("mask"):       # dvh_batch: a 0/1 ROI mask
+            valid = (torch.rand(n, generator=gen, device=dev) < 0.3).float()
+        yield key, dose, valid, thr
+
+
+def phase_hist(gen, dev):
+    """Kernel against plain twin, bit-equal on the counts, at every
+    :func:`hist_cases` case; kernel and plain ms, the bound and its share
+    for each. For information, the composite torch.bucketize + bincount
+    + cumsum at 13 M x 300 bins (``composite_ms``; no single PyTorch call
+    computes the function)."""
+    from medicalimageanalysis_torch.ops.hist import _hist_plain
+
+    op = torch.ops.mia_torch.dose_hist
+    rows = {}
+    for key, dose, valid, thr in hist_cases(gen, dev):
         k = op(dose, valid, thr)
         p = _hist_plain(dose, valid, thr)
         torch.cuda.synchronize()
         err = int((k - p).abs().max())
         assert err == 0, f"dose_hist {key}: kernel != plain ({err})"
-        rows[key] = dict(max_abs_err=err, max_count=int(k.max()),
-                         ms=cuda_ms(lambda: op(dose, valid, thr)),
-                         plain_ms=cuda_ms(lambda: _hist_plain(dose, valid,
-                                                              thr),
-                                          reps=3, warmup=1))
-        if n == 13_000_000 and thr is sorted_thr:
-            nb = thr.numel()
-            rows[key]["bound_ms"], rows[key]["bound_by"] = bound(
-                4 * (2 * n + nb) + 8 * nb,
-                n * math.ceil(math.log2(nb + 1)))
+        row = dict(max_abs_err=err, max_count=int(k.max()),
+                   ms=cuda_ms(lambda: op(dose, valid, thr)),
+                   plain_ms=cuda_ms(lambda: _hist_plain(dose, valid, thr),
+                                    reps=3, warmup=1))
+        row["bound_ms"], row["bound_by"] = hist_bound(dose.numel(),
+                                                      thr.numel())
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        if key == "n13000000_300sorted":
+            def composite():
+                srt = torch.sort(thr).values
+                at = torch.bucketize(dose, srt, right=True)
+                at = torch.where(valid > 0, at, thr.numel())
+                return torch.bincount(at, minlength=thr.numel() + 1)[
+                    :thr.numel()].cumsum(0)
+            row["composite_ms"] = cuda_ms(composite)
+        rows[key] = row
         del dose, valid, k, p
     big = rows["n20000000_300sorted_allvalid"]["max_count"]
     assert big > 2 ** 24, f"no bin above 2^24 voxels ({big})"
@@ -764,6 +810,62 @@ def phase_hist(gen, dev):
                 ms=main["ms"], plain_ms=main["plain_ms"],
                 bound_ms=main["bound_ms"], bound_by=main["bound_by"],
                 library_ms=None)
+
+
+@contextlib.contextmanager
+def recording_hist_calls(calls):
+    """Keep every (dose, valid, thresholds) the port hands the dose_hist
+    operator inside the block, by (N, n_bins), in ``calls``: the path's
+    own tensors, to check and time the kernel on after it."""
+    from medicalimageanalysis_torch.ops import hist
+
+    run = hist._dose_hist_op
+
+    def op(dose, valid, thresholds):
+        calls.setdefault((dose.numel(), thresholds.numel()), []).append(
+            (dose, valid, thresholds))
+        return run(dose, valid, thresholds)
+
+    hist._dose_hist_op = op
+    try:
+        yield calls
+    finally:
+        hist._dose_hist_op = run
+
+
+def hist_path_lost(calls, shapes):
+    """The kernel at every (N, n_bins) the dose-QA path launched, on the
+    tensors it launched with (``calls``; ``shapes``: launches by shape):
+    each call held bit-equal to the plain twin again, the first at each
+    shape timed. Per shape: launches, max_abs_err, ms, bound ms; ms lost,
+    sum of launches x (ms - bound ms)."""
+    from medicalimageanalysis_torch.ops.hist import _hist_plain
+
+    op = torch.ops.mia_torch.dose_hist
+    assert {k: len(v) for k, v in calls.items()} == dict(shapes), \
+        (sorted((k, len(v)) for k, v in calls.items()), sorted(shapes.items()))
+    rows, lost, worst = [], 0.0, 0
+    for (n, n_bins), count in sorted(shapes.items()):
+        err = 0
+        for dose, valid, thr in calls[(n, n_bins)]:
+            k = op(dose, valid, thr)
+            p = _hist_plain(dose, valid, thr)
+            torch.cuda.synchronize()
+            err = max(err, int((k - p).abs().max()))
+            del k, p
+        assert err == 0, f"dose_hist at the path's {n} x {n_bins}: " \
+            f"kernel != plain ({err})"
+        dose, valid, thr = calls[(n, n_bins)][0]
+        row = dict(n=n, n_bins=n_bins, launches=count, max_abs_err=err,
+                   ms=cuda_ms(lambda: op(dose, valid, thr)))
+        row["bound_ms"], _ = hist_bound(n, n_bins)
+        lost += count * (row["ms"] - row["bound_ms"])
+        worst = max(worst, err)
+        rows.append(row)
+    out = dict(ms_lost=lost, launches_timed_shapes=sum(shapes.values()),
+               launches_untimed_shapes=0)
+    emit("hist_path", shapes=rows, **out)
+    return dict(out, path_max_abs_err=worst)
 
 
 def lane_case(gen, R, Xs, Xd, dev, special=False):
@@ -787,6 +889,13 @@ def lane_case(gen, R, Xs, Xd, dev, special=False):
         pick = torch.randperm(flat.numel(), generator=gen, device=dev)[:k]
         flat[pick] = values[torch.arange(k, device=dev) % values.numel()]
     return data, pos.contiguous()
+
+
+def lane_bound(R, Xs, Xd):
+    """bound() of lane_interp at R rows of Xs source and Xd destination
+    floats: data and pos read once, out written once; 6 operations an
+    output."""
+    return bound(4 * (R * Xs + 2 * R * Xd), 6 * R * Xd)
 
 
 def library_lane_ms(data, pos):
@@ -827,10 +936,24 @@ def phase_lane_interp(gen, dev, passes):
              for special in (False, True)]
     cases += [("odd_R", 37, 64, 64, True), ("wider", 37, 64, 70, True),
               ("narrower", 9, 40, 23, True), ("Xs1", 2, 1, 8, True),
-              ("Xs2", 5, 2, 7, True), ("R1_Xs2", 1, 2, 5, True)]
+              ("Xs2", 5, 2, 7, True), ("R1_Xs2", 1, 2, 5, True),
+              # rows of 571 and 538 floats: a scalar head and tail around
+              # each row's 16-byte body, with the data rows staged in
+              # shared memory (Xs 256-1536) or read through L1; pos 4
+              # bytes off out's alignment (every output one float at a
+              # time); data rows 4 bytes off (a staged copy's own head)
+              ("head_tail_571", 33, 512, 571, True),
+              ("head_tail_538", 35, 130, 538, True),
+              ("wide_rows", 5, 2000, 1999, True),
+              ("misaligned_pos", 33, 512, 571, True),
+              ("misaligned_data", 37, 300, 70, True)]
     rows = {}
     for name, R, Xs, Xd, special in cases:
         data, pos = lane_case(gen, R, Xs, Xd, dev, special)
+        if name == "misaligned_pos":
+            pos = misaligned(pos)
+        elif name == "misaligned_data":
+            data = misaligned(data)
         k = op(data, pos)
         p = lane_interp_plain(data, pos)
         torch.cuda.synchronize()
@@ -843,8 +966,7 @@ def phase_lane_interp(gen, dev, passes):
             row["ms"] = cuda_ms(lambda: op(data, pos))
             row["plain_ms"] = cuda_ms(lambda: lane_interp_plain(data, pos),
                                       reps=3, warmup=1)
-            row["bound_ms"], row["bound_by"] = bound(
-                4 * (R * Xs + 2 * R * Xd), 6 * R * Xd)
+            row["bound_ms"], row["bound_by"] = lane_bound(R, Xs, Xd)
             row["bound_share"] = row["bound_ms"] / row["ms"]
             row["library_ms"] = library_lane_ms(data, pos)
         rows[key] = row
@@ -1843,6 +1965,7 @@ def main():
             for key in counts:
                 counts[key] = 0
         warp.LAUNCH_SHAPES.clear()
+        hist.LAUNCH_SHAPES.clear()
 
     with tempfile.TemporaryDirectory(prefix="mia_smoke_") as folder:
         truth, ref = write_pair(cpu_gen, folder)
@@ -1861,9 +1984,18 @@ def main():
         deformable_launches = launch_counts()  # ... and ends here
         shapes["deformable"] = launch_shapes()
         reset_counts()                     # the dose-QA path starts here
-        img_name, dose_name = phase_dose_qa(folder, names, dev)
+        with recording_hist_calls({}) as hist_calls:
+            img_name, dose_name = phase_dose_qa(folder, names, dev)
         dose_qa_launches = launch_counts()  # ... and ends here
         shapes["dose_qa"] = launch_shapes()
+        hist_shapes = dict(hist.LAUNCH_SHAPES)
+        # the histogram at each shape the path launched, on its tensors
+        path = hist_path_lost(hist_calls, hist_shapes)
+        kernels["dose_hist"]["max_abs_err"] = max(
+            kernels["dose_hist"]["max_abs_err"], path.pop("path_max_abs_err"))
+        kernels["dose_hist"].update(path)
+        del hist_calls
+        torch.cuda.empty_cache()
         reset_counts()                     # the view path starts here
         view = phase_view(names, rigid, dev)
         view_launches = launch_counts()    # ... and ends here
@@ -1909,7 +2041,6 @@ def main():
     for name in WARP_MODES.values():
         kernels[name].update(ms_lost(name, kernels[name].pop("timed"),
                                      all_shapes))
-    kernels["dose_hist"].update(ms_lost=None)   # no launch shapes recorded
     # lane_interp: each pass shape the view path ran, timed once
     kernels["lane_interp"]["ms_lost"] = kernels["lane_interp"].pop("lost")
 

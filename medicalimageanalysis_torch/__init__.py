@@ -33,13 +33,29 @@ __version__ = "0.1.0"
 
 from .data import Data
 
-__all__ = ["Data", "Deformable", "Image", "Rigid", "read_dicoms",
+__all__ = ["Data", "Deformable", "Dose", "Image", "Rigid", "read_dicoms",
            "__version__"]
+
+# the JAX package's top-level readers that wait for a later slice; each
+# stands in as a callable that raises NotImplementedError naming its
+# ROADMAP.md queue 1 item
+_WAITING = {
+    "read_mhd": "item 2, the MHD reader",
+    "MhdReader": "item 2, the MHD reader",
+    "read_nifti": "item 2, the NIfTI reader",
+    "check_memory": "item 2, reader.check_memory",
+    **dict.fromkeys(("read_stl", "read_vtk", "read_ply", "read_obj",
+                     "read_3mf", "StlReader", "VtkReader", "PlyReader",
+                     "ObjReader", "ThreeMfReader"),
+                    "item 9, the mesh readers"),
+}
 
 
 def __getattr__(name):
     # lazy exports keep `import medicalimageanalysis_torch` free of torch
     # until a compute path is touched
+    import importlib
+
     if name in ("read_dicoms", "file_parser"):
         from . import reader
         return getattr(reader, name)
@@ -49,10 +65,25 @@ def __getattr__(name):
     if name == "Image":
         from .structure.image import Image
         return Image
+    if name == "Dose":
+        from .structure.dose import Dose
+        return Dose
     if name == "Rigid":
         from .structure.rigid import Rigid
         return Rigid
     if name == "Deformable":
         from .structure.deformable import Deformable
         return Deformable
+    if name in _WAITING:
+        from ._waiting import waiting
+        return waiting(name, _WAITING[name])
+    if name in ("utils", "ops", "parallel", "structure", "read", "dicom",
+                "models", "native", "config", "reader", "telemetry"):
+        # not `from . import utils`: that re-enters this __getattr__
+        return importlib.import_module(f".{name}", __name__)
+    if not name.startswith("_"):
+        # the JAX package re-exports its utils at top level
+        utils = importlib.import_module(".utils", __name__)
+        if name in utils.__all__:
+            return getattr(utils, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -2,7 +2,10 @@
 
 Carried over from medicalimageanalysis_tpu/data.py. The port keeps its own
 registry, so one process can load the same folder into both packages and
-compare them. RTPLAN summaries (``plan``) wait for their slice.
+compare them. The RTPLAN registries ``plan`` and ``plan_list`` stay empty
+until RTPLAN is ported (ROADMAP.md queue 1, item 8): the port's reader
+refuses an RTPLAN file today, as the JAX package's holds them before any
+RTPLAN is read.
 """
 
 from __future__ import annotations
@@ -19,19 +22,22 @@ class Data(object):
     rigid : dict            rigid name -> Rigid
     deformable : dict       deformable name -> Deformable
     dose : dict             dose name -> Dose
-    image_list, rigid_list, deformable_list, dose_list, roi_list,
-    poi_list : list
+    plan : dict             plan name -> RTPLAN summary (empty: item 8)
+    image_list, rigid_list, deformable_list, dose_list, plan_list,
+    roi_list, poi_list : list
     """
 
     image = {}
     rigid = {}
     deformable = {}
     dose = {}
+    plan = {}
 
     image_list = []
     rigid_list = []
     deformable_list = []
     dose_list = []
+    plan_list = []
     roi_list = []
     poi_list = []
 
@@ -42,11 +48,13 @@ class Data(object):
         cls.rigid = {}
         cls.deformable = {}
         cls.dose = {}
+        cls.plan = {}
 
         cls.image_list = []
         cls.rigid_list = []
         cls.deformable_list = []
         cls.dose_list = []
+        cls.plan_list = []
         cls.roi_list = []
         cls.poi_list = []
 

@@ -577,6 +577,7 @@ def decode_jpeg2000(ds):
     except Exception:
         _native_j2k = None
     from .jpeg2k import decode_j2k, parse_siz
+    ts = _transfer_syntax(ds)
     out = []
     for frag in streams:
         arr = _native_j2k(frag) if _native_j2k is not None else None
@@ -587,7 +588,12 @@ def decode_jpeg2000(ds):
             # signed-HTJ2K route; exactness argument on the helper)
             arr = _decode_j2k_cv2_signed(frag, parse_siz)
         if arr is None:
-            arr = decode_j2k(frag)
+            try:
+                arr = decode_j2k(frag)
+            except ValueError:
+                if ts in _HTJ2K:
+                    _cv2_for(ts)   # HT block coding decodes only by cv2
+                raise
         out.append(arr)
     dtype = _native_dtype(ds).newbyteorder("=")
     arr = np.stack(out).astype(dtype)
@@ -596,8 +602,25 @@ def decode_jpeg2000(ds):
     return arr
 
 
+class CodecUnavailableError(ImportError):
+    """A transfer syntax whose only decoder here is cv2 (OpenCV), on a
+    machine without cv2. An ImportError, so 8-bit JPEG Baseline catches
+    it and takes the native DCT decoder instead."""
+
+
+def _cv2_for(ts):
+    """cv2, or CodecUnavailableError naming the transfer syntax ``ts``."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise CodecUnavailableError(
+            f"transfer syntax {ts}: decoding needs cv2 (OpenCV), which is "
+            "not installed") from e
+    return cv2
+
+
 def decode_jpeg_cv2(ds):
-    import cv2
+    cv2 = _cv2_for(_transfer_syntax(ds))
 
     frames, rows, cols, samples = _target_shape(ds)
     frags = ds.PixelData
@@ -621,6 +644,14 @@ def decode_jpeg_cv2(ds):
     return arr
 
 
+_HTJ2K = (uids.HTJ2KLossless, uids.HTJ2KLosslessRPCL, uids.HTJ2K)
+
+
+def _transfer_syntax(ds):
+    return ds.file_meta.get("TransferSyntaxUID") \
+        if ds.file_meta is not None else None
+
+
 def decode_pixel_data(ds):
     if "PixelData" not in ds:
         if "FloatPixelData" in ds:
@@ -629,9 +660,7 @@ def decode_pixel_data(ds):
                                 count=frames * rows * cols * samples)
             return _reshape(arr, ds)
         raise AttributeError("Dataset has no PixelData")
-    ts = None
-    if ds.file_meta is not None:
-        ts = ds.file_meta.get("TransferSyntaxUID")
+    ts = _transfer_syntax(ds)
     if ts is None or ts in uids.UNCOMPRESSED_SYNTAXES:
         return decode_native(ds, little=(ts != uids.ExplicitVRBigEndian))
     if ts == uids.RLELossless:
@@ -644,14 +673,15 @@ def decode_pixel_data(ds):
         # >8-bit samples: cv2's JPEG codec is 8-bit only — the native
         # sequential-DCT decoder is the primary (12-bit Extended,
         # legacy CR/mammo); 8-bit keeps cv2 (battle-tested, handles
-        # subsampled color) with the native decoder as fallback
+        # subsampled color) with the native decoder as fallback, also
+        # where cv2 is not installed (ImportError)
         deep = int(ds.get("BitsAllocated", 8) or 8) > 8 \
             or int(ds.get("BitsStored", 8) or 8) > 8
         if deep:
             return _maybe_ybr_to_rgb(decode_jpeg_dct_native(ds), ds)
         try:
             return decode_jpeg_cv2(ds)
-        except ValueError:
+        except (ValueError, ImportError):
             return _maybe_ybr_to_rgb(decode_jpeg_dct_native(ds), ds)
     if ts in (uids.JPEG2000Lossless, uids.JPEG2000, uids.HTJ2KLossless,
               uids.HTJ2KLosslessRPCL, uids.HTJ2K):

@@ -94,7 +94,7 @@ def load_hist_library():
     lib = ctypes.CDLL(str(path))
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.mia_dose_hist.restype = i
-    lib.mia_dose_hist.argtypes = [p, p, i64, p, i, p, p]
+    lib.mia_dose_hist.argtypes = [p, p, i64, p, p, i, p, p, p]
     return lib
 
 

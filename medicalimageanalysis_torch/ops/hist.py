@@ -15,18 +15,27 @@ The counts are exact int64. The TPU kernel accumulates in float32, exact
 only up to 2^24 voxels per bin; above that the port's counts are the
 right ones (ROADMAP.md queue 3). Its padding of the voxels to a multiple
 of 2048 has no counterpart: the kernel walks a ragged last tile.
+
+The kernel searches sorted thresholds: :func:`sort_thresholds` sorts them
+on their device with their permutation (NaN last) before each launch,
+and the kernel's finish step scatters the counts back through it.
 """
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 from torch import Tensor
 
-__all__ = ["LAUNCHES", "dose_below_histogram"]
+__all__ = ["LAUNCHES", "LAUNCH_SHAPES", "dose_below_histogram",
+           "sort_thresholds"]
 
 # Kernel launches; a run reads it to show that its path went through the
-# kernel. Only the CUDA implementation adds to it.
+# kernel. Only the CUDA implementation adds to it, once per call.
 LAUNCHES = {"dose_hist": 0}
+# The CUDA implementation's calls by (voxels N, thresholds n_bins).
+LAUNCH_SHAPES = Counter()
 
 # bound on thresholds x voxels per chunk of the plain twin's compare
 _PLAIN_CHUNK = 1 << 24
@@ -45,6 +54,13 @@ def _hist_plain(dose, valid, thresholds):
             & (valid[None, s:s + step] > 0)
         counts += below.sum(1)
     return counts
+
+
+def sort_thresholds(thresholds):
+    """(sorted thresholds, permutation) on the thresholds' device, with
+    sorted == thresholds[perm]: ascending, NaN last, ties in any order
+    (equal thresholds have equal counts; -0.0 == 0.0). No host sync."""
+    return torch.sort(thresholds)
 
 
 @torch.library.custom_op("mia_torch::dose_hist", mutates_args=(),
@@ -69,19 +85,25 @@ def _dose_hist_cuda(dose, valid, thresholds):
     if valid.numel() != dose.numel():
         raise ValueError("dose_hist kernel: dose and valid differ in size "
                          f"({dose.numel()} vs {valid.numel()})")
-    counts = torch.zeros(thresholds.numel(), dtype=torch.int64, device=dev)
-    if dose.numel() == 0 or thresholds.numel() == 0:
-        return counts
+    n, n_bins = dose.numel(), thresholds.numel()
+    if n == 0 or n_bins == 0:
+        return torch.zeros(n_bins, dtype=torch.int64, device=dev)
+    if n_bins >= 2 ** 30:
+        raise ValueError(f"dose_hist kernel: {n_bins} thresholds, beyond "
+                         "the kernel's int32 search over 2^30")
     lib = load_hist_library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = lib.mia_dose_hist(dose.data_ptr(), valid.data_ptr(),
-                                dose.numel(), thresholds.data_ptr(),
-                                thresholds.numel(), counts.data_ptr(),
-                                stream)
+        srt, perm = sort_thresholds(thresholds)
+        interval = torch.zeros(n_bins, dtype=torch.int64, device=dev)
+        counts = torch.empty(n_bins, dtype=torch.int64, device=dev)
+        err = lib.mia_dose_hist(dose.data_ptr(), valid.data_ptr(), n,
+                                srt.data_ptr(), perm.data_ptr(), n_bins,
+                                interval.data_ptr(), counts.data_ptr(),
+                                torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"dose_hist launch failed: CUDA error {err}")
     LAUNCHES["dose_hist"] += 1
+    LAUNCH_SHAPES[(n, n_bins)] += 1
     return counts
 
 

@@ -56,6 +56,15 @@ def lane_interp_plain(data, pos):
                                                device=out.device))
 
 
+def check_index_range(R, Xs, Xd):
+    """Raise unless R * max(Xs, Xd) < 2^31: the kernel's offsets inside
+    data, pos and out are int32."""
+    if R * max(Xs, Xd) >= 2 ** 31:
+        raise ValueError(f"lane_interp kernel: {R} rows of {max(Xs, Xd)} "
+                         "floats reach 2^31 elements, beyond the kernel's "
+                         "int32 offsets")
+
+
 @torch.library.custom_op("mia_torch::lane_interp", mutates_args=(),
                          device_types="cpu")
 def _lane_interp_op(data: Tensor, pos: Tensor) -> Tensor:
@@ -79,6 +88,7 @@ def _lane_interp_cuda(data, pos):
         raise ValueError("lane_interp kernel: data (R, Xs >= 1) and pos "
                          f"(R, Xd), got {tuple(data.shape)}, "
                          f"{tuple(pos.shape)}")
+    check_index_range(R, Xs, pos.shape[1])
     out = torch.empty(pos.shape, dtype=torch.float32, device=dev)
     lib = load_lane_interp_library()
     stream = torch.cuda.current_stream(dev).cuda_stream

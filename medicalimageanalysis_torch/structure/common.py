@@ -14,6 +14,7 @@ import copy
 import numpy as np
 from scipy.spatial.transform import Rotation
 
+from .._waiting import waiting
 from ..ops import geometry as geo
 
 __all__ = ["GeometryQueriesMixin", "MetadataMixin", "ViewOpsMixin", "waits"]
@@ -23,12 +24,7 @@ def waits(owner, name, item):
     """A method of the JAX package's ``owner`` class that a later slice
     ports: calling it raises NotImplementedError naming its ROADMAP.md
     item."""
-    def method(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"{owner}.{name} is not ported yet (ROADMAP.md queue 1, {item})")
-
-    method.__name__ = name
-    return method
+    return waiting(f"{owner}.{name}", item)
 
 
 class MetadataMixin:

@@ -400,3 +400,17 @@ class Deformable(object):
     load_deformable = classmethod(_waits("load_deformable",
                                          "item 7, the rest of deformable"))
     export_image = _waits("export_image", "item 10, remaining compute")
+    # the Display view state's queries
+    compute_aspect = _waits("compute_aspect",
+                            "item 7, the Deformable Display")
+    retrieve_array_plane = _waits("retrieve_array_plane",
+                                  "item 7, the Deformable Display")
+    retrieve_grid = _waits("retrieve_grid", "item 7, the Deformable Display")
+    retrieve_offset = _waits("retrieve_offset",
+                             "item 7, the Deformable Display")
+    retrieve_scroll_max = _waits("retrieve_scroll_max",
+                                 "item 7, the Deformable Display")
+    retrieve_slice_location = _waits("retrieve_slice_location",
+                                     "item 7, the Deformable Display")
+    retrieve_slice_position = _waits("retrieve_slice_position",
+                                     "item 7, the Deformable Display")

@@ -186,3 +186,4 @@ class Dose(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
     create_rtdose = _waits("create_rtdose", "item 8, the RTDOSE writer")
     save_image = _waits("save_image", "item 8, dose save/load")
     load_image = classmethod(_waits("load_image", "item 8, dose save/load"))
+    compute_corner_sides = _waits("compute_corner_sides", "item 9, mesh")

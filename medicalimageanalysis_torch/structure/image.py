@@ -3,19 +3,22 @@
 Port of medicalimageanalysis_tpu/structure/image.py: ``Image`` with its
 ROI/POI containers, RTSTRUCT intake, the token-keyed bit-packed ROI mask
 cache and the pooled ``compute_roi_masks`` (always one device pass per
-slicing plane), ``compute_roi_statistics``, ``create_volume``, and the
-``Display`` matrices, slice location, ``compute_slice`` and the off-axis
-reslice (``compute_offaxis_array``, the warp kernel's ``affine`` mode on
-the card). The metadata, geometry and view mixins are in
+slicing plane), ``compute_roi_statistics``, ``create_volume``,
+``load_array`` (the pixels of a series read with ``only_tags=True``), and
+the ``Display`` matrices, slice location, ``compute_slice`` and the
+off-axis reslice (``compute_offaxis_array``, the warp kernel's ``affine``
+mode on the card). The metadata, geometry and view mixins are in
 structure/common.py. The array stays a numpy array, like the JAX
 package's. The exports, SUV, SEG, margins and the other image tools wait
-for their slices.
+for their slices: each raises NotImplementedError naming its ROADMAP.md
+item.
 """
 
 from __future__ import annotations
 
 import copy
 import itertools
+from functools import partial
 
 import numpy as np
 
@@ -23,7 +26,7 @@ from ..config import config
 from ..data import Data
 from ..dicom import generate_uid
 from ..ops import geometry as geo
-from .common import GeometryQueriesMixin, MetadataMixin, ViewOpsMixin
+from .common import GeometryQueriesMixin, MetadataMixin, ViewOpsMixin, waits
 from .poi import Poi
 from .roi import Roi
 
@@ -32,6 +35,8 @@ __all__ = ["Display", "Image"]
 # Process-global monotonic ids for the ROI mask cache — never reused,
 # unlike id(), which CPython recycles after a Roi is freed.
 _ROI_CACHE_TOKENS = itertools.count(1)
+
+_waits = partial(waits, "Image")
 
 
 class Display(object):
@@ -158,7 +163,8 @@ class Image(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
     ``image`` is a builder (read/volume3d.Read3D, or the namespace
     interop.image_from_arrays makes) carrying image_set, array,
     image_name, modality, filepaths, sops, plane, spacing, dimensions,
-    orientation, origin, image_matrix, unverified, skipped_slice, rgb.
+    orientation, origin, image_matrix, unverified, skipped_slice, rgb,
+    and optionally the ``device`` it was assembled on.
     """
 
     def __init__(self, image):
@@ -184,6 +190,7 @@ class Image(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
 
         self.filepaths = image.filepaths
         self.sops = image.sops
+        self.device = getattr(image, "device", None)
 
         self.plane = image.plane
         self.spacing = image.spacing
@@ -256,6 +263,40 @@ class Image(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
                 "direction": np.asarray(self.matrix, dtype=float)}
 
     create_sitk_image = create_volume
+
+    def load_array(self):
+        """The pixels of an image read with ``only_tags=True`` (JAX
+        structure/image.py:1053-1083): re-reads the recorded
+        ``filepaths``, orders the datasets by ``sops``, re-assembles the
+        volume on the image's device and fills ``self.array``. Raises
+        ValueError for missing files or unmatched SOPs."""
+        if self.array is not None:
+            return self.array
+        if not self.filepaths or any(f is None for f in self.filepaths):
+            raise ValueError("no filepaths recorded; cannot load array")
+        from ..dicom import dcmread
+        from ..read.volume3d import Read3D
+
+        try:
+            datasets = [dcmread(f) for f in self.filepaths]
+            by_sop = {ds.SOPInstanceUID: ds for ds in datasets}
+            ordered = [by_sop[sop] for sop in self.sops if sop in by_sop]
+            if not ordered:
+                raise ValueError("no slices matched the recorded SOPs")
+            rebuilt = Read3D(ordered, only_tags=False, register=False,
+                             device=self.device)
+        except ValueError:
+            raise
+        except Exception as e:
+            # files changed or corrupted since the only_tags pass: a typed
+            # error instead of whatever the rebuild hit
+            raise ValueError(
+                f"deferred pixel load failed for {self.image_name!r}: "
+                f"{type(e).__name__}: {e}") from e
+        self.array = rebuilt.array
+        self.window = self.get_window()
+        self.display = Display(self)
+        return self.array
 
     # -- ROI statistics --------------------------------------------------
     def compute_roi_statistics(self, roi_name, values=None):
@@ -382,3 +423,34 @@ class Image(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
         finally:
             self._pooled_raster_active = False
         return {n: out[n] for n in names}
+
+    # -- the JAX package's API that later slices port ----------------------
+    resample_to = _waits("resample_to", "item 6, structure layer")
+    compute_suv = _waits("compute_suv", "item 6, structure layer")
+    create_external = _waits("create_external", "item 6, structure layer")
+    create_roi_from_margin = _waits("create_roi_from_margin",
+                                    "item 6, structure layer")
+    create_roi_from_boolean = _waits("create_roi_from_boolean",
+                                     "item 6, structure layer")
+    compute_projection = _waits("compute_projection",
+                                "item 6, structure layer")
+    create_rotated_volume = _waits("create_rotated_volume",
+                                   "item 6, structure layer")
+    create_rotated_sitk_image = create_rotated_volume
+    input_seg = _waits("input_seg", "item 6, SEG")
+    create_seg = _waits("create_seg", "item 6, SEG")
+    create_rtstruct = _waits("create_rtstruct", "item 6, exports")
+    export_dicom = _waits("export_dicom", "item 6, exports")
+    create_nifti = _waits("create_nifti", "item 6, exports")
+    input_mhd = _waits("input_mhd", "item 6, exports")
+    save_image = _waits("save_image", "item 6, save/load")
+    save_rois = _waits("save_rois", "item 6, save/load")
+    save_pois = _waits("save_pois", "item 6, save/load")
+    load_rois = _waits("load_rois", "item 6, save/load")
+    load_pois = _waits("load_pois", "item 6, save/load")
+    load_image = classmethod(_waits("load_image", "item 6, save/load"))
+    compute_corner_sides = _waits("compute_corner_sides", "item 9, mesh")
+    correct_bias = _waits("correct_bias", "item 10, remaining compute")
+    compute_radiomics = _waits("compute_radiomics",
+                               "item 10, remaining compute")
+    compute_mtv_tlg = _waits("compute_mtv_tlg", "item 10, remaining compute")

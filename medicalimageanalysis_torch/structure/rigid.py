@@ -9,13 +9,15 @@ matrix semantics are identical: ``matrix @ combo_matrix`` maps reference
 -> moving physical space and ``inverse`` flips the roles. The reslice
 behind the view runs on the device (``reslice_transform``: the warp
 kernel's ``affine`` mode, or with ``config.use_shear_warp`` the
-lane_interp kernel's three passes). ICP, ROI mesh transforms and the
-exports wait for later slices.
+lane_interp kernel's three passes). ICP, ROI mesh transforms, the other
+registrations and the exports wait for later slices: each raises
+NotImplementedError naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 import copy
+from functools import partial
 
 import numpy as np
 from scipy.spatial.transform import Rotation
@@ -25,8 +27,11 @@ from ..data import Data
 from ..dicom import generate_uid
 from ..ops import geometry as geo
 from ..ops.resample import reslice_transform
+from .common import waits
 
 __all__ = ["Display", "Rigid"]
+
+_waits = partial(waits, "Rigid")
 
 
 class Display(object):
@@ -204,6 +209,18 @@ class Rigid(object):
         Data.rigid[rigid_name] = self
         Data.rigid_list += [rigid_name]
         return rigid_name
+
+    def compute_aspect(self, slice_plane):
+        """The display spacing ratio of a plane (JAX
+        structure/rigid.py:243-251), on the resliced overlay's spacing."""
+        if slice_plane == "Axial":
+            return np.round(self.display.spacing[0]
+                            / self.display.spacing[1], 2)
+        if slice_plane == "Coronal":
+            return np.round(self.display.spacing[0]
+                            / self.display.spacing[2], 2)
+        return np.round(self.display.spacing[1]
+                        / self.display.spacing[2], 2)
 
     def compute_intensity(self, levels=None, **kwargs):
         """Intensity-based registration on the device (the card when
@@ -388,3 +405,18 @@ class Rigid(object):
                 raise NotImplementedError(
                     "Rigid.update_rois: transforming ROI meshes is not "
                     "ported yet (ROADMAP.md queue 1, item 9, mesh)")
+
+    # -- the JAX package's API that later slices port ----------------------
+    auto_register = _waits("auto_register", "item 7, the rest of rigid")
+    compute_phase_correlation = _waits("compute_phase_correlation",
+                                       "item 7, the rest of rigid")
+    compute_landmarks = _waits("compute_landmarks",
+                               "item 7, the rest of rigid")
+    create_reg = _waits("create_reg", "item 7, the REG builder")
+    compute_icp_vtk = _waits("compute_icp_vtk", "item 9, mesh")
+    compute_o3d = _waits("compute_o3d", "item 9, mesh")
+    copy_roi = _waits("copy_roi", "item 6, structure layer")
+    update_pois = _waits("update_pois", "item 6, structure layer")
+    export_image = _waits("export_image", "item 6, exports")
+    save_rigid = _waits("save_rigid", "item 6, save/load")
+    load_rigid = classmethod(_waits("load_rigid", "item 6, save/load"))

@@ -1,2 +1,47 @@
 """Utilities: the synthetic DICOM series writer, contour conversion,
-metrics and the deformable backend."""
+metrics and the deformable backend.
+
+The exports match the JAX package's utils/__init__.py, lazily. The names
+it exports that the port has not ported yet stand in as callables that
+raise NotImplementedError naming their ROADMAP.md queue 1 item.
+"""
+
+_LAZY = {
+    "ContourToDiscreteMesh": ("convert.contour", "ContourToDiscreteMesh"),
+    "ContourToMask": ("convert.contour", "ContourToMask"),
+    "MaskToContour": ("convert.contour", "MaskToContour"),
+    "DeformableITK": ("deformable.torch_backend", "DeformableITK"),
+    "DeformableJAX": ("deformable.torch_backend", "DeformableJAX"),
+    "CreateDicomImage": ("creation", "CreateDicomImage"),
+}
+
+_WAITING = {
+    "CreateImageFromMask": "item 2, utils/creation",
+    **dict.fromkeys(("external", "euler_transform", "contours_from_mask"),
+                    "item 6, structure layer"),
+    **dict.fromkeys(("accumulate_dose", "register_dose_grid",
+                     "evaluate_constraints"), "item 8, utils/dose"),
+    **dict.fromkeys(("bed", "eqd2", "geud", "ntcp_lkb", "ntcp_logistic",
+                     "tcp_logistic"), "item 8, utils/radiobiology"),
+    **dict.fromkeys(("dice_coefficient", "jaccard_index",
+                     "hausdorff_distance", "mean_surface_distance",
+                     "surface_dice", "compare_rois"), "item 8, utils/metrics"),
+    **dict.fromkeys(("ModelToMask", "Volume", "TriMesh", "Refinement",
+                     "clean_mesh", "expansion", "surface_boundary",
+                     "only_main_component", "ICP"), "item 9, mesh"),
+    **dict.fromkeys(("find_phase_groups", "combine_phases", "compute_itv"),
+                    "item 10, utils/fourd"),
+}
+
+__all__ = list(_LAZY) + list(_WAITING)
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+        module, attr = _LAZY[name]
+        return getattr(importlib.import_module(f"{__name__}.{module}"), attr)
+    if name in _WAITING:
+        from .._waiting import waiting
+        return waiting(name, _WAITING[name])
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

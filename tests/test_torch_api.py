@@ -1,0 +1,161 @@
+"""The port's public API against the JAX package's: every public name of
+the JAX package's classes and top level exists in the port, and each name
+the port has not ported yet raises NotImplementedError naming its
+ROADMAP.md queue 1 item; ``Rigid.compute_aspect``; and the ``only_tags``
+read finished by ``Image.load_array``, bit-equal to a normal read and to
+the JAX package's ``load_array``."""
+
+import importlib
+import inspect
+import os
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+import medicalimageanalysis_torch as tmia
+import medicalimageanalysis_tpu as jmia
+from helpers import write_ct_series
+from medicalimageanalysis_torch.data import Data as TData
+from medicalimageanalysis_torch.device import set_default_device
+from medicalimageanalysis_torch.structure.rigid import Rigid as TRigid
+from medicalimageanalysis_tpu.data import Data as JData
+from medicalimageanalysis_tpu.structure.rigid import Rigid as JRigid
+
+
+@pytest.fixture(autouse=True)
+def torch_env():
+    TData.clear()
+    JData.clear()
+    torch.set_num_threads(1)
+    set_default_device("cpu")
+    yield
+    TData.clear()
+    JData.clear()
+    set_default_device(None)
+
+
+CLASSES = [("structure.image", "Image"), ("structure.rigid", "Rigid"),
+           ("structure.deformable", "Deformable"), ("structure.dose", "Dose"),
+           ("structure.roi", "Roi"), ("structure.poi", "Poi"),
+           ("data", "Data")]
+# the names the JAX package's top level serves (its __getattr__), besides
+# its utils re-exports
+TOP_LEVEL = ("read_dicoms", "read_3mf", "read_mhd", "read_stl", "read_vtk",
+             "read_ply", "read_obj", "file_parser", "check_memory",
+             "read_nifti", "DicomReader", "MhdReader", "ThreeMfReader",
+             "StlReader", "VtkReader", "PlyReader", "ObjReader", "Image",
+             "Dose", "Rigid", "Deformable", "utils", "Data")
+ITEM = r"ROADMAP\.md queue 1, item \d+"
+
+
+def public(obj):
+    return sorted(n for n in dir(obj) if not n.startswith("_"))
+
+
+def stub_item(raw):
+    """The ROADMAP item of a stand-in (a function, or a classmethod of
+    one), else None."""
+    fn = raw.__func__ if isinstance(raw, (classmethod, staticmethod)) \
+        else raw
+    return getattr(fn, "roadmap_item", None)
+
+
+@pytest.mark.parametrize("module,name",
+                         CLASSES + [("", "top_level")],
+                         ids=[c for _, c in CLASSES] + ["top_level"])
+def test_every_public_name_exists_and_stubs_name_their_item(module, name):
+    if name == "top_level":
+        jax_names = list(TOP_LEVEL) + list(
+            importlib.import_module("medicalimageanalysis_tpu.utils")
+            .__all__)
+        assert all(hasattr(jmia, n) for n in TOP_LEVEL)
+        port, stubs = tmia, {n: getattr(tmia, n) for n in jax_names}
+    else:
+        jcls = getattr(importlib.import_module(
+            f"medicalimageanalysis_tpu.{module}"), name)
+        port = getattr(importlib.import_module(
+            f"medicalimageanalysis_torch.{module}"), name)
+        jax_names = public(jcls)
+        stubs = {n: inspect.getattr_static(port, n) for n in public(port)}
+    missing = [n for n in jax_names if not hasattr(port, n)]
+    assert not missing, f"{name}: missing {missing}"
+    for n, raw in stubs.items():
+        item = stub_item(raw)
+        if item is None:
+            continue
+        fn = raw.__func__ if isinstance(raw, classmethod) else raw
+        with pytest.raises(NotImplementedError, match=ITEM):
+            fn(None)
+
+
+def test_data_plan_registries_start_empty_and_clear():
+    assert TData.plan == {} and TData.plan_list == []
+    assert JData.plan == {} and JData.plan_list == []
+    TData.plan["P"] = object()
+    TData.plan_list.append("P")
+    TData.clear()
+    assert TData.plan == {} and TData.plan_list == []
+
+
+@pytest.mark.parametrize("plane", ["Axial", "Coronal", "Sagittal"])
+@pytest.mark.parametrize("spacing", [(0.8, 0.8, 2.0),
+                                     (0.9765625, 0.5, 3.0)])
+def test_rigid_compute_aspect_matches_jax(plane, spacing):
+    rigid = TRigid("ref", "mov")
+    rigid.display.spacing = tuple(spacing)
+    ref = JRigid.compute_aspect(
+        SimpleNamespace(display=SimpleNamespace(spacing=spacing)), plane)
+    got = rigid.compute_aspect(plane)
+    assert got == ref and type(got) is type(ref)
+
+
+def write_series(folder):
+    r = np.random.default_rng(5)
+    ct = r.integers(-1000, 2000, size=(5, 24, 20)).astype(np.int16)
+    write_ct_series(folder, ct, spacing=(0.9, 0.8), thickness=2.5)
+    return folder
+
+
+def test_only_tags_then_load_array_equals_a_full_read(tmp_path):
+    folder = str(write_series(tmp_path / "ct"))
+    tmia.read_dicoms(folder_path=folder, device="cpu")
+    full = TData.image[TData.image_list[0]]
+    tmia.read_dicoms(folder_path=folder, only_tags=True, device="cpu")
+    lazy = TData.image[TData.image_list[0]]
+    assert lazy.array is None
+    arr = lazy.load_array()
+    assert arr is lazy.array and lazy.load_array() is arr
+    jmia.read_dicoms(folder_path=folder, only_tags=True)
+    jimg = JData.image[JData.image_list[0]]
+    assert jimg.array is None
+    jarr = np.asarray(jimg.load_array())
+    for ref in (full.array, jarr):
+        assert arr.dtype == ref.dtype and arr.shape == ref.shape
+        np.testing.assert_array_equal(arr, ref)
+    for key in ("origin", "spacing", "dimensions", "matrix"):
+        np.testing.assert_array_equal(getattr(lazy, key),
+                                      getattr(full, key))
+        np.testing.assert_array_equal(getattr(lazy, key),
+                                      getattr(jimg, key))
+    assert lazy.window == full.window
+    assert lazy.display.slice_location == full.display.slice_location
+
+
+def test_load_array_raises_value_error_like_jax(tmp_path):
+    folder = str(write_series(tmp_path / "ct"))
+    tmia.read_dicoms(folder_path=folder, only_tags=True, device="cpu")
+    img = TData.image[TData.image_list[0]]
+    sops = list(img.sops)
+    img.sops = ["1.2.3.no.such.sop"] * len(sops)
+    with pytest.raises(ValueError, match="no slices matched"):
+        img.load_array()
+    img.sops = sops
+    os.remove(img.filepaths[0])
+    with pytest.raises(ValueError, match="deferred pixel load failed"):
+        img.load_array()
+    img.filepaths = [None] * len(sops)
+    with pytest.raises(ValueError, match="no filepaths"):
+        img.load_array()
+    assert img.array is None

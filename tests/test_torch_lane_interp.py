@@ -136,3 +136,21 @@ def test_cpu_tensors_take_the_plain_twin():
     out = torch.ops.mia_torch.lane_interp(data, pos)
     assert torch.equal(out, tli.lane_interp_plain(data, pos))
     assert tli.LAUNCHES == before
+
+
+@pytest.mark.parametrize("shape,pos_cols", [((2 ** 20, 2 ** 11), 4),
+                                            ((2 ** 20, 3), 2 ** 11),
+                                            ((2 ** 31, 1), 1)])
+def test_kernel_wrapper_refuses_int32_offsets(shape, pos_cols):
+    """The kernel's offsets inside data, pos and out are int32: the CUDA
+    wrapper refuses R * max(Xs, Xd) >= 2^31 before it builds or launches
+    anything (meta tensors carry the shapes without memory); one element
+    fewer a row passes the check."""
+    data = torch.empty(shape, device="meta")
+    pos = torch.empty((shape[0], pos_cols), device="meta")
+    with pytest.raises(ValueError, match="2\\^31"):
+        tli._lane_interp_cuda(data, pos)
+    R, Xs = shape
+    if R < 2 ** 31:
+        tli.check_index_range(R, Xs - (Xs > pos_cols), pos_cols - (
+            pos_cols > Xs))
