@@ -24,8 +24,22 @@ dose-QA path
         -> Dose.compute_roi_dose_statistics / compute_dvh_curve per ROI
         -> parallel.batch.dvh_batch;  Deformable.update_dose / update_mask
 
-on the reference series with a six-ROI structure set and a uint32 dose
-grid, then the view path
+on the reference series with a seven-ROI structure set and a uint32 dose
+grid, the cohort rigid
+
+    models.rigid_intensity.register_rigid_intensity_batch (4 pairs, each
+        volume normalised on the card);  parallel.batch.make_registration_step
+
+after the rigid path, and after the dose-QA path the plan-QA path
+
+    utils.dose.accumulate_dose / Dose.evaluate_constraints / compute_eqd2 /
+        compute_bed / compute_geud / compute_ntcp / compute_tcp
+        -> Dose.compute_gamma, parallel.batch.gamma_batch
+        -> utils.metrics.compare_rois (device against host),
+           parallel.batch.compare_masks_batch, utils.roi.margin.expand_mask
+
+on the same folder (its gamma scan and exact EDT are plain PyTorch on the
+card, profiled against their bounds), then the view path
 
     Image.update_rotation (off-axis display) -> retrieve_array_plane /
         retrieve_vtk_volume / reset_array;
@@ -102,16 +116,56 @@ VIEW_NUDGE_DEG = 2.0
 SHEAR_INTERIOR_HU = 2.0
 SHEAR_MASK_AGREE = 0.93
 PLANES = ("Axial", "Coronal", "Sagittal")
+# the cohort rigid (phase_cohort_rigid): three known poses of the
+# reference, (rx, ry, rz) degrees and (tx, ty, tz) mm about its centre.
+# tz is a whole number of slices: a sub-slice z shift of this phantom
+# (noise independent between slices) biases the MSE toward whole slices
+# (a CPU rehearsal at (32, 128, 128): 1/8 slice fitted as 0)
+COHORT_POSES = ((0.0, 0.0, 2.0, 3.0, -2.0, 2.0),
+                (2.5, 0.0, 0.0, 0.0, 3.5, -2.0),
+                (0.0, 3.5, 0.0, -2.0, 0.0, 4.0))
+# plan QA (phase_plan_qa): the DVH goals; NTCP (LKB: TD50 Gy, m, n) of
+# the organs and TCP (logistic: TCD50 Gy, gamma50, a) of the target
+# (Emami / Burman-style literature values); the evaluated doses of the
+# gamma checks (an exact 1 mm origin shift, a 5 % scale); the voxels the
+# float64 brute force holds; the PTV margin
+COHORT_PROFILE_STEPS = 15      # steps a pair in the cohort level's profile
+# make_registration_step's rate (Adam moves each pose unit about this much
+# a step; at the default 0.05, and at 0.02, the loss of a CPU rehearsal at
+# (32, 128, 128) rose and fell within 10 steps)
+STEP_LR = 0.01
+PLAN_GOALS = {"PTV": ["D95% >= 55Gy", "Dmax <= 62Gy", "Dmean >= 58Gy"],
+              "Lung_L": ["V20Gy <= 35%", "Dmean <= 20Gy"],
+              "Lung_R": ["V20Gy <= 35%", "V5Gy <= 3000cc"],
+              "SpinalCord": ["Dmax <= 45Gy", "D0.1cc <= 45Gy"],
+              "Heart": ["D2cc <= 62Gy", "V30Gy <= 50%", "Dmedian <= 40Gy"]}
+NTCP_LKB = {"Lung_L": (24.5, 0.18, 0.87), "Lung_R": (24.5, 0.18, 0.87),
+            "SpinalCord": (66.5, 0.175, 0.05), "Heart": (48.0, 0.10, 0.35)}
+TCP_PTV = (50.0, 2.0, -10.0)
+GAMMA_CRITERIA = {"3%/3mm": dict(dose_pct=3.0, dta_mm=3.0),
+                  "2%/2mm": dict(dose_pct=2.0, dta_mm=2.0),
+                  "3%/3mm local": dict(dose_pct=3.0, dta_mm=3.0, local=True)}
+GAMMA_SHIFT_MM = 1.0
+GAMMA_SCALE = 1.05
+GAMMA_BRUTE_VOXELS = 2000
+MARGIN_MM = 5.0
 # the card's published peaks (H100 SXM at 700 W): the bound of a kernel
 # is the larger of its bytes over the memory rate and its operations
 # over the float32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 SLEEP_CYCLES = 20_000_000        # cuda_ms's hold: ~10 ms at 1.98 GHz
+LEAD_CYCLES = 2_000              # a profile window's short lead sleeps
+
+
+_T0 = time.perf_counter()
 
 
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line for ``phase``; ``t_s`` is the script's wall time at
+    its end, so the lines show where the command time goes."""
+    print(json.dumps({"phase": phase, **fields,
+                      "t_s": time.perf_counter() - _T0}), flush=True)
 
 
 def max_abs(a, b):
@@ -165,19 +219,24 @@ def profile_device(fn, expect=()):
     plain path, ran the kernels, and the device figures miss none of
     them. Where they differ, ``events`` lists every event of the port's
     kernels, every device event and the runtime calls: name, device
-    type, start (µs from the first event) and duration. The device
-    figures include the four small operations that open the window
-    (a few µs)."""
+    type, start (µs from the first event) and duration. The sleep
+    kernels that open the window (``spin_kernel``) are left out of every
+    figure: the device figures are ``fn``'s alone."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    t_start = time.perf_counter()
     before = launch_counts()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
-        # a trace loses its first device records (PERF.md, PR 3 runs
-        # 3-10): a few small operations of the script's own go first
-        lead = torch.zeros(1, device="cuda")
+        # a trace loses its first device records (PERF.md §7; after a
+        # profile of 58,000 events, every record of the first 12 ms):
+        # sleep kernels go first, three short ones, one of ~20 ms and 32
+        # short ones, and none of them counts in the figures
         for _ in range(3):
-            lead.add_(1.0)
+            torch.cuda._sleep(LEAD_CYCLES)
+        torch.cuda._sleep(2 * SLEEP_CYCLES)
+        for _ in range(32):
+            torch.cuda._sleep(LEAD_CYCLES)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -185,7 +244,8 @@ def profile_device(fn, expect=()):
         wall_ms = 1e3 * (time.perf_counter() - t0)
     counted = {k: v - before[k] for k, v in launch_counts().items()}
     events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and "spin_kernel" not in e.key]
     profiled = dict.fromkeys(counted, 0)
     names, kernel_ms = set(), dict.fromkeys(counted, 0.0)
     for e in events:
@@ -197,6 +257,7 @@ def profile_device(fn, expect=()):
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     out = dict(expect=list(expect), profiled_wall_ms=wall_ms,
+               profile_s=time.perf_counter() - t_start,
                device_events=sum(e.count for e in events),
                device_ms=device_ms, device_share=device_ms / wall_ms,
                profiled=profiled, wrapper_launches=counted,
@@ -269,6 +330,37 @@ def bound(nbytes, ops):
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     t_ops = 1e3 * ops / F32_OPS_PER_S
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def plain_program_rows(profiles, plan):
+    """The JAX package's XLA programs on the plan-QA path that run as
+    plain PyTorch on the card (no hand kernel yet): device ms and device
+    events under the profiler against the bound of their work. The full-size squared EDT:
+    a bool mask read, float32 distances written, an add and a min per
+    (voxel, line position) pair of each of the three passes.
+    compute_gamma at 3 %/3 mm: both doses read, the map written, 30
+    operations per fine-grid sample of the resample and 5 per (offset,
+    voxel) of the scan."""
+    Z, Y, X = plan["edt_shape"]
+    n = Z * Y * X
+    w = plan["gamma_work"]
+    work = {
+        "edt": ("medicalimageanalysis_tpu/ops/edt.py:93",
+                bound(5 * n, 2 * n * (X + Y + Z))),
+        "compute_gamma": ("medicalimageanalysis_tpu/ops/gamma.py:93",
+                          bound(4 * (2 * w["ref"] + w["eval"]),
+                                5 * w["offsets"] * w["ref"]
+                                + 30 * w["fine"]))}
+    rows = {}
+    for name, (replaces, (b, by)) in work.items():
+        p = profiles[name]
+        rows[name] = dict(replaces=replaces, device_ms=p["device_ms"],
+                          wall_ms=p["profiled_wall_ms"],
+                          launches=p["device_events"], bound_ms=b,
+                          bound_by=by, share_of_bound=b / p["device_ms"],
+                          device_share=p["device_share"])
+    rows["compute_gamma"]["search_offsets"] = w["offsets"]
+    return rows
 
 
 def sync(dev):
@@ -1619,6 +1711,337 @@ def phase_dose_qa(folder, names, dev):
     return img_name, dose_name
 
 
+def device_goal(metric, unit, d, voxel_cc):
+    """A DVH goal's value read on the card from the ROI doses ``d`` (a
+    float32 tensor), by other means than utils/dose's sorted float64
+    numpy: D<p>% and Dmedian from ops.edt.masked_percentile (an order
+    statistic by a radix search, interpolated in float32), D<v>cc from
+    torch.topk, V<g>Gy from a count. Returns (value, tolerance): the
+    percentile's float32 interpolation may move it by a few float32 ulps
+    of the dose, every other reading is exact or a float64 mean."""
+    from medicalimageanalysis_torch.ops.edt import masked_percentile
+
+    q = metric[1:].lower()
+    every = torch.ones_like(d, dtype=torch.bool)
+    if metric[0] == "D":
+        if q in ("max", "min"):
+            return float(getattr(d, q)()), 0.0
+        if q == "mean":
+            return float(d.to(torch.float64).mean()), 1e-9
+        if q == "median" or q.endswith("%"):
+            pct = 50.0 if q == "median" else 100.0 - float(q[:-1])
+            return float(masked_percentile(d, every, pct)), 1e-4
+        k = int(np.clip(round(float(q[:-2]) / voxel_cc), 1, d.numel()))
+        return float(torch.topk(d, k).values[-1]), 0.0
+    covered = int((d >= float(q[:-2])).sum())
+    return (100.0 * covered / d.numel() if unit == "%"
+            else covered * voxel_cc), 1e-9
+
+
+def mask_roi(img, name, mask):
+    """Hold ``mask`` as a mask-only ROI of ``img``, served from the
+    image's mask cache (Roi.convert_mask, which would trace contours from
+    it, waits for ROADMAP.md queue 1, item 6)."""
+    img.add_roi(roi_name=name)
+    img._roi_mask_cache_put(name, img.rois[name], mask)
+
+
+def gamma_brute_force(fine, ref, layout, dta_mm, dd, cap, picks):
+    """gamma at the flat voxels ``picks`` of ``ref`` (numpy) by a float64
+    numpy minimum over the same fine-grid offsets: the fine samples are
+    gathered on the card, everything after in float64."""
+    s, r, offsets, dist2 = layout
+    z, y, x = np.unravel_index(picks, ref.shape)
+    idx = [torch.as_tensor(c[:, None] * si + ri + offsets[None, :, a],
+                           device=fine.device)
+           for a, (c, si, ri) in enumerate(zip((z, y, x), s, r))]
+    ev = fine[idx[0], idx[1], idx[2]].cpu().numpy().astype(np.float64)
+    diff = ev - ref.reshape(-1)[picks].astype(np.float64)[:, None]
+    g2 = dist2[None, :] / dta_mm ** 2 + diff * diff / dd ** 2
+    return np.minimum(np.sqrt(g2.min(axis=1)), cap)
+
+
+def phase_plan_qa(names, img_name, dose_name, dev):
+    """The plan-QA path on the dose-QA folder's CT and RTDOSE, at full
+    size: accumulate_dose (rigid, then one entry through the fitted
+    Deformable), evaluate_constraints, EQD2 / BED / gEUD / NTCP / TCP,
+    compute_gamma against three evaluated doses at three criteria (held
+    against a float64 brute force), gamma_batch against compute_gamma,
+    compare_rois device against host and compare_masks_batch on the
+    structure set against its deformable warp, expand_mask device
+    against scipy. Returns the calls the profiler runs again."""
+    from types import SimpleNamespace
+
+    from scipy import ndimage
+
+    from medicalimageanalysis_torch.data import Data
+    from medicalimageanalysis_torch.ops.edt import squared_edt
+    from medicalimageanalysis_torch.ops.gamma import (
+        _OUTSIDE, fine_grid_layout, fine_grid_shape, fine_to_ref_pixel_matrix,
+        gamma_index, upsample_to_fine)
+    from medicalimageanalysis_torch.ops.resample import (affine_resample,
+                                                         compose_pixel_matrix)
+    from medicalimageanalysis_torch.parallel.batch import (
+        compare_masks_batch, gamma_batch)
+    from medicalimageanalysis_torch.utils.dose import (accumulate_dose,
+                                                       register_dose_grid)
+    from medicalimageanalysis_torch.utils.metrics import compare_rois
+    from medicalimageanalysis_torch.utils.roi.margin import expand_mask
+
+    img, dose = Data.image[img_name], Data.dose[dose_name]
+    step_ms = {}
+
+    def timed(key, fn):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        step_ms[key] = 1e3 * (time.perf_counter() - t0)
+        return out
+
+    # accumulation: two halves of the plan equal its resample to the bit;
+    # then half of it through the fitted deformable field
+    A = compose_pixel_matrix(dose.matrix, dose.spacing, dose.origin,
+                             img.matrix, img.spacing, img.origin)
+    alone = affine_resample(dose.array, A, SHAPE, background=0.0,
+                            device=dev).cpu().numpy()
+    acc = timed("accumulate_rigid", lambda: accumulate_dose(
+        img_name, [dose_name, dose_name], weights=[0.5, 0.5],
+        name="plan halves"))
+    assert np.array_equal(acc.array, alone), "accumulated halves != plan"
+    deform_name = f"DVF_{names['ref']}_{names['deformed']}"
+    warped_dose = Data.deformable[deform_name].update_dose(dose_name)["array"]
+    acc2 = timed("accumulate_deformable", lambda: accumulate_dose(
+        names["ref"], [(dose_name, deform_name), dose_name],
+        weights=[0.5, 0.5], name="adaptive sum"))
+    assert np.array_equal(acc2.array, np.float32(0.5) * warped_dose
+                          + np.float32(0.5) * alone)
+    del alone, warped_dose
+
+    # DVH goals: each value against a reading on the card from the ROI's
+    # doses
+    goals = timed("evaluate_constraints", lambda: dose.evaluate_constraints(
+        PLAN_GOALS, image_name=img_name))
+    voxel_cc = float(np.prod(img.spacing)) / 1000.0
+    in_roi = {n: dose.compute_roi_dose_array(img_name, n).astype(np.float64)
+              for n in PLAN_GOALS}
+    goal_err = 0.0
+    for g in goals:
+        on_card = torch.as_tensor(in_roi[g["roi"]], dtype=torch.float32,
+                                  device=dev)
+        want, tol = device_goal(g["metric"], g["unit"], on_card, voxel_cc)
+        err = abs(g["value"] - want)
+        assert err <= tol * max(1.0, abs(want)), (g, want, tol)
+        goal_err = max(goal_err, err)
+    ptv_d95 = [g["value"] for g in goals
+               if g["roi"] == "PTV" and g["metric"] == "D95%"][0]
+    assert ptv_d95 >= 55.0, ptv_d95
+
+    # radiobiology: the converted grids at every voxel against the float64
+    # formula (one float32 rounding), gEUD / NTCP / TCP per ROI
+    eqd2 = timed("eqd2", lambda: dose.compute_eqd2(30, 3.0, name="EQD2"))
+    bed = dose.compute_bed(30, 3.0, name="BED")
+    D = dose.array.astype(np.float64)
+    for got, want in ((eqd2.array, D * (D / 30 + 3.0) / 5.0),
+                      (bed.array, D * (1.0 + D / 30 / 3.0))):
+        assert np.all(np.abs(got - want) <= 2.0 ** -24 * np.abs(want))
+    plateau = dose.array == dose.array.max()
+    eqd2_at_60 = float(np.abs(eqd2.array[plateau] - 60.0).max())
+    assert eqd2_at_60 < 1e-3, eqd2_at_60
+    del D
+    biology = {}
+    for n, (td50, m, nn) in NTCP_LKB.items():
+        d = in_roi[n]
+        eud = float(np.mean(d ** (1.0 / nn)) ** nn)
+        t = (eud - td50) / (m * td50)
+        got = dose.compute_ntcp(img_name, n, td50, m=m, n=nn)
+        want = 0.5 * (1.0 + math.erf(t / math.sqrt(2.0)))
+        assert math.isclose(got["gEUD"], eud, rel_tol=1e-9), (n, got, eud)
+        assert math.isclose(got["ntcp"], want, rel_tol=1e-9,
+                            abs_tol=1e-12), (n, got, want)
+        biology[n] = dict(gEUD=got["gEUD"], ntcp=got["ntcp"])
+    tcd50, g50, a = TCP_PTV
+    eud = float(np.mean(in_roi["PTV"] ** a) ** (1.0 / a))
+    got = dose.compute_tcp(img_name, "PTV", tcd50, g50, a)
+    assert math.isclose(got["gEUD"], eud, rel_tol=1e-9)
+    assert math.isclose(got["tcp"], 1.0 / (1.0 + (tcd50 / eud) ** (4 * g50)),
+                        rel_tol=1e-9)
+    assert math.isclose(dose.compute_geud(img_name, "PTV", a), eud,
+                        rel_tol=1e-9)
+    biology["PTV"] = dict(gEUD=got["gEUD"], tcp=got["tcp"])
+    del in_roi
+
+    # gamma: three evaluated doses, each a registered Dose, at three
+    # criteria
+    shifted = SimpleNamespace(
+        plane=dose.plane, spacing=dose.spacing, matrix=dose.matrix,
+        orientation=dose.orientation, frame_ref=dose.frame_ref,
+        origin=np.asarray(dose.origin, float) + [GAMMA_SHIFT_MM, 0.0, 0.0])
+    evals = {"identical": register_dose_grid(dose.array, dose,
+                                             name="eval identical"),
+             "shift_1mm": register_dose_grid(dose.array, shifted,
+                                             name="eval shifted"),
+             "scaled_5pct": register_dose_grid(
+                 dose.array * np.float32(GAMMA_SCALE), dose,
+                 name="eval scaled")}
+    gamma = {}
+    for ev_name, ev in evals.items():
+        for crit, kw in GAMMA_CRITERIA.items():
+            out = timed(f"gamma {ev_name} {crit}",
+                        lambda: dose.compute_gamma(ev, **kw))
+            gamma[(ev_name, crit)] = out
+    rows = {f"{e} {c}": dict(pass_rate=o["pass_rate"], max=o["max"],
+                             mean=o["mean"], analysed=o["analysed_voxels"],
+                             offsets=o["search_offsets"])
+            for (e, c), o in gamma.items()}
+    for crit in GAMMA_CRITERIA:
+        assert gamma[("identical", crit)]["pass_rate"] == 100.0
+        assert gamma[("identical", crit)]["max"] < 1e-3, rows
+    assert gamma[("shift_1mm", "3%/3mm")]["pass_rate"] >= 99.0, rows
+    assert gamma[("scaled_5pct", "3%/3mm")]["pass_rate"] < 95.0, rows
+    # the scan against a float64 brute force at 2,000 seeded voxels
+    layout = fine_grid_layout(dose.spacing, 3.0, None, 2.0)
+    brute = {}
+    for ev_name in ("shift_1mm", "scaled_5pct"):
+        ev = evals[ev_name]
+        Af = compose_pixel_matrix(ev.matrix, ev.spacing, ev.origin,
+                                  dose.matrix, dose.spacing, dose.origin
+                                  ).astype(np.float64) \
+            @ fine_to_ref_pixel_matrix(layout[0], layout[1])
+        fine = affine_resample(
+            ev.array, Af.astype(np.float32),
+            fine_grid_shape(dose.array.shape, layout[0], layout[1]),
+            background=float(_OUTSIDE), device=dev)
+        out = gamma[(ev_name, "3%/3mm")]
+        picks = np.random.default_rng(SEED).choice(
+            np.flatnonzero(out["mask"]), GAMMA_BRUTE_VOXELS, replace=False)
+        want = gamma_brute_force(fine, dose.array, layout, 3.0,
+                                 0.03 * out["norm_dose"], 2.0, picks)
+        err = float(np.abs(out["gamma"].reshape(-1)[picks] - want).max())
+        assert err <= 1e-5, (ev_name, err)
+        brute[ev_name] = err
+        del fine
+    # gamma_batch on shared-grid pairs against compute_gamma pair by pair.
+    # The batch upsamples on the shared grid (three contractions), the
+    # per-pair path resamples with the affine warp, whose float32 1/s
+    # coefficients put a face plane's fine samples up to ~1e-6 voxel
+    # outside the grid (the outside sentinel there): the maps are held
+    # equal on the voxels beyond the search radius from every face, and
+    # everywhere to the per-pair scan on the batch's own fine grid
+    pairs = [dose.array, dose.array * np.float32(GAMMA_SCALE),
+             dose.array * np.float32(0.97), eqd2.array]
+    batch = timed("gamma_batch", lambda: gamma_batch(
+        np.stack([dose.array] * len(pairs)), np.stack(pairs), dose.spacing,
+        dose_pct=3.0, dta_mm=3.0, return_maps=True, device=dev))
+    s_f, r_f = layout[0], layout[1]
+    core = tuple(slice(int(np.ceil(ri / si)) + 1, -int(np.ceil(ri / si)) - 1)
+                 for ri, si in zip(r_f, s_f))
+    batch_vs = []
+    for b, arr in enumerate(pairs):
+        one = dose.compute_gamma(register_dose_grid(arr, dose,
+                                                    name=f"batch eval {b}"))
+        same_grid = gamma_index(dose.array, upsample_to_fine(
+            torch.as_tensor(arr, device=dev), s_f, r_f), dose.spacing)
+        g_b, g_1 = batch["gamma"][b], one["gamma"]
+        in_core = one["mask"][core]
+        near = int((np.abs(g_1[core] - 1.0) <= 1e-4)[in_core].sum())
+        flips = abs(int((g_b[core] <= 1.0)[in_core].sum())
+                    - int((g_1[core] <= 1.0)[in_core].sum()))
+        row = dict(core_map_max_diff=float(np.abs(g_b[core]
+                                                  - g_1[core]).max()),
+                   same_grid_map_max_diff=float(np.abs(
+                       g_b - same_grid["gamma"]).max()),
+                   pass_rate=one["pass_rate"],
+                   batch_pass_rate=float(batch["pass_rate"][b]),
+                   same_grid_pass_rate=same_grid["pass_rate"],
+                   core_pass_flips=flips, core_near_one=near)
+        assert batch["analysed_voxels"][b] == one["analysed_voxels"] \
+            == same_grid["analysed_voxels"], (b, row)
+        assert row["core_map_max_diff"] <= 1e-4 and flips <= near, (b, row)
+        # the batch's pass rate is float32, the per-pair one float64
+        assert row["same_grid_map_max_diff"] <= 1e-5 and math.isclose(
+            row["batch_pass_rate"], same_grid["pass_rate"],
+            rel_tol=1e-6), (b, row)
+        batch_vs.append(row)
+
+    # the structure set against its deformable warp: compare_rois device
+    # against host, then compare_masks_batch over all of it
+    deform = Data.deformable[deform_name]
+    roi_names = [n for n in img.rois if img.rois[n].contour_pixel is not None]
+    masks = img.compute_roi_masks(roi_names)
+    warped = timed("update_mask_all", lambda: {
+        n: deform.update_mask(masks[n]) for n in roi_names})
+    panels = {}
+    for n in roi_names:
+        mask_roi(img, f"{n} warped", warped[n])
+        host = timed(f"compare_rois host {n}", lambda: compare_rois(
+            img, n, f"{n} warped", backend="host"))
+        devp = timed(f"compare_rois device {n}", lambda: compare_rois(
+            img, n, f"{n} warped"))            # the default: the card
+        assert set(host) == set(devp)
+        for k in host:
+            if k in ("dice", "jaccard", "volume_a_cc", "volume_b_cc") \
+                    or k.startswith("surface_dice"):
+                assert math.isclose(devp[k], host[k], rel_tol=1e-6), (n, k)
+            else:
+                assert abs(devp[k] - host[k]) <= 1e-3, (n, k, devp, host)
+        panels[n] = dict(device=devp, host_minus_device_max=max(
+            abs(host[k] - devp[k]) for k in host))
+    stack_a = np.stack([masks[n] for n in roi_names])
+    stack_b = np.stack([warped[n] for n in roi_names])
+    batch_panel = timed("compare_masks_batch", lambda: compare_masks_batch(
+        stack_a, stack_b, img.spacing, device=dev))
+    for i, n in enumerate(roi_names):
+        assert math.isclose(float(batch_panel["hd95_mm"][i]),
+                            panels[n]["device"]["hd95_mm"], rel_tol=1e-6)
+    del stack_a, stack_b, warped
+
+    # margins: the device EDT on the whole grid against scipy on a crop
+    # around the PTV (its bounding box plus the margin's reach and two
+    # voxels: nothing outside it is within the margin); they may differ
+    # only where a voxel's distance to the PTV lies within 1e-4 mm of the
+    # margin
+    ptv = masks["PTV"] > 0
+    sx, sy, sz = (float(v) for v in img.spacing)
+    reach = [int(np.ceil(MARGIN_MM / v)) + 2 for v in (sz, sy, sx)]
+    lo = np.maximum(np.argwhere(ptv).min(0) - reach, 0)
+    hi = np.minimum(np.argwhere(ptv).max(0) + 1 + reach, SHAPE)
+    crop = tuple(slice(a, b) for a, b in zip(lo, hi))
+    grown = timed("expand_mask device", lambda: expand_mask(
+        ptv, img.spacing, MARGIN_MM))          # the default: the card
+    grown_host = np.zeros_like(grown)
+    grown_host[crop] = timed("expand_mask scipy crop", lambda: expand_mask(
+        ptv[crop], img.spacing, MARGIN_MM, backend="scipy"))
+    differ = np.argwhere(grown != grown_host)
+    if differ.size:
+        dist = ndimage.distance_transform_edt(~ptv[crop],
+                                              sampling=(sz, sy, sx))
+        d = dist[tuple((differ - lo).T)]
+        assert np.all(np.abs(d - MARGIN_MM) <= 1e-4), d
+    assert grown.sum() > ptv.sum()
+    body = torch.as_tensor(masks["Body"], device=dev) > 0
+    emit("plan_qa", shape=list(SHAPE), dose_grid=list(dose.array.shape),
+         accumulate_equal_to_resample=True, goals=[
+             dict(roi=g["roi"], goal=g["goal"], value=g["value"],
+                  passed=g["passed"]) for g in goals],
+         goals_max_abs_err_vs_card=goal_err,
+         ptv_d95=ptv_d95, eqd2_max_abs_at_60gy=eqd2_at_60,
+         radiobiology=biology, gamma=rows, gamma_brute_force_max_err=brute,
+         gamma_batch=batch_vs, compare_rois=panels,
+         margin_mm=MARGIN_MM, margin_voxels_differ=int(len(differ)),
+         ptv_voxels=int(ptv.sum()), grown_voxels=int(grown.sum()),
+         step_ms=step_ms)
+    sp = tuple(float(v) for v in img.spacing)
+    return dict(
+        gamma=lambda: dose.compute_gamma(evals["shift_1mm"], dose_pct=3.0,
+                                         dta_mm=3.0),
+        gamma_work=dict(offsets=len(layout[3]), ref=dose.array.size,
+                        eval=evals["shift_1mm"].array.size,
+                        fine=int(np.prod(fine_grid_shape(
+                            dose.array.shape, layout[0], layout[1])))),
+        edt=lambda: squared_edt(body, sp), edt_shape=tuple(body.shape))
+
+
 def shear_against_exact(shear, exact, dev):
     """(share of voxels whose valid masks agree, mean |diff| in HU over
     the voxels valid in both and 2 voxels inside them: a 5^3 box
@@ -1812,14 +2235,12 @@ def phase_ingest(folder, dev):
     return names
 
 
-def registration_error(rigid, truth):
+def registration_error(M, ref, truth):
     """(centre error mm, worst corner error mm, angle error deg) of the
-    fitted reference -> moving matrix against the known one."""
-    import medicalimageanalysis_torch as mia
+    fitted reference -> moving matrix ``M`` against the known one, over
+    the reference image ``ref``."""
     from scipy.spatial.transform import Rotation
 
-    M = rigid.matrix
-    ref = mia.Data.image[rigid.reference_name]
     Z, Y, X = SHAPE
     points = [ref.compute_center()] + [
         ref.compute_position([x, y, z]) for z in (0, Z - 1)
@@ -1850,7 +2271,8 @@ def phase_rigid(names, truth):
         wall_ms = 1e3 * (time.perf_counter() - t0)
         assert [len(ls) for ls in info["losses"]] == steps
         ms_level = [1e3 * s for s in info["level_seconds"]]
-        center_err, corner_err, angle_err = registration_error(rigid, truth)
+        center_err, corner_err, angle_err = registration_error(
+            rigid.matrix, mia.Data.image[rigid.reference_name], truth)
         final = [float(ls[-1]) for ls in info["losses"]]
         assert all(np.isfinite(final))
         assert center_err <= 0.5 and angle_err <= 0.3, \
@@ -1891,6 +2313,173 @@ def phase_reslice(rigid, dev):
     assert inside > 0.8, f"reslice is mostly background ({inside})"
     emit("reslice", ms=1e3 * seconds, out_shape=list(shape),
          equal_to_plain=True, inside_share=inside)
+
+
+def known_pose_volume(ref_vol, ref, pose, dev):
+    """The reference resampled on the card at a known pose (angles in
+    degrees about x, y, z, then a translation in mm, about the reference
+    centre), its edge voxels carried outwards (the sample coordinates
+    clamped to the volume, as write_pair's scipy resample does with
+    mode="nearest"; a background fill would give the moving volume a
+    border the reference lacks, and bias the registration). Returns
+    (int16 numpy volume on the reference grid, its reference -> moving
+    matrix, models.rigid_intensity.pose_to_matrix of the pose)."""
+    from medicalimageanalysis_torch.models.rigid_intensity import (
+        pose_to_matrix)
+    from medicalimageanalysis_torch.ops import geometry as geo
+    from medicalimageanalysis_torch.ops.warp import affine_coords, field_warp
+
+    p = np.concatenate([np.deg2rad(pose[:3]), pose[3:]]).astype(np.float32)
+    truth = pose_to_matrix(torch.as_tensor(p), torch.as_tensor(
+        np.asarray(ref.compute_center(), np.float32))).numpy() \
+        .astype(np.float64)
+    pix2pos = geo.pixel_to_position_matrix(ref.matrix, ref.spacing,
+                                           ref.origin)
+    # moving pixel -> physical -> reference physical (truth^-1) -> pixel
+    A = np.linalg.inv(pix2pos) @ np.linalg.inv(truth) @ pix2pos
+    cz, cy, cx = affine_coords(torch.as_tensor(A, dtype=torch.float32,
+                                               device=dev), SHAPE)
+    cz, cy, cx = (c.clamp(0, n - 1).contiguous()
+                  for c, n in zip((cz, cy, cx), SHAPE))
+    out = field_warp(ref_vol, cz, cy, cx)
+    return out.round().clamp(-1024, 3071).to(torch.int16).cpu().numpy(), \
+        truth
+
+
+def phase_cohort_rigid(names, truth, rigid, dev):
+    """The cohort rigid at full size: P = 4 pairs of 128 x 512 x 512 int16
+    (the phantom pair, and the reference resampled on the card at three
+    known poses), all 8 volumes normalised on the card (bit-equal to the
+    host recipe, which also runs and is timed), then
+    register_rigid_intensity_batch (each pair within the phase_rigid
+    limits of its truth and equal to its single-pair descent), then 10
+    make_registration_step steps at B = 4, stride 2. Returns the batch
+    inputs for a profile of one level."""
+    from types import SimpleNamespace
+
+    from medicalimageanalysis_torch.data import Data
+    from medicalimageanalysis_torch.models import rigid_intensity as ri
+    from medicalimageanalysis_torch.ops import geometry as geo
+    from medicalimageanalysis_torch.ops.volume import stored_to_float
+    from medicalimageanalysis_torch.parallel.batch import (
+        make_registration_step)
+
+    ref, mov = Data.image[names["ref"]], Data.image[names["mov"]]
+    ref_vol = torch.as_tensor(ref.array, device=dev).to(torch.float32)
+    pairs = [(mov.array, mov, truth)]
+    for pose in COHORT_POSES:
+        arr, known = known_pose_volume(ref_vol, ref, np.asarray(pose), dev)
+        pairs.append((arr, SimpleNamespace(array=arr, matrix=ref.matrix,
+                                           spacing=ref.spacing,
+                                           origin=ref.origin), known))
+    del ref_vol
+
+    def timed(fn):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    # the normalisation: every volume on the card, each held bit-equal to
+    # the host recipe of models/rigid_intensity (numpy on this machine),
+    # run here split into its cast, percentile and quantisation
+    def device_normalise(a):
+        vol, up = timed(lambda: stored_to_float(a, dev))
+        bounds, pct = timed(lambda: ri._percentile_bounds(vol))
+        codes, quant = timed(lambda: ri._quantize(vol, *bounds))
+        return codes, dict(upload=up, percentile=pct, quantize=quant)
+
+    host_ms = dict(cast=0.0, percentile=0.0, quantize=0.0)
+    dev_ms = dict(upload=0.0, percentile=0.0, quantize=0.0)
+    host_codes, refs, movs = {}, [], []
+    for k, arr in enumerate([ref.array] * len(pairs)
+                            + [a for a, _, _ in pairs]):
+        key = "ref" if k < len(pairs) else k     # the 4 refs are one volume
+        if key not in host_codes:
+            a, ms = timed(lambda: arr.astype(np.float32))
+            host_ms["cast"] += ms
+            (lo, hi), ms = timed(lambda: np.percentile(a, [2, 98]))
+            host_ms["percentile"] += ms
+            host_codes[key], ms = timed(lambda: (np.clip(
+                (a - lo) / max(hi - lo, 1e-6), 0, 1) * 65535.0 + 0.5)
+                .astype(np.uint16))
+            host_ms["quantize"] += ms
+            del a
+        codes, ms = device_normalise(arr)
+        for step, v in ms.items():
+            dev_ms[step] += v
+        assert np.array_equal(codes.cpu().numpy().astype(np.uint16),
+                              host_codes[key]), \
+            f"volume {k}: device normalisation != host recipe"
+        (refs if k < len(pairs) else movs).append(codes)
+    n_host = len(host_codes)
+    n_dev = len(refs) + len(movs)
+    host_codes.clear()
+
+    ref_pix2pos = geo.pixel_to_position_matrix(
+        ref.matrix, ref.spacing, ref.origin).astype(np.float32)
+    mov_pos2pix = np.stack([geo.position_to_pixel_matrix(
+        img.matrix, img.spacing, img.origin).astype(np.float32)
+        for _, img, _ in pairs])
+    center = np.asarray(ref.compute_center(), np.float32)
+    P = len(pairs)
+    geo_in = (np.stack([ref_pix2pos] * P), mov_pos2pix,
+              np.stack([center] * P))
+    scale = 1.0 / 65535.0
+    (poses, losses), batch_ms = timed(
+        lambda: ri.register_rigid_intensity_batch(
+            refs, movs, *geo_in, levels=RIGID_LEVELS, intensity_scale=scale))
+    steps = sum(s for _, s, _ in RIGID_LEVELS)
+    rows = []
+    for p, (arr, img, known) in enumerate(pairs):
+        M = ri.pose_to_matrix(torch.as_tensor(poses[p]),
+                              torch.as_tensor(center)).numpy() \
+            .astype(np.float64)
+        center_err, corner_err, angle_err = registration_error(M, ref, known)
+        if p == 0:            # phase_rigid's warm call of this pair
+            single = np.asarray(rigid.misc["intensity_info"]["pose"],
+                                np.float32)
+        else:
+            _, info = ri.register_rigid_intensity(ref, img, device=dev)
+            single = info["pose"]
+        rows.append(dict(center_err_mm=center_err, corner_err_mm=corner_err,
+                         angle_err_deg=angle_err, final_loss=float(losses[p]),
+                         single_pose_max_diff=float(np.abs(
+                             single - poses[p]).max())))
+    worst_single = max(r["single_pose_max_diff"] for r in rows)
+
+    # the batched step on the same volumes, unit geometry, B = 4
+    def dequantised(codes):
+        return torch.stack([c.to(torch.float32) * scale for c in codes])
+
+    ref_b, mov_b = dequantised(refs), dequantised(movs)
+    step, init = make_registration_step(SHAPE, lr=STEP_LR, stride=2,
+                                        device=dev)
+    params, state = init(P)
+    step_losses, step_ms = [], []
+    for _ in range(10):
+        (params, state, loss), ms = timed(
+            lambda: step(params, state, ref_b, mov_b))
+        step_losses.append(float(loss))
+        step_ms.append(ms)
+    del ref_b, mov_b
+    torch.cuda.empty_cache()
+    emit("cohort_rigid", pairs=P, shape=list(SHAPE),
+         numpy=np.__version__, poses_deg_mm=[list(p) for p in COHORT_POSES],
+         normalisation_bit_equal=True,
+         prep_ms_host_per_volume={k: v / n_host for k, v in host_ms.items()},
+         prep_ms_device_per_volume={k: v / n_dev for k, v in dev_ms.items()},
+         batch_ms=batch_ms, ms_per_pair=batch_ms / P,
+         ms_per_step=batch_ms / (P * steps), limit_mm=0.5, limit_deg=0.3,
+         single_pose_limit=1e-4, per_pair=rows,
+         step_losses=step_losses, step_ms=step_ms)
+    for p, r in enumerate(rows):
+        assert r["center_err_mm"] <= 0.5 and r["angle_err_deg"] <= 0.3, \
+            f"cohort pair {p} missed: {r}"
+    assert worst_single <= 1e-4, f"batch != single-pair descent: {rows}"
+    assert step_losses[-1] < step_losses[0], step_losses
+    return refs, movs, geo_in
 
 
 def phase_preprocess(gen, dev):
@@ -1975,6 +2564,10 @@ def main():
         phase_reslice(rigid, dev)
         rigid_launches = launch_counts()   # ... and ends here
         shapes = {"rigid": launch_shapes()}
+        reset_counts()                     # the cohort rigid starts here
+        cohort = phase_cohort_rigid(names, truth, rigid, dev)
+        cohort_launches = launch_counts()  # ... and ends here
+        shapes["cohort_rigid"] = launch_shapes()
         deformed = os.path.join(folder, "deformed")
         write_deformed(ref, deformed)
         del ref
@@ -1996,6 +2589,11 @@ def main():
         kernels["dose_hist"].update(path)
         del hist_calls
         torch.cuda.empty_cache()
+        reset_counts()                     # the plan-QA path starts here
+        plan = phase_plan_qa(names, img_name, dose_name, dev)
+        plan_qa_launches = launch_counts()  # ... and ends here
+        shapes["plan_qa"] = launch_shapes()
+        torch.cuda.empty_cache()
         reset_counts()                     # the view path starts here
         view = phase_view(names, rigid, dev)
         view_launches = launch_counts()    # ... and ends here
@@ -2014,6 +2612,11 @@ def main():
     assert all(dose_qa_launches[k] for k in
                ("dose_hist", "warp_affine", "warp_coords", "warp_disp")), \
         f"a kernel of the dose-QA path never launched: {dose_qa_launches}"
+    assert cohort_launches["warp_coords"], \
+        f"the cohort rigid never launched warp_coords: {cohort_launches}"
+    assert all(plan_qa_launches[k] for k in
+               ("warp_affine", "warp_coords", "warp_disp")), \
+        f"a kernel of the plan-QA path never launched: {plan_qa_launches}"
     # three lane_interp passes per shear reslice; the exact reslices (the
     # display, its volume bundle, two Rigid nudges and two comparisons).
     # No view route reaches the oblique entry: affine_resample keeps the
@@ -2027,10 +2630,10 @@ def main():
     assert oblique_launches == dict(
         {k: 0 for k in oblique_launches}, warp_coords=1,
         warp_affine_shear=1), oblique_launches
-    # every kernel's launches on the four paths, and the warp launches by
+    # every kernel's launches on the six paths, and the warp launches by
     # shape over them
-    paths = (rigid_launches, deformable_launches, dose_qa_launches,
-             view_launches)
+    paths = (rigid_launches, cohort_launches, deformable_launches,
+             dose_qa_launches, plan_qa_launches, view_launches)
     launches = {k: sum(p[k] for p in paths) for k in rigid_launches}
     all_shapes = {}
     for per_path in shapes.values():
@@ -2049,6 +2652,8 @@ def main():
     # profiles also show where the time goes: device events per step or
     # iteration, device time, and its share of the wall time.
     from medicalimageanalysis_torch.data import Data
+    from medicalimageanalysis_torch.models.rigid_intensity import (
+        register_rigid_intensity_batch)
     from medicalimageanalysis_torch.ops.registration.bspline import (
         bspline_registration)
     from medicalimageanalysis_torch.ops.registration.demons import (
@@ -2087,7 +2692,19 @@ def main():
         "rasterize_batch": profile_device(lambda: rasterize_batch(
             [roi.contour_pixel for roi in Data.image[img_name].rois.values()
              if roi.contour_pixel is not None],
-            tuple(int(v) for v in Data.image[img_name].dimensions)))}
+            tuple(int(v) for v in Data.image[img_name].dimensions))),
+        # plan QA: one gamma (3 %/3 mm, the shifted dose) and one full-size
+        # squared EDT (the Body mask), both plain PyTorch on the card
+        "compute_gamma": profile_device(plan["gamma"], ["warp_affine"]),
+        "edt": profile_device(plan["edt"]),
+        # one cohort level over the four pairs: the first level's stride
+        # and rate, COHORT_PROFILE_STEPS steps (the trace's processing
+        # grows with its events, 58,000 at the level's 60 steps)
+        "cohort_level": profile_device(lambda: register_rigid_intensity_batch(
+            cohort[0], cohort[1], *cohort[2],
+            levels=((RIGID_LEVELS[0][0], COHORT_PROFILE_STEPS,
+                     RIGID_LEVELS[0][2]),),
+            intensity_scale=1.0 / 65535.0), ["warp_coords"])}
     descent = profiles["rigid"]
     descent["device_events_per_step"] = \
         descent["device_events"] / sum(s for _, s, _ in RIGID_LEVELS)
@@ -2100,16 +2717,22 @@ def main():
         profiles["demons_level"]["device_events"] / 50
     profiles["bspline"]["device_events_per_step"] = \
         profiles["bspline"]["device_events"] / 100
+    profiles["cohort_level"]["device_events_per_step"] = \
+        profiles["cohort_level"]["device_events"] / (
+            len(COHORT_POSES) + 1) / COHORT_PROFILE_STEPS
     emit("kernel_ran", launches=launches,
          launches_rigid_path=rigid_launches,
+         launches_cohort_rigid_path=cohort_launches,
          launches_deformable_path=deformable_launches,
          launches_dose_qa_path=dose_qa_launches,
+         launches_plan_qa_path=plan_qa_launches,
          launches_view_path=view_launches,
          launches_oblique_entry=oblique_launches,
          launch_shapes={k: shape_rows(v) for k, v in shapes.items()},
          **profiles)
     for name, p in profiles.items():
         check_profile(name, p)
+    emit("plain_programs", **plain_program_rows(profiles, plan))
     phase_preprocess(cpu_gen, dev)
     # the port and this script ran without JAX and without the JAX package
     loaded = sorted(m for m in sys.modules

@@ -1,8 +1,11 @@
 """Intensity-based rigid / similarity / affine registration.
 
 Port of medicalimageanalysis_tpu/models/rigid_intensity.py
-(``pose_to_matrix``, the metrics, ``_register_level`` and
-``register_rigid_intensity``). One pyramid level downsamples both volumes
+(``pose_to_matrix``, the metrics, ``_register_level``,
+``register_rigid_intensity`` and ``register_rigid_intensity_batch``). The
+2/98-percentile normalisation and its uint16 quantisation run on the
+device, bit-equal to the JAX package's host recipe
+(:func:`_normalize`). One pyramid level downsamples both volumes
 by three interpolation-matrix contractions, then runs Adam on the pose;
 each step samples the moving volume through the CUDA warp kernel
 (``coords`` mode, coordinate gradients fused into the same launch) on the
@@ -28,8 +31,8 @@ from ..ops.resample import _interp_matrix
 from ..ops.volume import stored_to_float
 from ..ops.warp import affine_coords, make_warp_sampler
 
-__all__ = ["register_rigid_intensity", "pose_to_matrix", "adam_init",
-           "adam_update"]
+__all__ = ["register_rigid_intensity", "register_rigid_intensity_batch",
+           "pose_to_matrix", "adam_init", "adam_update"]
 
 _MODE_NPARAMS = {"rigid": 6, "similarity": 7, "affine": 12}
 
@@ -191,6 +194,77 @@ def _downsample(v, s):
     return out, (Z, Y, X), (oz, oy, ox)
 
 
+# ---------------------------------------------------------------------------
+# the 2/98-percentile normalisation, on the device
+# ---------------------------------------------------------------------------
+_NORM_Q = (2.0, 98.0)          # percentiles that map to 0 and 1
+_QUANT = 65535.0               # the uint16 code of 1.0
+
+
+def _np_lerp(a, b, t):
+    """numpy's ``_lerp`` of its 'linear' percentile (numpy/lib/
+    _function_base_impl.py): a + (b - a) t, or b - (b - a)(1 - t) where
+    t >= 0.5, in the dtypes numpy gives them (a, b float32 order
+    statistics, t float64)."""
+    diff = np.subtract(b, a)
+    out = np.asanyarray(np.add(a, diff * t))
+    np.subtract(b, diff * (1 - t), out=out, where=t >= 0.5,
+                casting="unsafe", dtype=type(out.dtype))
+    return out
+
+
+def _percentile_bounds(vol):
+    """``np.percentile(a, [2, 98])`` of the float32 volume ``vol`` (a
+    tensor on any device), bit-equal to numpy's 'linear' method: the four
+    order statistics come from a sort on the device, numpy's virtual
+    indices and lerp run on the host. Returns (lo, hi) numpy float64."""
+    n = vol.numel()
+    virtual = (n - 1) * (np.asarray(_NORM_Q) / 100.0)
+    below = np.floor(virtual)
+    prev = below.astype(np.int64)
+    nxt = prev + 1
+    top = virtual >= n - 1
+    prev[top] = nxt[top] = n - 1
+    ranked = torch.sort(vol.reshape(-1)).values        # NaN sorts last
+    picks = torch.as_tensor(np.concatenate([prev, nxt, [n - 1]]),
+                            device=vol.device)
+    vals = ranked[picks].cpu().numpy().astype(np.float32)
+    if np.isnan(vals[-1]):                             # numpy: NaN poisons
+        return np.float64(np.nan), np.float64(np.nan)
+    # numpy's gamma is taken against the replaced index (-1 at the top)
+    gamma = virtual - np.where(top, -1.0, below)
+    lo, hi = _np_lerp(vals[:2], vals[2:4], gamma)
+    return lo, hi
+
+
+def _quantize(vol, lo, hi):
+    """The host recipe ``(clip((a - lo) / max(hi - lo, 1e-6), 0, 1) *
+    65535 + 0.5).astype(uint16)`` on the device, in the type numpy
+    computes it in: float64 under numpy 2 (``lo`` is a float64 scalar,
+    NEP 50), float32 under numpy 1. Returns the codes as an int32 tensor.
+    Every scalar is a 0-d tensor on the device: a CUDA division by a host
+    scalar multiplies by its reciprocal, which rounds differently."""
+    wide = (np.zeros(1, np.float32) - lo).dtype
+    dt = torch.float64 if wide == np.float64 else torch.float32
+    den = max(hi - lo, 1e-6)
+
+    def scalar(v):
+        return torch.tensor(np.asarray(v).astype(wide), device=vol.device)
+
+    x = vol.to(torch.float32).to(dt)
+    x.sub_(scalar(lo)).div_(scalar(den)).clamp_(0, 1)
+    x.mul_(scalar(_QUANT)).add_(scalar(0.5))
+    return x.to(torch.int32)
+
+
+def _normalize(vol):
+    """The 2/98-percentile normalisation of one volume (float32 tensor),
+    as the uint16 codes (int32 tensor) the JAX package's host recipe
+    gives; ``* (1 / 65535)`` dequantises them."""
+    lo, hi = _percentile_bounds(vol)
+    return _quantize(vol, lo, hi)
+
+
 @full_float32()
 def _register_level(ref_vol, mov_vol, ref_pix2pos, mov_pos2pix, center,
                     pose0, lr, steps, stride, intensity_scale=1.0,
@@ -247,6 +321,23 @@ def _register_level(ref_vol, mov_vol, ref_pix2pos, mov_pos2pix, center,
     return params * scale, losses
 
 
+def _descend(refs, movs, ref_pix2pos, mov_pos2pix, centers, poses, levels,
+             intensity_scale, metric):
+    """The coarse-to-fine descent of P pairs, one ``_register_level`` per
+    pair and level, one pair after another (the warp kernel samples its
+    volumes at one set of coordinates, and every pair has its own pose).
+    Yields after each level the poses (P, n) and the level's losses (P,
+    steps), on the device; nothing here waits for it."""
+    for stride, steps, lr in levels:
+        out = [_register_level(refs[p], movs[p], ref_pix2pos[p],
+                               mov_pos2pix[p], centers[p], poses[p],
+                               float(lr), int(steps), (stride,) * 3,
+                               intensity_scale, metric=metric)
+               for p in range(len(refs))]
+        poses = torch.stack([pose for pose, _ in out])
+        yield poses, torch.stack([losses for _, losses in out])
+
+
 def register_rigid_intensity(reference_image, moving_image, pose0=None,
                              levels=((4, 60, 0.3), (2, 40, 0.1),
                                      (1, 25, 0.03)),
@@ -263,9 +354,10 @@ def register_rigid_intensity(reference_image, moving_image, pose0=None,
     device : where the descent runs (default: the card when present)
 
     Returns (matrix4 ``reference -> moving``, info dict with 'pose',
-    'loss', 'losses', 'level_seconds' and 'prep_seconds': the host-side
-    work before the descent, split into 'cast', 'percentile', 'quantize'
-    (the last two only with ``normalize``) and 'upload').
+    'loss', 'losses', 'level_seconds' and 'prep_seconds': the work before
+    the descent, split into 'upload' (the arrays in their stored type,
+    widened to float32 on the device), and with ``normalize`` the device
+    normalisation's 'percentile' and 'quantize').
     """
     if metric == "mi" and not normalize:
         raise ValueError("metric='mi' requires normalize=True "
@@ -280,27 +372,30 @@ def register_rigid_intensity(reference_image, moving_image, pose0=None,
             f"got {np.shape(pose0)}")
     device = default_device() if device is None else torch.device(device)
     clock = time.perf_counter
+
+    def synced():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return clock()
+
     prep_seconds = {}
     t0 = clock()
-    ref = np.asarray(reference_image.array, dtype=np.float32)
-    mov = np.asarray(moving_image.array, dtype=np.float32)
-    prep_seconds["cast"] = clock() - t0
+    refd = stored_to_float(np.asarray(reference_image.array), device)
+    movd = stored_to_float(np.asarray(moving_image.array), device)
+    prep_seconds["upload"] = synced() - t0
     intensity_scale = 1.0
     if normalize:
-        # quantize the [0,1]-normalized volumes to uint16 so half the
-        # bytes cross the host->device link (dequantised on the device
-        # via intensity_scale; 1.5e-5 quantization error << interp noise)
-        def quantize(a, lo, hi):
-            a = np.clip((a - lo) / max(hi - lo, 1e-6), 0, 1)
-            return (a * 65535.0 + 0.5).astype(np.uint16)
+        # the JAX package's uint16 quantisation of the [0,1]-normalised
+        # volumes, on the device (dequantised in _register_level via
+        # intensity_scale; 1.5e-5 quantization error << interp noise)
         t0 = clock()
-        bounds = [np.percentile(a, [2, 98]) for a in (ref, mov)]
-        prep_seconds["percentile"] = clock() - t0
+        bounds = [_percentile_bounds(v) for v in (refd, movd)]
+        prep_seconds["percentile"] = clock() - t0     # ends in a download
         t0 = clock()
-        ref, mov = (quantize(a, lo, hi)
-                    for a, (lo, hi) in zip((ref, mov), bounds))
-        prep_seconds["quantize"] = clock() - t0
-        intensity_scale = 1.0 / 65535.0
+        refd, movd = (_quantize(v, lo, hi)
+                      for v, (lo, hi) in zip((refd, movd), bounds))
+        prep_seconds["quantize"] = synced() - t0
+        intensity_scale = 1.0 / _QUANT
 
     ref_pix2pos = geo.pixel_to_position_matrix(
         reference_image.matrix, reference_image.spacing,
@@ -311,30 +406,24 @@ def register_rigid_intensity(reference_image, moving_image, pose0=None,
     center = np.asarray(reference_image.compute_center()
                         if hasattr(reference_image, "compute_center")
                         else geo.apply_homogeneous(
-                            [ref.shape[2] / 2, ref.shape[1] / 2,
-                             ref.shape[0] / 2], ref_pix2pos),
+                            [refd.shape[2] / 2, refd.shape[1] / 2,
+                             refd.shape[0] / 2], ref_pix2pos),
                         dtype=np.float32)
 
     def dev(a):
         return torch.as_tensor(a, dtype=torch.float32, device=device)
 
-    t0 = clock()
-    refd = stored_to_float(ref, device)
-    movd = stored_to_float(mov, device)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)      # the upload ends here
-    prep_seconds["upload"] = clock() - t0
-    pose =torch.zeros(n_params, dtype=torch.float32, device=device) \
+    pose = torch.zeros(n_params, dtype=torch.float32, device=device) \
         if pose0 is None else dev(pose0)
     losses_all, level_seconds = [], []
-    for stride, steps, lr in levels:
-        t0 = clock()
-        pose, losses = _register_level(
-            refd, movd, dev(ref_pix2pos), dev(mov_pos2pix), dev(center),
-            pose, float(lr), int(steps), (stride, stride, stride),
-            intensity_scale, metric=metric)
-        losses_all.append(losses.cpu().numpy())   # the level's one sync
+    t0 = clock()
+    for poses, losses in _descend(
+            [refd], [movd], dev(ref_pix2pos)[None], dev(mov_pos2pix)[None],
+            dev(center)[None], pose[None], levels, intensity_scale, metric):
+        pose = poses[0]
+        losses_all.append(losses[0].cpu().numpy())   # the level's one sync
         level_seconds.append(clock() - t0)
+        t0 = clock()
 
     matrix = pose_to_matrix(pose, dev(center)).cpu().numpy() \
         .astype(np.float64)
@@ -342,3 +431,96 @@ def register_rigid_intensity(reference_image, moving_image, pose0=None,
                     "loss": float(losses_all[-1][-1]),
                     "losses": losses_all, "level_seconds": level_seconds,
                     "prep_seconds": prep_seconds}
+
+
+def _mi_range_guard(name, vols, scale):
+    """metric='mi' bins intensities over [0, 1] and clip has zero
+    gradient outside it: raise on grossly unnormalised input (the span of
+    every volume of ``vols`` times ``scale``), warn with the share of
+    voxels outside [0, 1] otherwise (JAX models/rigid_intensity.py:
+    351-385)."""
+    lo = min(float(v.min()) for v in vols) * scale
+    hi = max(float(v.max()) for v in vols) * scale
+    if not (lo >= -0.05 and hi <= 1.5):
+        raise ValueError(
+            "metric='mi' needs intensities normalized to "
+            f"[0, 1] (after intensity_scale; {name} span "
+            f"[{lo:.3g}, {hi:.3g}]) — see "
+            "register_rigid_intensity's normalize=True recipe")
+    if lo < 0.0 or hi > 1.0:
+        outside = sum(int(((v.to(torch.float32) * scale < 0.0)
+                           | (v.to(torch.float32) * scale > 1.0)).sum())
+                      for v in vols)
+        frac = outside / sum(v.numel() for v in vols)
+        if frac > 0:
+            import warnings
+            warnings.warn(
+                f"metric='mi': {frac:.2%} of {name} voxels "
+                "fall outside [0, 1] after intensity_scale "
+                "and will clip into zero-gradient edge Parzen "
+                "bins, weakening the registration",
+                stacklevel=3)
+
+
+def register_rigid_intensity_batch(refs, movs, ref_pix2pos, mov_pos2pix,
+                                   centers, poses0=None,
+                                   levels=((4, 60, 0.3), (2, 40, 0.1),
+                                           (1, 25, 0.03)),
+                                   intensity_scale=1.0, mesh=None,
+                                   metric="mse", mode="rigid", device=None):
+    """Cohort registration: P volume pairs through the descent of
+    :func:`register_rigid_intensity` (``_descend``, which that function
+    runs with P = 1), so a pair's pose equals that function's for the
+    pair alone.
+
+    refs, movs : (P, Z, Y, X) arrays or tensors, or sequences of P
+        volumes (any real dtype; pre-normalised, e.g. by
+        register_rigid_intensity's uint16 recipe with intensity_scale
+        1/65535). Tensors stay on their device unless ``device`` is given;
+        arrays go to ``device`` (default: the card when present).
+    ref_pix2pos, mov_pos2pix : (P, 4, 4) float32 geometry matrices
+    centers : (P, 3) rotation centers (mm)
+    mesh : must be None (multi-device: ROADMAP.md queue 1, item 11)
+    Returns (poses (P, n_params), final_losses (P,)) as numpy float32.
+    """
+    from ..parallel.batch import _no_mesh
+
+    if mode not in _MODE_NPARAMS:
+        raise ValueError(f"unknown mode {mode!r}; pick from "
+                         f"{sorted(_MODE_NPARAMS)}")
+    _no_mesh("register_rigid_intensity_batch", mesh)
+    P_n = len(refs)
+    n_params = _MODE_NPARAMS[mode]
+    if poses0 is not None and np.shape(poses0) != (P_n, n_params):
+        raise ValueError(
+            f"poses0 must have shape ({P_n}, {n_params}) for "
+            f"mode={mode!r}, got {np.shape(poses0)}")
+    if device is None:
+        device = refs[0].device if isinstance(refs[0], torch.Tensor) \
+            else default_device()
+    device = torch.device(device)
+
+    def volume(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(device)
+        return stored_to_float(np.asarray(v), device)
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    refs = [volume(v) for v in refs]
+    movs = [volume(v) for v in movs]
+    ref_pix2pos, mov_pos2pix, centers = (
+        dev(a) for a in (ref_pix2pos, mov_pos2pix, centers))
+    poses = torch.zeros((P_n, n_params), dtype=torch.float32,
+                        device=device) if poses0 is None else dev(poses0)
+    losses = torch.zeros((P_n,), dtype=torch.float32, device=device)
+    scale = float(intensity_scale)
+    if metric == "mi":
+        for name, vols in (("refs", refs), ("movs", movs)):
+            _mi_range_guard(name, vols, scale)
+    for poses, level_losses in _descend(refs, movs, ref_pix2pos,
+                                        mov_pos2pix, centers, poses, levels,
+                                        scale, metric):
+        losses = level_losses[:, -1]
+    return poses.cpu().numpy(), losses.cpu().numpy()

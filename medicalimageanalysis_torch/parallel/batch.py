@@ -10,8 +10,16 @@ Port of medicalimageanalysis_tpu/parallel/batch.py:
   device.full_float32). The TPU's VMEM-cliff sub-batching has no
   counterpart; ``chunk`` is kept as a no-op argument so callers port line
   for line.
+- ``make_registration_step`` (:223-270): the batched 6-DoF intensity
+  registration step, each pair sampled through the warp kernel's
+  ``coords`` mode with its analytic coordinate VJP, Adam in optax's
+  float32 order;
+- ``compare_masks_batch`` (:273-313): the Dice / HD95 / ASSD /
+  surface-Dice panel of B mask pairs (ops/edt);
 - ``dvh_batch`` (:339-401): the DVH panel of B (dose, mask) pairs, each
-  through ops/dvh's core (the histogram kernel on the card).
+  through ops/dvh's core (the histogram kernel on the card);
+- ``gamma_batch`` (:404-486): gamma of B dose pairs on a shared grid
+  (ops/gamma).
 - ``rasterize_batch`` (:667-735): every contour of B ROIs in one pooled
   pass (ops/rasterize).
 
@@ -27,8 +35,9 @@ from ..device import default_device, full_float32
 from ..ops.filters import _gauss_kernel_matrix
 from ..ops.resample import _interp_matrix
 
-__all__ = ["dvh_batch", "make_preprocess_fn", "preprocess_batch",
-           "rasterize_batch"]
+__all__ = ["compare_masks_batch", "dvh_batch", "gamma_batch",
+           "make_preprocess_fn", "make_registration_step",
+           "preprocess_batch", "rasterize_batch"]
 
 
 def make_preprocess_fn(in_shape, out_shape, ffs_op="ax_rot2",
@@ -104,6 +113,93 @@ def _no_mesh(name, mesh):
             "ROADMAP.md queue 1, item 11")
 
 
+def make_registration_step(vol_shape, lr=0.05, stride=2, device=None):
+    """Batched 6-DoF intensity-registration train step.
+
+    State: poses (B, 6) in scaled units and the Adam moments. Volumes
+    (B, Z, Y, X) ``ref`` and ``mov`` share the grid (unit spacing, zero
+    origin); the physical-geometry path is models/rigid_intensity. Each
+    step samples every pair's moving volume through the warp kernel's
+    ``coords`` mode with the coordinate gradients fused into the launch
+    (ops/resample.make_trilinear_sampler); the reference values take no
+    gradient (ops/resample.trilinear_gather). Returns (train_step, init):
+    ``train_step(params, opt_state, refs, movs) -> (params, opt_state,
+    loss)``, ``init(batch) -> (params, opt_state)`` on ``device``
+    (default: ``default_device()``).
+    """
+    from ..models.rigid_intensity import (_POSE_SCALE, adam_init,
+                                          adam_update, pose_to_matrix)
+    from ..ops.resample import make_trilinear_sampler, trilinear_gather
+
+    device = default_device() if device is None else torch.device(device)
+    Z, Y, X = vol_shape
+    opts = dict(dtype=torch.float32, device=device)
+    zz = torch.arange(0, Z, stride, **opts)
+    yy = torch.arange(0, Y, stride, **opts)
+    xx = torch.arange(0, X, stride, **opts)
+    Zg, Yg, Xg = torch.meshgrid(zz, yy, xx, indexing="ij")
+    coords = torch.stack([Xg.reshape(-1), Yg.reshape(-1), Zg.reshape(-1)],
+                         dim=-1)
+    coords_h = torch.cat([coords, torch.ones_like(coords[:, :1])], dim=1)
+    center = torch.tensor([X / 2, Y / 2, Z / 2], **opts)
+    scale = torch.as_tensor(_POSE_SCALE, device=device)
+
+    @full_float32()
+    def loss_fn(params, refs, movs):
+        losses = []
+        for b in range(params.shape[0]):
+            m = pose_to_matrix(params[b] * scale, center)
+            mov_pix = coords_h @ m.T
+            with torch.no_grad():
+                ref_vals = trilinear_gather(refs[b], coords, 0.0)
+            vals = make_trilinear_sampler(movs[b], 0.0)(mov_pix[:, :3])
+            losses.append(torch.mean((vals - ref_vals) ** 2))
+        return torch.mean(torch.stack(losses))
+
+    def train_step(params, opt_state, refs, movs):
+        params = params.detach().requires_grad_(True)
+        loss = loss_fn(params, refs, movs)
+        (g,) = torch.autograd.grad(loss, params)
+        update, opt_state = adam_update(g, opt_state, lr)
+        return (params.detach() + update).detach(), opt_state, \
+            loss.detach()
+
+    def init(batch):
+        params = torch.zeros((batch, 6), **opts)
+        return params, adam_init(params)
+
+    return train_step, init
+
+
+def compare_masks_batch(masks_a, masks_b, spacing, tolerance_mm=2.0,
+                        mesh=None, device=None):
+    """Cohort segmentation QA: the Dice / Jaccard / volumes / HD / HD95 /
+    ASSD / surface-Dice panel (ops/edt.surface_metrics) for B mask pairs
+    on ``device`` (default: the stacks' device for tensors, else
+    ``default_device()``), one pair after another, so the EDT's working
+    set is one pair's whatever B is.
+
+    masks_a/masks_b: (B, Z, Y, X) bool/uint8 (numpy or tensors); spacing
+    [sx, sy, sz] mm, shared. Returns a dict of (B,) float32 numpy arrays
+    with the keys of ops.edt.surface_metrics."""
+    import numpy as np
+
+    from ..ops.edt import _as_bool, _surface_metrics
+
+    _no_mesh("compare_masks_batch", mesh)
+    if masks_a.shape != masks_b.shape or len(masks_a.shape) != 4:
+        raise ValueError("compare_masks_batch: expected matching "
+                         f"(B, Z, Y, X) stacks, got {tuple(masks_a.shape)} "
+                         f"vs {tuple(masks_b.shape)}")
+    sp = tuple(float(v) for v in np.asarray(spacing).reshape(-1))
+    rows = [_surface_metrics(_as_bool(masks_a[b], device),
+                             _as_bool(masks_b[b], device), sp,
+                             float(tolerance_mm))
+            for b in range(masks_a.shape[0])]
+    return {k: torch.stack([r[k] for r in rows]).cpu().numpy()
+            for k in rows[0]}
+
+
 def dvh_batch(doses, masks, voxel_volume_cc, max_dose=150, increment=5,
               mesh=None, device=None):
     """Cohort DVH: the Dmin/Dmax/Dmean/Dmedian/Dstd + D1..D99 +
@@ -176,3 +272,79 @@ def rasterize_batch(contour_sets, dimensions, plane="Axial", mesh=None,
     if axis:
         out = np.moveaxis(out, 1, axis + 1)
     return (out > 0).astype(np.uint8)
+
+
+def gamma_batch(ref_doses, eval_doses, spacing, dose_pct=3.0,
+                dta_mm=3.0, local=False, threshold_pct=10.0,
+                subdiv=None, cap=2.0, mesh=None, return_maps=False,
+                device=None):
+    """Cohort gamma-index QA: B (reference, evaluated) dose pairs on a
+    shared grid (cross-grid pairs: ``Dose.compute_gamma`` per pair), one
+    pair after another on ``device`` (default: the stacks' device for
+    tensors, else ``default_device()``).
+
+    The TG-218 sub-voxel search of ops.gamma.gamma_index: one fine-grid
+    upsample (ops.gamma.upsample_to_fine) and the offset scan per pair,
+    exact up to ``cap``; each pair normalises to max(ref), in float32 as
+    the JAX package's batch does. Returns a dict of (B,) numpy arrays:
+    pass_rate, mean, max (float32), analysed_voxels (exact int32),
+    norm_dose, plus 'subdiv', 'search_offsets' and, with
+    ``return_maps``, the (B, Z, Y, X) 'gamma' maps. An all-zero
+    reference reports pass rate 100 with 0 analysed voxels (the per-pair
+    path raises instead).
+    """
+    import numpy as np
+
+    from ..ops.gamma import _gamma_map, fine_grid_layout, upsample_to_fine
+
+    _no_mesh("gamma_batch", mesh)
+    if ref_doses.shape != eval_doses.shape or len(ref_doses.shape) != 4:
+        raise ValueError("gamma_batch: expected matching (B, Z, Y, X) "
+                         f"stacks, got {tuple(ref_doses.shape)} vs "
+                         f"{tuple(eval_doses.shape)}")
+    if cap < 1.0:
+        raise ValueError(f"gamma_batch: cap must be >= 1, got {cap}")
+    if device is None:
+        device = ref_doses.device if isinstance(ref_doses, torch.Tensor) \
+            else default_device()
+    layout = fine_grid_layout(spacing, dta_mm, subdiv, cap)
+    s, r = layout[0], layout[1]
+    opts = dict(dtype=torch.float32, device=device)
+    pct = torch.tensor(np.float32(dose_pct / 100.0), **opts)
+    thr = torch.tensor(np.float32(threshold_pct / 100.0), **opts)
+    tiny = torch.tensor(np.float32(1e-6), **opts)
+
+    stats, maps = {k: [] for k in ("pass_rate", "mean", "max",
+                                   "analysed_voxels", "norm_dose")}, []
+    for b in range(ref_doses.shape[0]):
+        ref_v = torch.as_tensor(ref_doses[b], **opts)
+        ev_v = torch.as_tensor(eval_doses[b], **opts)
+        norm = ref_v.max()
+        norm_safe = torch.maximum(norm, tiny)
+        if local:
+            dd = pct * torch.maximum(ref_v.abs(), tiny * norm_safe)
+            dd2 = dd * dd
+        else:
+            dd = pct * norm_safe
+            dd2 = dd * dd
+        gam = _gamma_map(ref_v, upsample_to_fine(ev_v, s, r), dd2, layout,
+                         dta_mm, cap)
+        mask = (ref_v >= thr * norm) & (norm > 0)
+        n = mask.sum()
+        nf = torch.clamp(n, min=1).to(torch.float32)
+        zero = torch.zeros((), **opts)
+        passed = (mask & (gam <= 1.0)).sum().to(torch.float32)
+        stats["pass_rate"].append(torch.where(
+            n > 0, passed / nf * 100.0, torch.full((), 100.0, **opts)))
+        stats["mean"].append(torch.where(mask, gam, zero).sum() / nf)
+        stats["max"].append(torch.where(mask, gam, zero).max())
+        stats["analysed_voxels"].append(n.to(torch.int32))
+        stats["norm_dose"].append(norm)
+        if return_maps:
+            maps.append(gam)
+    out = {k: torch.stack(v).cpu().numpy() for k, v in stats.items()}
+    out["subdiv"] = s
+    out["search_offsets"] = int(len(layout[3]))
+    if return_maps:
+        out["gamma"] = torch.stack(maps).cpu().numpy()
+    return out

@@ -5,10 +5,12 @@ constructor, the view operations (``ViewOpsMixin``, the off-axis reslice
 of the image Display), ``create_volume``, ``compute_dose_statistics``,
 ``compute_roi_dose_array`` (the dose grid resampled onto the image grid by
 the warp kernel's ``affine`` mode, background 0 Gy),
-``compute_roi_dose_statistics`` (ops/dvh) and ``compute_dvh_curve``
-(ops/hist, the CUDA histogram kernel on the card). Gamma, isodose
-contours, radiobiology, the RTDOSE writer, save/load and
-``evaluate_constraints`` raise naming their ROADMAP.md items.
+``compute_roi_dose_statistics`` (ops/dvh), ``compute_dvh_curve``
+(ops/hist, the CUDA histogram kernel on the card), the plan-QA methods
+``evaluate_constraints`` (utils/dose), ``compute_gamma`` (the evaluated
+dose resampled onto the fine search grid by the ``affine`` mode, then
+ops/gamma) and the radiobiology (utils/radiobiology). Isodose contours,
+the RTDOSE writer and save/load raise naming their ROADMAP.md items.
 """
 
 from __future__ import annotations
@@ -173,16 +175,120 @@ class Dose(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
         volume_percent = 100.0 * (1.0 - below / dose_in_roi.numel())
         return bins, volume_percent
 
-    evaluate_constraints = _waits("evaluate_constraints",
-                                  "item 8, utils/dose")
-    compute_gamma = _waits("compute_gamma", "item 8, ops/gamma")
+    # -- plan QA -----------------------------------------------------------
+    def evaluate_constraints(self, goals, image_name=None):
+        """Evaluate clinical DVH goals ({roi: ['D95% >= 70Gy',
+        'V20Gy <= 35%', ...]}) against this dose; see
+        utils/dose.evaluate_constraints."""
+        from ..utils.dose import evaluate_constraints
+        return evaluate_constraints(self, goals, image_name=image_name)
+
+    def compute_gamma(self, dose_name, dose_pct=3.0, dta_mm=3.0,
+                      local=False, norm_dose=None, threshold_pct=10.0,
+                      subdiv=None, cap=2.0, chunk=None):
+        """3-D gamma analysis of another registered dose (a name or a
+        Dose) against this one (this grid is the reference). The
+        evaluated dose is resampled in one trilinear interpolation from
+        its own grid onto the TG-218 fine search grid aligned with this
+        grid (the warp kernel's ``affine`` mode, background ``_OUTSIDE``),
+        then ops/gamma.gamma_index scans the offsets on the same device.
+        Returns the gamma map on this grid plus pass rate / mean / max
+        over the >= threshold region."""
+        from ..ops.gamma import (_OUTSIDE, fine_grid_layout,
+                                 fine_grid_shape, fine_to_ref_pixel_matrix,
+                                 gamma_index)
+
+        other = Data.dose[dose_name] if isinstance(dose_name, str) \
+            else dose_name
+        layout = fine_grid_layout(self.spacing, dta_mm, subdiv, cap)
+        s, r = layout[0], layout[1]
+        A = compose_pixel_matrix(
+            other.matrix, other.spacing, other.origin,
+            self.matrix, self.spacing, self.origin
+        ).astype(np.float64) @ fine_to_ref_pixel_matrix(s, r)
+        # array.shape, not self.dimensions: non-axial doses keep
+        # dimensions in (x, y, z)-permuted order while the array is zyx
+        fine = affine_resample(
+            np.asarray(other.array, np.float32), A.astype(np.float32),
+            fine_grid_shape(tuple(np.asarray(self.array).shape), s, r),
+            background=float(_OUTSIDE), device=default_device())
+        return gamma_index(np.asarray(self.array, np.float32), fine,
+                           self.spacing, dose_pct=dose_pct, dta_mm=dta_mm,
+                           local=local, norm_dose=norm_dose,
+                           threshold_pct=threshold_pct, subdiv=subdiv,
+                           cap=cap, chunk=chunk, layout=layout)
+
     compute_isodose_contours = _waits(
         "compute_isodose_contours", "item 6, MaskToContour without cv2")
-    compute_eqd2 = _waits("compute_eqd2", "item 8, utils/radiobiology")
-    compute_bed = _waits("compute_bed", "item 8, utils/radiobiology")
-    compute_geud = _waits("compute_geud", "item 8, utils/radiobiology")
-    compute_ntcp = _waits("compute_ntcp", "item 8, utils/radiobiology")
-    compute_tcp = _waits("compute_tcp", "item 8, utils/radiobiology")
+
+    # -- radiobiology (host float64 numpy, as the JAX package) -------------
+    def _register_converted(self, out, kind, n_fractions, alpha_beta,
+                            name):
+        from ..utils.dose import register_dose_grid
+        return register_dose_grid(
+            out, self, name=name,
+            description=f"{kind}(ab={float(alpha_beta):g}) of "
+                        f"{self.dose_name}",
+            misc={"source_dose": self.dose_name,
+                  "alpha_beta": float(alpha_beta),
+                  "n_fractions": float(n_fractions)})
+
+    def compute_eqd2(self, n_fractions, alpha_beta, name=None,
+                     register=True):
+        """Voxel-wise EQD2 grid (LQ model, utils/radiobiology.eqd2). With
+        ``register`` (default) the converted grid becomes a first-class
+        Dose, so every DVH analytic and gamma works on it."""
+        from ..utils.radiobiology import eqd2
+
+        out = eqd2(np.asarray(self.array, np.float32), n_fractions,
+                   alpha_beta)
+        if not register:
+            return out
+        return self._register_converted(out, "EQD2", n_fractions,
+                                        alpha_beta, name)
+
+    def compute_bed(self, n_fractions, alpha_beta, name=None,
+                    register=True):
+        """Voxel-wise BED grid (utils/radiobiology.bed)."""
+        from ..utils.radiobiology import bed
+
+        out = bed(np.asarray(self.array, np.float32), n_fractions,
+                  alpha_beta)
+        if not register:
+            return out
+        return self._register_converted(out, "BED", n_fractions,
+                                        alpha_beta, name)
+
+    def compute_geud(self, image_name, roi_name, a):
+        """Generalized EUD of this dose over an ROI."""
+        from ..utils.radiobiology import geud
+        return geud(self.compute_roi_dose_array(image_name, roi_name), a)
+
+    def compute_ntcp(self, image_name, roi_name, td50, m=None, n=None,
+                     gamma50=None, a=None, model="lkb"):
+        """NTCP of an organ ROI: ``model='lkb'`` (probit, needs m and n)
+        or ``'logistic'`` (Niemierko, needs gamma50 and a)."""
+        from ..utils.radiobiology import ntcp_lkb, ntcp_logistic
+
+        dose_in_roi = self.compute_roi_dose_array(image_name, roi_name)
+        if model == "lkb":
+            if m is None or n is None:
+                raise ValueError("LKB NTCP needs m and n")
+            return ntcp_lkb(dose_in_roi, td50, m, n)
+        if model == "logistic":
+            if gamma50 is None or a is None:
+                raise ValueError("logistic NTCP needs gamma50 and a")
+            return ntcp_logistic(dose_in_roi, td50, gamma50, a)
+        raise ValueError(f"unknown NTCP model {model!r}")
+
+    def compute_tcp(self, image_name, roi_name, tcd50, gamma50,
+                    a=-10.0):
+        """Logistic TCP of a target ROI (utils/radiobiology)."""
+        from ..utils.radiobiology import tcp_logistic
+        return tcp_logistic(
+            self.compute_roi_dose_array(image_name, roi_name), tcd50,
+            gamma50, a)
+
     create_rtdose = _waits("create_rtdose", "item 8, the RTDOSE writer")
     save_image = _waits("save_image", "item 8, dose save/load")
     load_image = classmethod(_waits("load_image", "item 8, dose save/load"))

@@ -1,5 +1,6 @@
 """Utilities: the synthetic DICOM series writer, contour conversion,
-metrics and the deformable backend.
+metrics, dose accumulation and goals, radiobiology, ROI margins and the
+deformable backend.
 
 The exports match the JAX package's utils/__init__.py, lazily. The names
 it exports that the port has not ported yet stand in as callables that
@@ -13,19 +14,20 @@ _LAZY = {
     "DeformableITK": ("deformable.torch_backend", "DeformableITK"),
     "DeformableJAX": ("deformable.torch_backend", "DeformableJAX"),
     "CreateDicomImage": ("creation", "CreateDicomImage"),
+    **{n: ("dose", n) for n in ("accumulate_dose", "register_dose_grid",
+                                "evaluate_constraints")},
+    **{n: ("radiobiology", n) for n in ("bed", "eqd2", "geud", "ntcp_lkb",
+                                        "ntcp_logistic", "tcp_logistic")},
+    **{n: ("metrics", n) for n in ("dice_coefficient", "jaccard_index",
+                                   "hausdorff_distance",
+                                   "mean_surface_distance", "surface_dice",
+                                   "compare_rois")},
 }
 
 _WAITING = {
     "CreateImageFromMask": "item 2, utils/creation",
     **dict.fromkeys(("external", "euler_transform", "contours_from_mask"),
                     "item 6, structure layer"),
-    **dict.fromkeys(("accumulate_dose", "register_dose_grid",
-                     "evaluate_constraints"), "item 8, utils/dose"),
-    **dict.fromkeys(("bed", "eqd2", "geud", "ntcp_lkb", "ntcp_logistic",
-                     "tcp_logistic"), "item 8, utils/radiobiology"),
-    **dict.fromkeys(("dice_coefficient", "jaccard_index",
-                     "hausdorff_distance", "mean_surface_distance",
-                     "surface_dice", "compare_rois"), "item 8, utils/metrics"),
     **dict.fromkeys(("ModelToMask", "Volume", "TriMesh", "Refinement",
                      "clean_mesh", "expansion", "surface_boundary",
                      "only_main_component", "ICP"), "item 9, mesh"),

@@ -194,7 +194,7 @@ def test_roi_dose_array_and_dvh_match_jax(tmp_path):
     # on the CPU the plain twin ran: no kernel launch
     assert thist.LAUNCHES["dose_hist"] == before
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        td.compute_gamma("RTDOSE 01")
+        td.compute_isodose_contours()
 
 
 def test_dvh_batch_agrees_with_per_roi_statistics(tmp_path):
