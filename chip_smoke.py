@@ -50,7 +50,17 @@ on the reference series and the fitted rigid (the lane_interp kernel is
 then held against its plain twin at the passes this path ran), the
 oblique entry ops/warp.affine_warp_oblique called alone at the display's
 map (no path calls it; its launches are counted apart), and the cohort
-preprocess at the bench shape. Each phase prints one JSON line; any failure raises
+preprocess at the bench shape. Between the plan-QA and the view paths
+runs the ROI mesh path
+
+    Image.create_external -> Roi.create_mesh / create_discrete_mesh /
+        create_display_mesh (marching tetrahedra and smoothing on the
+        card) -> Roi.convert_mask (the port's C++ border tracer, no cv2)
+        -> Image.create_roi_from_margin / create_roi_from_boolean ->
+        Dose.compute_isodose_contours -> Rigid.update_translation and
+        Deformable.update_rois with visible meshes (the coords mode)
+
+on the dose-QA folder. Each phase prints one JSON line; any failure raises
 and exits non-zero. Near the end it
 prints the card's name and power limit (nvidia-smi) and a JSON line with
 every kernel's launches, error, times, bound and ms lost; the last line is
@@ -149,11 +159,13 @@ GAMMA_SHIFT_MM = 1.0
 GAMMA_SCALE = 1.05
 GAMMA_BRUTE_VOXELS = 2000
 MARGIN_MM = 5.0
+EXTERNAL_HU = -250                          # create_external's default
 # the card's published peaks (H100 SXM at 700 W): the bound of a kernel
 # is the larger of its bytes over the memory rate and its operations
 # over the float32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 34e12            # float64 outside the tensor cores
 SLEEP_CYCLES = 20_000_000        # cuda_ms's hold: ~10 ms at 1.98 GHz
 LEAD_CYCLES = 2_000              # a profile window's short lead sleeps
 
@@ -324,33 +336,47 @@ def check_profile(name, p):
     assert not missing, f"{name}: no {missing} kernel among {p['top_ms']}"
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, ops_per_s=F32_OPS_PER_S):
     """The least time the card could take for a kernel's work: (ms,
-    'bytes' or 'operations')."""
+    'bytes' or 'operations'); ``ops`` at ``ops_per_s`` (float32 unless
+    named)."""
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * ops / F32_OPS_PER_S
+    t_ops = 1e3 * ops / ops_per_s
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def plain_program_rows(profiles, plan):
-    """The JAX package's XLA programs on the plan-QA path that run as
-    plain PyTorch on the card (no hand kernel yet): device ms and device
-    events under the profiler against the bound of their work. The full-size squared EDT:
-    a bool mask read, float32 distances written, an add and a min per
-    (voxel, line position) pair of each of the three passes.
-    compute_gamma at 3 %/3 mm: both doses read, the map written, 30
-    operations per fine-grid sample of the resample and 5 per (offset,
-    voxel) of the scan."""
+def plain_program_rows(profiles, plan, mesh_work):
+    """The JAX package's programs on the plan-QA and ROI mesh paths that
+    run as plain PyTorch on the card (no hand kernel yet): device ms and
+    device events under the profiler against the bound of their work.
+    The full-size squared EDT: a bool mask read, float32 distances
+    written, an add and a min per (voxel, line position) pair of each of
+    the three passes. compute_gamma at 3 %/3 mm: both doses read, the map
+    written, 30 operations per fine-grid sample of the resample and 5 per
+    (offset, voxel) of the scan. The marching-tetrahedra table pass of
+    the external's mask: the uint8 mask read, float32 points and int32
+    faces written. taubin_smooth of its mesh (40 umbrella steps): float64
+    points and int32 faces read, points written; per step 3 adds per
+    directed edge and 12 float64 operations per point."""
     Z, Y, X = plan["edt_shape"]
     n = Z * Y * X
     w = plan["gamma_work"]
+    mc, tb = mesh_work["mesh"], mesh_work["taubin"]
     work = {
         "edt": ("medicalimageanalysis_tpu/ops/edt.py:93",
                 bound(5 * n, 2 * n * (X + Y + Z))),
         "compute_gamma": ("medicalimageanalysis_tpu/ops/gamma.py:93",
                           bound(4 * (2 * w["ref"] + w["eval"]),
                                 5 * w["offsets"] * w["ref"]
-                                + 30 * w["fine"]))}
+                                + 30 * w["fine"])),
+        "marching_tetrahedra": (
+            "medicalimageanalysis_tpu/ops/marching_cubes.py:217",
+            bound(mc["voxels"] + 12 * mc["points"] + 12 * mc["faces"], 0)),
+        "taubin_smooth": (
+            "medicalimageanalysis_tpu/utils/mesh/surface.py:75",
+            bound(48 * tb["points"] + 12 * tb["faces"],
+                  tb["steps"] * (6 * tb["edges"] + 12 * tb["points"]),
+                  F64_OPS_PER_S))}
     rows = {}
     for name, (replaces, (b, by)) in work.items():
         p = profiles[name]
@@ -360,6 +386,8 @@ def plain_program_rows(profiles, plan):
                           bound_by=by, share_of_bound=b / p["device_ms"],
                           device_share=p["device_share"])
     rows["compute_gamma"]["search_offsets"] = w["offsets"]
+    rows["marching_tetrahedra"].update(mc)
+    rows["taubin_smooth"].update(tb)
     return rows
 
 
@@ -392,8 +420,9 @@ def phase_device():
 
 
 def phase_build():
-    """The three CUDA sources and the C++ DICOM scanner, built at once
-    (one compiler process each)."""
+    """The three CUDA sources, the C++ DICOM scanner and the C++ contour
+    tracer, built at once (one compiler process each)."""
+    from medicalimageanalysis_torch.native import get_trace_lib
     from medicalimageanalysis_torch.ops._build import (
         build_library, load_hist_library, load_lane_interp_library,
         load_warp_library)
@@ -406,12 +435,14 @@ def phase_build():
 
     t0 = time.perf_counter()
     sources = ("warp", "hist", "lane_interp")
-    with ThreadPoolExecutor(max_workers=len(sources) + 1) as pool:
+    with ThreadPoolExecutor(max_workers=len(sources) + 2) as pool:
         builds = {name: pool.submit(timed, build_library, name)
                   for name in sources}
         scanner = pool.submit(timed, load_native_scanner)
+        tracer = pool.submit(timed, get_trace_lib)
         built = {name: job.result() for name, job in builds.items()}
         lib, scanner_s = scanner.result()
+        _, tracer_s = tracer.result()
     assert lib is not None, "DICOM scanner did not build"
     load_warp_library()
     load_hist_library()
@@ -422,7 +453,7 @@ def phase_build():
                 if "registers" in ln or "spill" in ln]
 
     emit("build", seconds=time.perf_counter() - t0,
-         scanner_seconds=scanner_s,
+         scanner_seconds=scanner_s, tracer_seconds=tracer_s,
          **{f"{name}_seconds": sec for name, (_, sec) in built.items()},
          libraries=[os.path.relpath(path) for (path, _), _ in built.values()],
          **{f"ptxas_{name}": regs(ptxas)
@@ -2042,6 +2073,313 @@ def phase_plan_qa(names, img_name, dose_name, dev):
         edt=lambda: squared_edt(body, sp), edt_shape=tuple(body.shape))
 
 
+def mesh_equal(a, b):
+    return (a.points.shape == b.points.shape
+            and np.array_equal(a.points, b.points)
+            and np.array_equal(a.faces, b.faces))
+
+
+@contextlib.contextmanager
+def recording(module, name):
+    """Within the block, ``module.name`` records what each call returns
+    in the list yielded."""
+    fn, seen = getattr(module, name), []
+
+    def record(*args, **kwargs):
+        seen.append(fn(*args, **kwargs))
+        return seen[-1]
+
+    setattr(module, name, record)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, fn)
+
+
+def carry_meshes(image, meshes, poi):
+    """ROIs holding ``meshes`` (name -> TriMesh), visible, and a POI
+    "Iso" at ``poi`` (mm) on ``image``: structures to carry across a
+    registration whose moving image it is."""
+    for name, mesh in meshes.items():
+        image.create_roi(name=name, visible=True)
+        image.rois[name].update_mesh(mesh)
+    image.add_poi("Iso", point=np.asarray(poi, np.float64))
+
+
+def drop_structures(names, images=None, pois=("Iso",)):
+    """Remove the ROIs ``names`` and the POIs ``pois`` from ``images``
+    (default every image); the registry's sync then gives back an empty
+    ROI of each name another image still contours."""
+    from medicalimageanalysis_torch.data import Data
+
+    for image in Data.image.values() if images is None else images:
+        for name in names:
+            image.rois.pop(name, None)
+        for name in pois:
+            image.pois.pop(name, None)
+    Data.match_rois()
+    Data.match_pois()
+
+
+def phase_roi_mesh(names, img_name, dose_name, rigid, dev):
+    """The ROI mesh path on the dose-QA folder's CT (128 x 512 x 512), 7
+    ROIs and RTDOSE: Image.create_external (the card's threshold, scipy's
+    labelling) held bit-equal to the recipe on the host; per ROI and the
+    external, the table path on the card held bit-equal to the native
+    host twin, then create_mesh / create_discrete_mesh /
+    create_display_mesh; a PTV round trip (convert_mask); a 5 mm margin
+    ROI and a ring (margin - PTV); isodose contours at 9 levels, each
+    level's round trip at its fixed point; a Rigid nudge and
+    Deformable.update_rois (percent 100 and 50) through the demons field
+    with the meshes visible on the moving images, the mesh warp's
+    launches counted. Returns what phase_mesh_warp needs after the
+    path's launch counts are read."""
+    import medicalimageanalysis_torch as mia
+    from medicalimageanalysis_torch.data import Data
+    from medicalimageanalysis_torch.ops import geometry as geo
+    from medicalimageanalysis_torch.ops.marching_cubes import (
+        marching_cubes_host, marching_cubes_mask)
+    from medicalimageanalysis_torch.ops.warp import LAUNCHES
+    from medicalimageanalysis_torch.utils.convert.contour import (
+        _rasterize_plane)
+    from medicalimageanalysis_torch.utils.image import threshold
+    from medicalimageanalysis_torch.utils.metrics import voxel_volume_cc
+    from scipy import ndimage
+
+    img, dose = Data.image[img_name], Data.dose[dose_name]
+    roi_names = [n for n in img.rois if img.rois[n].contour_pixel is not None]
+    step_ms = {}
+
+    def timed(key, fn):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        step_ms[key] = 1e3 * (time.perf_counter() - t0)
+        return out
+
+    # the external contour: the threshold on the card, the labelling,
+    # largest component and per-slice fill on the host
+    arr = img.array
+    binary = timed("threshold_and_download", lambda: (
+        torch.as_tensor(arr, device=dev) > EXTERNAL_HU).cpu().numpy())
+    assert np.array_equal(binary, arr > EXTERNAL_HU)
+    timed("label_26", lambda: ndimage.label(binary,
+                                            structure=np.ones((3, 3, 3))))
+    del binary
+    with recording(threshold, "external") as seen:
+        ext = timed("create_external", lambda: img.create_external(
+            name="External", threshold=EXTERNAL_HU))
+    host = timed("external_host", lambda: threshold.external(
+        arr, EXTERNAL_HU, device="cpu"))
+    assert len(seen) == 1 and np.array_equal(seen[0], host), \
+        "external: card mask != host recipe"
+    ext_voxels = int(host.sum())
+    del seen, host
+
+    # every ROI's mesh: the card's table path against the host twin on
+    # the same mask, then the Roi's three mesh builds
+    vox_cc = voxel_volume_cc(img.spacing)
+    p2p = geo.pixel_to_position_matrix(img.matrix, img.spacing, img.origin)
+    rows, meshes, work = {}, {}, {}
+    for n in roi_names + ["External"]:
+        roi = img.rois[n]
+        mask = roi.compute_mask()
+        mask_t = torch.as_tensor(mask, device=dev)
+        on_card = timed(f"{n}_table_card",
+                        lambda: marching_cubes_mask(mask_t))
+        on_host = timed(f"{n}_table_host", lambda: marching_cubes_host(mask))
+        assert mesh_equal(on_card, on_host), f"{n}: card table path != host"
+        timed(f"{n}_create_mesh", roi.create_mesh)
+        smoothed = roi.mesh
+        timed(f"{n}_create_discrete_mesh", roi.create_discrete_mesh)
+        assert mesh_equal(roi.mesh, on_card.transform(p2p, inplace=False)), \
+            f"{n}: discrete mesh != its table path"
+        discrete = roi.mesh
+        timed(f"{n}_create_display_mesh", roi.create_display_mesh)
+        mask_cc = float(mask.sum()) * vox_cc
+        for label, m in (("smoothed", smoothed), ("display", roi.mesh)):
+            assert np.isfinite(m.points).all() and m.faces.shape == \
+                discrete.faces.shape, (n, label)
+        ratio = discrete.volume / 1e3 / mask_cc
+        assert 0.85 < ratio < 1.05, (n, ratio)
+        rows[n] = dict(voxels=int(mask.sum()), points=discrete.n_points,
+                       faces=discrete.n_cells, mask_cc=mask_cc,
+                       discrete_over_mask=ratio,
+                       display_over_mask=roi.mesh.volume / 1e3 / mask_cc,
+                       **{k: step_ms[f"{n}_{k}"] for k in (
+                           "table_card", "table_host", "create_mesh",
+                           "create_discrete_mesh", "create_display_mesh")})
+        meshes[n] = roi.mesh
+        if n == "External":
+            work["mesh"] = dict(voxels=int(mask.size), points=on_card.n_points,
+                                faces=on_card.n_cells)
+            body_mask, body_discrete = mask_t, discrete
+        del mask_t
+    assert rows["External"]["voxels"] > 0.9 * ext_voxels
+
+    # a PTV round trip through a ROI of its own: mask -> contours ->
+    # mask gives the mask back
+    ptv = img.rois["PTV"].compute_mask()
+    img.create_roi(name="PTV_trip")
+    timed("ptv_convert_mask", lambda: img.rois["PTV_trip"].convert_mask(ptv))
+    assert np.array_equal(img.rois["PTV_trip"].compute_mask(), ptv), \
+        "PTV round trip changed the mask"
+    ptv_trip = dict(contours=len(img.rois["PTV_trip"].contour_pixel),
+                    voxels=int(ptv.sum()))
+
+    # a 5 mm margin ROI (the card's EDT) and a ring around the PTV
+    grown = timed("create_roi_from_margin", lambda: img.create_roi_from_margin(
+        "PTV_5mm", "PTV", MARGIN_MM)).compute_mask()
+    ring = timed("create_roi_from_boolean",
+                 lambda: img.create_roi_from_boolean(
+                     "Ring", "subtract", "PTV_5mm", "PTV")).compute_mask()
+    interior = ndimage.binary_erosion(ptv > 0)
+    assert not (ring.astype(bool) & interior).any(), "ring enters the PTV"
+    assert np.all(grown >= ptv), "the margin lost PTV voxels"
+    margin = dict(margin_mm=MARGIN_MM, grown_voxels=int(grown.sum()),
+                  ring_voxels=int(ring.sum()))
+
+    # isodose contours at 9 levels: each level's contours rasterize back
+    # to its thresholded mask on the dose grid
+    iso = timed("isodose_contours", lambda: dose.compute_isodose_contours())
+    assert len(iso) == 9, list(iso)
+    d_arr = np.asarray(dose.array, np.float32)
+    levels = {}
+    for gy, (pix, pos) in iso.items():
+        level = (d_arr >= gy).astype(np.uint8)
+        back = _rasterize_plane(pix, d_arr.shape, "Axial")
+        assert np.array_equal(back, level), f"isodose {gy}: round trip"
+        assert len(pos) == len(pix) > 0, gy
+        levels[f"{gy:.3f}"] = dict(contours=len(pix),
+                                   voxels=int(level.sum()))
+
+    # the meshes visible on the moving images: a Rigid nudge, then the
+    # deformable contour propagation
+    mov, deformed = Data.image[names["mov"]], Data.image[names["deformed"]]
+    carry_meshes(mov, meshes, PTV_CENTER_MM)
+    carry_meshes(deformed, meshes, PTV_CENTER_MM)
+    nudge = mia.Rigid(names["ref"], names["mov"],
+                      matrix=np.array(rigid.matrix, np.float64))
+    timed("rigid_nudge", lambda: nudge.update_translation(t_x=VIEW_NUDGE_MM))
+    T = np.linalg.inv(nudge.matrix @ nudge.combo_matrix)
+    for n, mesh in meshes.items():
+        assert mesh_equal(nudge.rois[n], mesh.transform(T, inplace=False)), n
+    iso_mm = nudge.update_pois()["Iso"]
+    assert np.allclose(iso_mm, (T @ np.append(PTV_CENTER_MM, 1.0))[:3])
+
+    deform = Data.deformable[f"DVF_{names['ref']}_{names['deformed']}"]
+    before = LAUNCHES["warp_coords"]
+    timed("deformable_update_rois", deform.update_rois)
+    launches = LAUNCHES["warp_coords"] - before
+    # one launch a mesh on the card (a CPU rehearsal runs the plain twin)
+    assert launches == len(meshes) or torch.device(dev).type == "cpu", \
+        (launches, len(meshes))
+    full = {n: deform.rois[n].points - deform.rigid_rois[n].points
+            for n in meshes}
+    timed("deformable_update_rois_50", lambda: deform.update_rois(percent=50))
+    moved = 0.0
+    for n in meshes:
+        half = deform.rois[n].points - deform.rigid_rois[n].points
+        assert np.isfinite(full[n]).all()
+        # a field scaled by 0.5 samples to exactly half the displacement
+        # (the differences of mm positions round at 1e-13 mm)
+        assert np.allclose(half, 0.5 * full[n], rtol=0, atol=1e-9), n
+        moved = max(moved, float(np.abs(full[n]).max()))
+    assert 0.5 < moved < 2 * BUMP_MM, moved
+    pois = deform.update_pois()
+    assert np.all(np.isfinite(pois["Iso"]))
+
+    emit("roi_mesh", shape=list(SHAPE), rois=len(roi_names) + 1,
+         external_voxels=ext_voxels, external_equal_host=True,
+         tables_equal_host=True, per_roi=rows, ptv_round_trip=ptv_trip,
+         margin=margin, isodose=levels, mesh_warp_launches=launches,
+         mesh_warp_max_mm=moved, step_ms=step_ms)
+
+    def cleanup():
+        """The structures and the Rigid this path added, removed."""
+        drop_structures(["External", "PTV_trip", "PTV_5mm", "Ring"])
+        drop_structures(roi_names, [mov, deformed])
+        Data.rigid.pop(nudge.rigid_name)
+        Data.rigid_list.remove(nudge.rigid_name)
+
+    return dict(deform=deform, body_mask=body_mask,
+                body_discrete=body_discrete, external=ext, work=work,
+                cleanup=cleanup)
+
+
+def mesh_taps(planar, cz, cy, cx):
+    """The number of distinct field voxels among the 8 trilinear taps of
+    the points (cz, cy, cx), clamped to the grid as the kernel clamps."""
+    _, Z, Y, X = planar.shape
+    corners = []
+    for c, n in ((cz, Z), (cy, Y), (cx, X)):
+        lo = torch.floor(c.reshape(-1)).clamp(0, n - 1).to(torch.int64)
+        corners.append((lo, (lo + 1).clamp(max=n - 1)))
+    taps = torch.cat([(z * Y + y) * X + x for z in corners[0]
+                      for y in corners[1] for x in corners[2]])
+    return int(torch.unique(taps).numel())
+
+
+def phase_mesh_warp(path, dev):
+    """After the ROI mesh path: its mesh warp's warp_coords launch at the
+    Body's points against the plain version on the same tensors (bit-
+    equal), timed with its bound; then the profiles of a mesh build, the
+    marching-tetrahedra pass, the Taubin smoothing and the mesh warp.
+    Removes the path's ROIs and its Rigid. Returns the kernel row (with
+    the launch shape it times), the profiles and the work sizes of their
+    bounds."""
+    from medicalimageanalysis_torch.device import as_f32
+    from medicalimageanalysis_torch.ops.marching_cubes import (
+        marching_cubes_mask)
+    from medicalimageanalysis_torch.ops.registration.dvf import (
+        point_sample_inputs)
+    from medicalimageanalysis_torch.ops.warp import warp_coords_plain
+    from medicalimageanalysis_torch.utils.mesh.surface import (
+        _adjacency, taubin_smooth)
+
+    deform, body = path["deform"], path["body_discrete"]
+    args = point_sample_inputs(as_f32(deform.dvf, dev),
+                               deform.rigid_rois["External"].points,
+                               deform.origin, deform.spacing)
+    op = torch.ops.mia_torch.warp_coords
+    k = op(*args, 0.0, False)[0]
+    p = warp_coords_plain(*args, 0.0, False)[0]
+    torch.cuda.synchronize()
+    err = max_abs(k, p)
+    assert err == 0.0, f"mesh warp: kernel != plain ({err})"
+    n_pts = int(args[1].numel())
+    row = dict(max_abs_err=err, points=n_pts, taps=mesh_taps(*args),
+               ms=cuda_ms(lambda: op(*args, 0.0, False)),
+               plain_ms=cuda_ms(lambda: warp_coords_plain(*args, 0.0, False),
+                                reps=3, warmup=1))
+    # what these points need: the 3 components of each field voxel among
+    # their taps read once, the coordinates read, the samples written;
+    # 30 float32 operations a sample
+    row["bound_ms"], row["bound_by"] = bound(
+        4 * (3 * row["taps"] + 3 * n_pts + 3 * n_pts), 3 * 30 * n_pts)
+    del args, k, p
+    emit("mesh_warp", tolerance=0.0, **row)
+    row["shape"] = (1, 1, n_pts)
+
+    edges = _adjacency(torch.as_tensor(body.faces, dtype=torch.int64,
+                                       device=dev)).shape[0]
+    work = dict(path["work"], taubin=dict(
+        points=body.n_points, faces=body.n_cells, edges=int(edges),
+        steps=40))
+    body_mask = path["body_mask"]
+    profiles = {
+        "mesh_build": profile_device(path["external"].create_discrete_mesh),
+        "marching_tetrahedra": profile_device(
+            lambda: marching_cubes_mask(body_mask)),
+        "taubin_smooth": profile_device(lambda: taubin_smooth(body)),
+        "mesh_warp": profile_device(deform.update_rois, ["warp_coords"])}
+    path["cleanup"]()
+    path.clear()
+    torch.cuda.empty_cache()
+    return dict(kernel_row=row, profiles=profiles, work=work)
+
+
 def shear_against_exact(shear, exact, dev):
     """(share of voxels whose valid masks agree, mean |diff| in HU over
     the voxels valid in both and 2 voxels inside them: a 5^3 box
@@ -2594,6 +2932,18 @@ def main():
         plan_qa_launches = launch_counts()  # ... and ends here
         shapes["plan_qa"] = launch_shapes()
         torch.cuda.empty_cache()
+        reset_counts()                     # the ROI mesh path starts here
+        mesh_path = phase_roi_mesh(names, img_name, dose_name, rigid, dev)
+        roi_mesh_launches = launch_counts()  # ... and ends here
+        shapes["roi_mesh"] = launch_shapes()
+        mesh = phase_mesh_warp(mesh_path, dev)
+        del mesh_path
+        # the mesh warp's launch at the external's points, timed
+        row = mesh["kernel_row"]
+        coords = kernels["warp_coords"]
+        coords["timed"][timed_key(3, False, row.pop("shape"))] = row
+        coords["max_abs_err"] = max(coords["max_abs_err"], row["max_abs_err"])
+        coords["mesh_warp"] = row
         reset_counts()                     # the view path starts here
         view = phase_view(names, rigid, dev)
         view_launches = launch_counts()    # ... and ends here
@@ -2617,6 +2967,8 @@ def main():
     assert all(plan_qa_launches[k] for k in
                ("warp_affine", "warp_coords", "warp_disp")), \
         f"a kernel of the plan-QA path never launched: {plan_qa_launches}"
+    assert roi_mesh_launches["warp_coords"], \
+        f"the ROI mesh path never launched warp_coords: {roi_mesh_launches}"
     # three lane_interp passes per shear reslice; the exact reslices (the
     # display, its volume bundle, two Rigid nudges and two comparisons).
     # No view route reaches the oblique entry: affine_resample keeps the
@@ -2630,10 +2982,11 @@ def main():
     assert oblique_launches == dict(
         {k: 0 for k in oblique_launches}, warp_coords=1,
         warp_affine_shear=1), oblique_launches
-    # every kernel's launches on the six paths, and the warp launches by
+    # every kernel's launches on the seven paths, and the warp launches by
     # shape over them
     paths = (rigid_launches, cohort_launches, deformable_launches,
-             dose_qa_launches, plan_qa_launches, view_launches)
+             dose_qa_launches, plan_qa_launches, roi_mesh_launches,
+             view_launches)
     launches = {k: sum(p[k] for p in paths) for k in rigid_launches}
     all_shapes = {}
     for per_path in shapes.values():
@@ -2704,7 +3057,10 @@ def main():
             cohort[0], cohort[1], *cohort[2],
             levels=((RIGID_LEVELS[0][0], COHORT_PROFILE_STEPS,
                      RIGID_LEVELS[0][2]),),
-            intensity_scale=1.0 / 65535.0), ["warp_coords"])}
+            intensity_scale=1.0 / 65535.0), ["warp_coords"]),
+        # the ROI mesh path: a mesh build (the external), the
+        # marching-tetrahedra pass, the Taubin smoothing, the mesh warp
+        **mesh["profiles"]}
     descent = profiles["rigid"]
     descent["device_events_per_step"] = \
         descent["device_events"] / sum(s for _, s, _ in RIGID_LEVELS)
@@ -2717,6 +3073,8 @@ def main():
         profiles["demons_level"]["device_events"] / 50
     profiles["bspline"]["device_events_per_step"] = \
         profiles["bspline"]["device_events"] / 100
+    profiles["taubin_smooth"]["device_events_per_step"] = \
+        profiles["taubin_smooth"]["device_events"] / 40
     profiles["cohort_level"]["device_events_per_step"] = \
         profiles["cohort_level"]["device_events"] / (
             len(COHORT_POSES) + 1) / COHORT_PROFILE_STEPS
@@ -2726,13 +3084,15 @@ def main():
          launches_deformable_path=deformable_launches,
          launches_dose_qa_path=dose_qa_launches,
          launches_plan_qa_path=plan_qa_launches,
+         launches_roi_mesh_path=roi_mesh_launches,
          launches_view_path=view_launches,
          launches_oblique_entry=oblique_launches,
          launch_shapes={k: shape_rows(v) for k, v in shapes.items()},
          **profiles)
     for name, p in profiles.items():
         check_profile(name, p)
-    emit("plain_programs", **plain_program_rows(profiles, plan))
+    emit("plain_programs", **plain_program_rows(profiles, plan,
+                                                mesh["work"]))
     phase_preprocess(cpu_gen, dev)
     # the port and this script ran without JAX and without the JAX package
     loaded = sorted(m for m in sys.modules

@@ -17,18 +17,29 @@ import threading
 import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(_DIR, "dicomscan.cpp")
-# build/torch_ext/ at the root of the checkout (git-ignored), named by a
-# hash of the source and flags: never the JAX package's libmiadicom.so
 _FLAGS = ("-shared", "-fPIC", "-std=c++17", "-pthread")
-with open(_SRC, "rb") as _f:
-    _DIGEST = hashlib.sha256(_f.read() + " ".join(_FLAGS).encode()
-                             ).hexdigest()[:16]
-_SO = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "build",
-                   "torch_ext", f"libmia_torch_dicom_{_DIGEST}.so")
+
+
+def _so_path(stem, src):
+    """build/torch_ext/ at the root of the checkout (git-ignored), named by
+    a hash of the source and flags: never the JAX package's
+    libmiadicom.so."""
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(_FLAGS).encode()
+                                ).hexdigest()[:16]
+    return os.path.join(os.path.dirname(os.path.dirname(_DIR)), "build",
+                        "torch_ext", f"{stem}_{digest}.so")
+
+
+_SRC = os.path.join(_DIR, "dicomscan.cpp")
+_SO = _so_path("libmia_torch_dicom", _SRC)
+# the border tracer (contour_trace.cpp), a library of its own
+_TRACE_SRC = os.path.join(_DIR, "contour_trace.cpp")
 
 _lib = None
 _tried = False
+_trace_lib = None
+_trace_lock = threading.Lock()
 
 
 class Entry(ctypes.Structure):
@@ -44,7 +55,7 @@ ENTRY_DTYPE = np.dtype([("tag", np.uint32), ("vr", np.uint16),
                         ("len", np.uint64)])
 
 
-def _build():
+def _build(src=_SRC, so=_SO):
     # Build to a private temp path and os.replace into place: two
     # processes racing on first import (e.g. pytest + a bench script on
     # a fresh checkout) must never CDLL a half-written .so or clobber
@@ -53,14 +64,14 @@ def _build():
     # timeout is generous and a timed-out -O3 retries once at -O1
     # (compiles ~4x faster; only the inner decode loops care about -O3
     # and a slow-but-working library beats none).
-    tmp = f"{_SO}.tmp.{os.getpid()}"
-    os.makedirs(os.path.dirname(_SO), exist_ok=True)
+    tmp = f"{so}.tmp.{os.getpid()}"
+    os.makedirs(os.path.dirname(so), exist_ok=True)
     for opt in ("-O3", "-O1"):
         try:
             subprocess.run(
-                ["g++", opt, *_FLAGS, "-o", tmp, _SRC],
+                ["g++", opt, *_FLAGS, "-o", tmp, src],
                 check=True, capture_output=True, timeout=600)
-            os.replace(tmp, _SO)
+            os.replace(tmp, so)
             return True
         except subprocess.TimeoutExpired:
             continue
@@ -400,3 +411,62 @@ def pack12_native(arr_i16, lo, out_words, n_threads=0):
                    int(lo), out_words.ctypes.data_as(ctypes.c_void_p),
                    int(n_threads))
     return True
+
+
+def get_trace_lib():
+    """Load (building with g++ if needed) the border tracer's library.
+    Raises RuntimeError when it cannot be built or loaded: contours have
+    no other path."""
+    global _trace_lib
+    with _trace_lock:
+        if _trace_lib is not None:
+            return _trace_lib
+        so = _so_path("libmia_torch_trace", _TRACE_SRC)
+        if not os.path.exists(so) and not _build(_TRACE_SRC, so):
+            raise RuntimeError(
+                f"the contour tracer ({_TRACE_SRC}) did not build with g++")
+        lib = ctypes.CDLL(so)
+        lib.mia_trace_run.restype = ctypes.c_void_p
+        lib.mia_trace_run.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64)]
+        lib.mia_trace_fetch.restype = None
+        lib.mia_trace_fetch.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p]
+        _trace_lib = lib
+        return lib
+
+
+def trace_external(stack):
+    """Outer borders of each 2-D slice of ``stack`` ((S, H, W) or (H, W),
+    any nonzero pixel is foreground), as OpenCV's
+    ``findContours(RETR_EXTERNAL, CHAIN_APPROX_SIMPLE)`` gives them: per
+    slice a list of (N, 2) int32 (x, y) arrays in OpenCV's list order.
+    Returns one such list for a 2-D input, a list of them for 3-D."""
+    arr = np.asarray(stack)
+    flat = arr[None] if arr.ndim == 2 else arr
+    if flat.ndim != 3:
+        raise ValueError(f"trace_external: 2-D or 3-D input, got {arr.shape}")
+    S, H, W = flat.shape
+    if max(H, W) >= 2 ** 30:
+        raise ValueError(f"trace_external: slice {H} x {W} is too large")
+    u8 = np.ascontiguousarray(flat != 0, dtype=np.uint8)
+    lib = get_trace_lib()
+    n_contours = ctypes.c_int64()
+    n_points = ctypes.c_int64()
+    h = lib.mia_trace_run(u8.ctypes.data_as(ctypes.c_void_p), S, H, W,
+                          ctypes.byref(n_contours), ctypes.byref(n_points))
+    if not h:
+        raise MemoryError("trace_external: the tracer ran out of memory")
+    per_slice = np.empty(S, np.int64)
+    lengths = np.empty(n_contours.value, np.int64)
+    xy = np.empty((n_points.value, 2), np.int32)
+    lib.mia_trace_fetch(ctypes.c_void_p(h),
+                        per_slice.ctypes.data_as(ctypes.c_void_p),
+                        lengths.ctypes.data_as(ctypes.c_void_p),
+                        xy.ctypes.data_as(ctypes.c_void_p))
+    contours = np.split(xy, np.cumsum(lengths)[:-1]) if lengths.size else []
+    bounds = np.concatenate([[0], np.cumsum(per_slice)])
+    out = [contours[bounds[k]:bounds[k + 1]] for k in range(S)]
+    return out[0] if arr.ndim == 2 else out

@@ -8,17 +8,19 @@ Port of medicalimageanalysis_tpu/ops/registration/dvf.py
   output grid;
 - :func:`invert_dvf` — fixed-point inversion v <- -d(x + v(x));
 - :func:`compose_dvf` — field composition (u after v);
-- :func:`gradient_magnitude` — central differences over spacing.
+- :func:`gradient_magnitude` — central differences over spacing;
+- :func:`sample_dvf_at_points` — the field at physical points (ROI mesh
+  and POI warps).
 
 Public fields are (Z, Y, X, 3) with mm components in (x, y, z) order.
 Internally the iterations keep the field planar (3, Z, Y, X) in voxels
 and feed it straight to the warp kernel's ``disp`` mode: every warp here
-is one ``torch.ops.mia_torch.warp_disp`` launch on the card.
+is one ``torch.ops.mia_torch.warp_disp`` launch on the card, and the
+point sample one ``warp_coords`` launch with B = 3 over the planar field.
 
 The JAX package sizes a slab window from each field, checks the kernel's
 overflow counter and redoes the work on an XLA gather when it
 overflowed; the CUDA kernel has no slab, so none of that is here.
-``sample_dvf_at_points`` waits for the ROI-mesh slice.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ import torch
 from ...device import as_f32
 from ..warp import warp_disp
 
-__all__ = ["warp_volume", "invert_dvf", "compose_dvf", "gradient_magnitude"]
+__all__ = ["warp_volume", "invert_dvf", "compose_dvf", "gradient_magnitude",
+           "sample_dvf_at_points"]
 
 
 def _planar_vox(dvf_mm, sp):
@@ -95,3 +98,36 @@ def gradient_magnitude(volume, spacing_xyz=(1.0, 1.0, 1.0), device=None):
     gz, gy, gx = torch.gradient(vol)
     return torch.sqrt((gx / float(sp[0])) ** 2 + (gy / float(sp[1])) ** 2
                       + (gz / float(sp[2])) ** 2)
+
+
+def point_sample_inputs(dvf, points, origin, spacing_xyz, mode_nearest=True):
+    """The ``warp_coords`` inputs of :func:`sample_dvf_at_points`: the
+    planar (3, Z, Y, X) mm field and the (1, 1, N) float32 voxel
+    coordinates cz, cy, cx of ``points`` (N, 3) mm on the float32 field
+    tensor ``dvf``'s device. Voxel coordinates are computed in float64
+    and, under ``mode_nearest``, clamped into the grid before the cast."""
+    pts = np.asarray(points, dtype=np.float64).reshape(-1, 3)
+    voxel = (pts - np.asarray(origin)) / np.asarray(spacing_xyz)
+    if mode_nearest:
+        Z, Y, X = dvf.shape[:3]
+        voxel = np.clip(voxel, 0, [X - 1, Y - 1, Z - 1])
+    c = torch.as_tensor(voxel.astype(np.float32), device=dvf.device)
+    cx, cy, cz = (c[:, k].reshape(1, 1, -1).contiguous() for k in range(3))
+    return torch.movedim(dvf, -1, 0).contiguous(), cz, cy, cx
+
+
+def sample_dvf_at_points(dvf_mm, points, origin, spacing_xyz,
+                         mode_nearest=True, device=None):
+    """Trilinear samples of the (Z, Y, X, 3) mm field at physical
+    ``points`` (N, 3) mm -> (N, 3) float64 mm (mesh warping, reference
+    structure/deformable.py:961-1001); samples outside the grid are 0.
+    The three components are one ``warp_coords`` launch with B = 3 over
+    the planar field (:func:`point_sample_inputs`), on the field's device
+    (a tensor's own, else ``device`` or the card)."""
+    dvf = as_f32(dvf_mm, device)
+    if np.size(points) == 0:
+        return np.zeros((0, 3))
+    planar, cz, cy, cx = point_sample_inputs(dvf, points, origin,
+                                             spacing_xyz, mode_nearest)
+    out = torch.ops.mia_torch.warp_coords(planar, cz, cy, cx, 0.0, False)[0]
+    return out.reshape(3, -1).T.to(torch.float64).cpu().numpy()

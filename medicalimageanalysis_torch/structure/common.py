@@ -160,6 +160,12 @@ class GeometryQueriesMixin:
                 (x_min, y_min, z_max), (x_max, y_min, z_max),
                 (x_max, y_max, z_max), (x_min, y_max, z_max)]
 
+    def compute_corner_sides(self):
+        """The grid's axis-aligned bounding box as a TriMesh."""
+        from ..utils.mesh.trimesh import box_mesh
+        lo, hi = self._vtk_style_bounds()
+        return box_mesh(lo, hi)
+
     def compute_pixel(self, position):
         m = self.display.compute_matrix_position_to_pixel()
         return np.round(geo.apply_homogeneous(position, m)).astype(np.int32)

@@ -16,14 +16,17 @@ moving image on image geometry alone, without ``rigid_matrix``;
 ``update_dose`` and ``update_mask`` warp a dose grid or a moving-grid
 mask onto the reference grid through the same two stages (rigid resample
 by the ``affine`` mode, then the inverted field by the ``coords`` and
-``disp`` modes). The Display view state, the POI and ROI-mesh warps, the
-ROI-masked registrations, TPS, REG export, save/load and the image export
-wait for later slices; each raises ``NotImplementedError`` naming its
-ROADMAP.md item.
+``disp`` modes). ``update_rois`` and ``update_pois`` carry ROI meshes
+and POIs through the rigid inverse and the field (ops/registration/dvf.
+sample_dvf_at_points: the ``coords`` mode with B = 3). The Display view
+state, the ROI-masked registrations, TPS, REG export, save/load and the
+image export wait for later slices; each raises ``NotImplementedError``
+naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
 
+import copy
 from functools import partial
 
 import numpy as np
@@ -34,7 +37,7 @@ from ..data import Data
 from ..device import as_f32, default_device, full_float32
 from ..dicom import generate_uid
 from ..ops import geometry as geo
-from ..ops.registration.dvf import invert_dvf
+from ..ops.registration.dvf import invert_dvf, sample_dvf_at_points
 from ..ops.resample import affine_resample, compose_pixel_matrix
 from ..ops.warp import affine_coords, field_warp, warp_disp
 from .common import waits
@@ -363,9 +366,10 @@ class Deformable(object):
         }
 
     def update_rois(self, roi_name=None, percent=100):
-        """Sync the ROI key-set with Data.roi_list. Warping a visible
-        moving ROI mesh through the field waits for the structure slice
-        and raises."""
+        """Warp visible moving ROI meshes through the rigid inverse and
+        the field scaled by ``percent`` (reference
+        structure/deformable.py:961-1001): one ``warp_coords`` launch
+        (B = 3) a mesh on the card."""
         for name in list(self.rois.keys()):
             if name not in Data.roi_list:
                 del self.rois[name]
@@ -377,14 +381,56 @@ class Deformable(object):
         if self.moving_name is None \
                 or self.moving_name not in Data.image:
             return
+        field = None
         for name in Data.roi_list:
             if roi_name is None or name == roi_name:
                 roi = Data.image[self.moving_name].rois.get(name)
                 if roi is not None and roi.mesh is not None and roi.visible:
-                    raise NotImplementedError(
-                        "Deformable.update_rois: warping ROI meshes through "
-                        "the field arrives with the structure slice "
-                        "(ROADMAP.md queue 1, item 6)")
+                    if field is None:   # on the device once for every ROI
+                        field = as_f32(self.dvf, self.device) \
+                            * (percent / 100.0)
+                    self.rigid_rois[name] = roi.mesh.transform(
+                        np.linalg.inv(self.rigid_matrix), inplace=False)
+                    points = self.rigid_rois[name].points
+                    disp = sample_dvf_at_points(field, points, self.origin,
+                                                self.spacing)
+                    deformed = copy.deepcopy(self.rigid_rois[name])
+                    deformed.points = points + disp
+                    self.rois[name] = deformed
+
+    def update_pois(self, poi_name=None, percent=100):
+        """Propagate the moving image's POIs through the rigid inverse and
+        the field into the reference frame; the sample is linear in the
+        field, so ``percent`` scales it after. Returns {name: (3,)
+        position mm} and caches it on ``self.pois``."""
+        if self.dvf is None:
+            raise ValueError("update_pois: no DVF computed yet")
+        if self.moving_name is None \
+                or self.moving_name not in Data.image:
+            return {}
+        rigid_inv = np.linalg.inv(np.asarray(self.rigid_matrix,
+                                             np.float64))
+        names, pts = [], []
+        for name, poi in Data.image[self.moving_name].pois.items():
+            if poi_name is not None and name != poi_name:
+                continue
+            if poi.point_position is None:
+                continue
+            p = np.asarray(poi.point_position, np.float64)
+            names.append(name)
+            pts.append((rigid_inv @ np.append(p, 1.0))[:3])
+        out = {}
+        if names:
+            pts = np.stack(pts)
+            disp = sample_dvf_at_points(as_f32(self.dvf, self.device), pts,
+                                        self.origin, self.spacing)
+            mapped = pts + disp * (percent / 100.0)
+            out = {n: mapped[i] for i, n in enumerate(names)}
+        if poi_name is None or not hasattr(self, "pois"):
+            self.pois = out
+        else:
+            self.pois.update(out)
+        return out
 
     @property
     def display(self):
@@ -392,7 +438,6 @@ class Deformable(object):
             "Deformable.display: the Display view state arrives with the "
             "structure slice (ROADMAP.md queue 1, item 6)")
 
-    update_pois = _waits("update_pois", "item 6, structure layer")
     compute_tps = _waits("compute_tps", "item 7, the rest of deformable")
     create_reg = _waits("create_reg", "item 7, the rest of deformable")
     save_deformable = _waits("save_deformable",

@@ -218,8 +218,37 @@ class Dose(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
                            threshold_pct=threshold_pct, subdiv=subdiv,
                            cap=cap, chunk=chunk, layout=layout)
 
-    compute_isodose_contours = _waits(
-        "compute_isodose_contours", "item 6, MaskToContour without cv2")
+    def compute_isodose_contours(self, levels=None, percent_of=None):
+        """Per-slice isodose contours on this grid. ``levels``: absolute Gy
+        values (default deciles of max); ``percent_of``: when set, levels
+        are percent of this dose (e.g. prescription). Returns
+        {level_gy: (contour_pixel, contour_position)} from MaskToContour
+        (holes traced, XOR-exact). Each level's mask is thresholded on the
+        card (``default_device()``) and traced on the host."""
+        from ..utils.convert.contour import MaskToContour
+
+        arr = torch.as_tensor(np.asarray(self.array, np.float32),
+                              device=default_device())
+        if levels is None:
+            # percent deciles when percent_of is given, absolute deciles
+            # of max otherwise
+            if percent_of is not None:
+                levels = list(range(10, 100, 10))
+            else:
+                mx = float(arr.max())
+                if mx <= 0.0:
+                    return {}
+                levels = (np.arange(1, 10) / 10.0 * mx).tolist()
+        out = {}
+        for lv in levels:
+            gy = float(lv) * float(percent_of) / 100.0 \
+                if percent_of is not None else float(lv)
+            mask = (arr >= gy).to(torch.uint8).cpu().numpy()
+            pix, pos = MaskToContour(
+                mask, spacing=self.spacing, origin=self.origin,
+                matrix=self.matrix, plane=self.plane).create_contours()
+            out[gy] = (pix, pos)
+        return out
 
     # -- radiobiology (host float64 numpy, as the JAX package) -------------
     def _register_converted(self, out, kind, n_fractions, alpha_beta,
@@ -292,4 +321,3 @@ class Dose(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
     create_rtdose = _waits("create_rtdose", "item 8, the RTDOSE writer")
     save_image = _waits("save_image", "item 8, dose save/load")
     load_image = classmethod(_waits("load_image", "item 8, dose save/load"))
-    compute_corner_sides = _waits("compute_corner_sides", "item 9, mesh")

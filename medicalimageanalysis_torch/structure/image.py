@@ -9,9 +9,9 @@ the ``Display`` matrices, slice location, ``compute_slice`` and the
 off-axis reslice (``compute_offaxis_array``, the warp kernel's ``affine``
 mode on the card). The metadata, geometry and view mixins are in
 structure/common.py. The array stays a numpy array, like the JAX
-package's. The exports, SUV, SEG, margins and the other image tools wait
-for their slices: each raises NotImplementedError naming its ROADMAP.md
-item.
+package's. The external contour, margin and boolean ROIs are here too.
+The exports, SUV, SEG and the other image tools wait for their slices:
+each raises NotImplementedError naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -424,14 +424,58 @@ class Image(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
             self._pooled_raster_active = False
         return {n: out[n] for n in names}
 
+    # -- derived ROIs ------------------------------------------------------
+    def create_roi_from_margin(self, name, source, margin_mm, color=None,
+                               backend="device"):
+        """New ROI = ``source`` expanded/contracted by an exact Euclidean
+        mm margin (scalar or per-axis [mx, my, mz]; negative contracts),
+        through utils/roi/margin.expand_mask (on the card by default;
+        backend='scipy' on the host). Returns the new Roi."""
+        from ..utils.roi.margin import expand_mask
+
+        mask = expand_mask(self.rois[source].compute_mask(), self.spacing,
+                           margin_mm, backend=backend)
+        self.create_roi(name=name, color=color or self.rois[source].color)
+        self.rois[name].convert_mask(mask)
+        return self.rois[name]
+
+    def create_roi_from_boolean(self, name, op, roi_a, roi_b, color=None):
+        """New ROI = boolean combination of two ROIs ('union' |
+        'intersect' | 'subtract' | 'xor'). Returns the new Roi."""
+        from ..utils.roi.margin import combine_masks
+
+        mask = combine_masks(op, self.rois[roi_a].compute_mask(),
+                             self.rois[roi_b].compute_mask())
+        self.create_roi(name=name, color=color or self.rois[roi_a].color)
+        self.rois[name].convert_mask(mask)
+        return self.rois[name]
+
+    def create_external(self, name="External", color=None, visible=False,
+                        filepaths=None, threshold=-250):
+        """Threshold (on the card) -> largest component -> contours -> ROI
+        + mesh (reference structure/image.py:961-994)."""
+        from ..utils.image.threshold import external
+        from ..utils.roi.contour import contours_from_mask
+
+        if color is None:
+            color = [0, 255, 0]
+        if name not in self.rois:
+            self.rois[name] = Roi(self, name=name, color=color,
+                                  visible=visible, filepaths=filepaths)
+
+        mask = external(self.array, threshold=threshold, only_mask=True,
+                        device=self.device)
+        contours = contours_from_mask(mask.astype(np.uint8))
+        positions = self.rois[name].convert_pixel_to_position(pixel=contours)
+
+        self.rois[name].contour_pixel = contours
+        self.rois[name].contour_position = positions
+        self.rois[name].create_discrete_mesh()
+        return self.rois[name]
+
     # -- the JAX package's API that later slices port ----------------------
     resample_to = _waits("resample_to", "item 6, structure layer")
     compute_suv = _waits("compute_suv", "item 6, structure layer")
-    create_external = _waits("create_external", "item 6, structure layer")
-    create_roi_from_margin = _waits("create_roi_from_margin",
-                                    "item 6, structure layer")
-    create_roi_from_boolean = _waits("create_roi_from_boolean",
-                                     "item 6, structure layer")
     compute_projection = _waits("compute_projection",
                                 "item 6, structure layer")
     create_rotated_volume = _waits("create_rotated_volume",
@@ -449,7 +493,6 @@ class Image(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
     load_rois = _waits("load_rois", "item 6, save/load")
     load_pois = _waits("load_pois", "item 6, save/load")
     load_image = classmethod(_waits("load_image", "item 6, save/load"))
-    compute_corner_sides = _waits("compute_corner_sides", "item 9, mesh")
     correct_bias = _waits("correct_bias", "item 10, remaining compute")
     compute_radiomics = _waits("compute_radiomics",
                                "item 10, remaining compute")

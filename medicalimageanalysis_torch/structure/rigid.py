@@ -3,14 +3,15 @@
 Carried over from medicalimageanalysis_tpu/structure/rigid.py (the
 ``Display`` view state :29-185; ``Rigid``: registry naming :188-241,
 ``compute_intensity`` :321-339, ``create_image`` :548-566,
-``pre_alignment`` :640-673, the ``retrieve_*`` queries :676-733 and the
-view updates ``update_rotation`` / ``update_translation`` :771-805). The
+``pre_alignment`` :640-673, the ``retrieve_*`` queries :676-733, the
+view updates ``update_rotation`` / ``update_translation`` :771-805, the
+ROI mesh transforms ``update_rois`` / ``copy_roi`` and ``update_pois``). The
 matrix semantics are identical: ``matrix @ combo_matrix`` maps reference
 -> moving physical space and ``inverse`` flips the roles. The reslice
 behind the view runs on the device (``reslice_transform``: the warp
 kernel's ``affine`` mode, or with ``config.use_shear_warp`` the
-lane_interp kernel's three passes). ICP, ROI mesh transforms, the other
-registrations and the exports wait for later slices: each raises
+lane_interp kernel's three passes). ICP, the other registrations and the
+exports wait for later slices: each raises
 NotImplementedError naming its ROADMAP.md item.
 """
 
@@ -389,22 +390,67 @@ class Rigid(object):
         self.update_rois()
 
     def update_rois(self, roi_name=None):
-        """Sync the ROI key-set with Data.roi_list. Transforming a visible
-        moving ROI's mesh waits for the mesh slice and raises; the port's
-        ROIs carry no meshes yet."""
+        """Sync the ROI key-set with Data.roi_list; transform each visible
+        moving-image ROI mesh into the reference frame (reference
+        structure/rigid.py:1072-1101)."""
         for name in list(self.rois.keys()):
             if name not in Data.roi_list:
                 del self.rois[name]
         for name in Data.roi_list:
             if name not in self.rois:
                 self.rois[name] = None
-            roi = Data.image[self.moving_name].rois.get(name) \
-                if self.moving_name in Data.image else None
-            if (roi_name is None or name == roi_name) and roi is not None \
-                    and roi.mesh is not None and roi.visible:
-                raise NotImplementedError(
-                    "Rigid.update_rois: transforming ROI meshes is not "
-                    "ported yet (ROADMAP.md queue 1, item 9, mesh)")
+
+        moving = Data.image.get(self.moving_name)
+        for name in Data.roi_list:
+            if (roi_name is None or name == roi_name) and moving is not None:
+                roi = moving.rois.get(name)
+                if roi is not None and roi.mesh is not None and roi.visible:
+                    if self.inverse:
+                        self.rois[name] = roi.mesh.transform(
+                            self.matrix @ self.combo_matrix, inplace=False)
+                    else:
+                        self.rois[name] = roi.mesh.transform(
+                            np.linalg.inv(self.matrix @ self.combo_matrix),
+                            inplace=False)
+
+    def copy_roi(self, roi_name=None):
+        """Project an ROI mesh across the registration
+        (reference structure/rigid.py:668-690)."""
+        if roi_name in self.rois:
+            reference_roi = Data.image[self.reference_name].rois[roi_name]
+            moving_roi = Data.image[self.moving_name].rois[roi_name]
+            if self.inverse and self.rois[roi_name] is not None:
+                reference_roi.mesh = self.rois[roi_name].transform(
+                    np.linalg.inv(self.matrix @ self.combo_matrix),
+                    inplace=False)
+            elif reference_roi.mesh is not None:
+                moving_roi.mesh = reference_roi.mesh.transform(
+                    self.matrix @ self.combo_matrix, inplace=False)
+                self.update_rois(roi_name=roi_name)
+
+    def update_pois(self, poi_name=None):
+        """Transform the moving image's POIs into the reference frame, with
+        the matrix of update_rois (``inverse`` included). Returns {name:
+        (3,) mm} and caches it on ``self.pois``."""
+        if self.moving_name is None \
+                or self.moving_name not in Data.image:
+            return {}
+        T = self.matrix @ self.combo_matrix
+        if not self.inverse:
+            T = np.linalg.inv(T)
+        out = {}
+        for name, poi in Data.image[self.moving_name].pois.items():
+            if poi_name is not None and name != poi_name:
+                continue
+            if poi.point_position is None:
+                continue
+            p = np.asarray(poi.point_position, np.float64)
+            out[name] = (T @ np.append(p, 1.0))[:3]
+        if poi_name is None or not hasattr(self, "pois"):
+            self.pois = out
+        else:
+            self.pois.update(out)
+        return out
 
     # -- the JAX package's API that later slices port ----------------------
     auto_register = _waits("auto_register", "item 7, the rest of rigid")
@@ -415,8 +461,6 @@ class Rigid(object):
     create_reg = _waits("create_reg", "item 7, the REG builder")
     compute_icp_vtk = _waits("compute_icp_vtk", "item 9, mesh")
     compute_o3d = _waits("compute_o3d", "item 9, mesh")
-    copy_roi = _waits("copy_roi", "item 6, structure layer")
-    update_pois = _waits("update_pois", "item 6, structure layer")
     export_image = _waits("export_image", "item 6, exports")
     save_rigid = _waits("save_rigid", "item 6, save/load")
     load_rigid = classmethod(_waits("load_rigid", "item 6, save/load"))

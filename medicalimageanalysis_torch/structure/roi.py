@@ -1,21 +1,21 @@
-"""Roi: contours and masks for one structure on one image.
+"""Roi: contours, masks and meshes for one structure on one image.
 
 Port of medicalimageanalysis_tpu/structure/roi.py. Masks rasterize on the
 device through utils/convert/contour -> ops/rasterize and are cached,
-bit-packed, on the owning Image. Meshes, mesh-only masks, slice
-interpolation and mask -> contour conversion raise naming their
-ROADMAP.md items.
+bit-packed, on the owning Image. Meshes come from the device's marching
+tetrahedra and smoothing (ops/marching_cubes, utils/mesh/surface) into a
+host TriMesh; mask -> contour conversion runs the port's border tracer.
+The mask of a mesh-only ROI (voxelisation) raises naming its ROADMAP.md
+item.
 """
 
 from __future__ import annotations
 
 import random
-from functools import partial
 
 import numpy as np
 
 from ..ops import geometry as geo
-from .common import waits
 
 __all__ = ["random_color", "Roi"]
 
@@ -29,11 +29,8 @@ def random_color(rgb_255=True):
     return (random.random(), random.random(), random.random())
 
 
-_waits = partial(waits, "Roi")
-
-
 class Roi(object):
-    """Region of Interest: physical contours + pixel contours."""
+    """Region of Interest: physical contours + pixel contours + mesh."""
 
     def __setattr__(self, name, value):
         # Mask-shaping state: any rebind invalidates this ROI's entry in
@@ -75,6 +72,12 @@ class Roi(object):
                        "multicolor": None}
         self.misc = {}
 
+    def add_mesh(self, mesh):
+        self.mesh = mesh
+        self.volume = mesh.volume
+        self.com = mesh.center
+        self.bounds = mesh.bounds
+
     def clear(self):
         self.contour_position = None
         self.contour_pixel = None
@@ -113,6 +116,40 @@ class Roi(object):
             contour_pixel=self.contour_pixel, spacing=self.image.spacing,
             origin=self.image.origin, dimensions=self.image.dimensions,
             matrix=self.image.matrix, plane=self.plane)
+
+    # -- meshing (reference structure/roi.py:209-330) -------------------
+    def create_mesh(self, smoothing_iterations=20, smoothing_relaxation=.5,
+                    smoothing_distance=1):
+        self.add_mesh(self._mesher().compute_mesh(
+            smoothing_iterations=smoothing_iterations,
+            smoothing_relaxation=smoothing_relaxation,
+            smoothing_distance=smoothing_distance))
+
+    def create_discrete_mesh(self):
+        self.add_mesh(self._mesher().compute_mesh(discrete=True))
+
+    def create_display_mesh(self, iterations=20, angle=60, passband=0.001):
+        from ..utils.mesh.surface import Refinement
+        refine = Refinement(self.mesh)
+        self.mesh = refine.smooth(iterations=iterations, angle=angle,
+                                  passband=passband)
+
+    def create_decimate_mesh(self, percent=None, set_mesh=False):
+        if percent is None:
+            points = np.round(10 * np.sqrt(self.mesh.number_of_points))
+            percent = 1 - (points / self.mesh.number_of_points)
+        mesh = self.mesh.decimate(percent)
+        if set_mesh:
+            self.mesh = mesh
+        return mesh
+
+    def create_cluster_mesh(self, points=None, set_mesh=False):
+        from ..utils.mesh.surface import Refinement
+        refine = Refinement(self.mesh)
+        mesh = refine.cluster(points=points)
+        if set_mesh:
+            self.mesh = mesh
+        return mesh
 
     # -- mask / contour ops (reference structure/roi.py:332-584) ---------
     def compute_contour(self, slice_location, offset=0):
@@ -198,16 +235,85 @@ class Roi(object):
 
     create_sitk_mask = create_mask_volume
 
-    add_mesh = _waits("add_mesh", "item 9, mesh")
-    create_mesh = _waits("create_mesh", "item 9, mesh")
-    create_discrete_mesh = _waits("create_discrete_mesh", "item 9, mesh")
-    create_display_mesh = _waits("create_display_mesh", "item 9, mesh")
-    create_decimate_mesh = _waits("create_decimate_mesh", "item 9, mesh")
-    create_cluster_mesh = _waits("create_cluster_mesh", "item 9, mesh")
-    compute_mesh_slice = _waits("compute_mesh_slice", "item 9, mesh")
-    update_mesh = _waits("update_mesh", "item 9, mesh")
-    update_pixel = _waits("update_pixel", "item 9, mesh")
-    interpolate_slices = _waits("interpolate_slices",
-                                "item 10, utils/roi interpolation")
-    convert_mask = _waits("convert_mask",
-                          "item 6, MaskToContour without cv2")
+    def compute_mesh_slice(self, location=None, slice_plane=None, offset=0,
+                           return_pixel=False):
+        """Mesh-plane cross-section -> polylines (-> 2D pixel paths)
+        (reference structure/roi.py:406-486)."""
+        matrix = np.linalg.inv(self.image.display.matrix)
+        if slice_plane == "Axial":
+            normal = matrix[:3, 2]
+        elif slice_plane == "Coronal":
+            normal = matrix[:3, 1]
+        else:
+            normal = matrix[:3, 0]
+
+        if self.mesh is None:
+            return [], []
+        polylines = self.mesh.slice_plane(normal=normal, origin=location)
+
+        if not return_pixel:
+            return polylines, None
+        if not polylines:
+            return [], None
+        pixels = self.convert_position_to_pixel(position=polylines)
+        pixel_corrected = []
+        for pixel in pixels:
+            if slice_plane == "Axial":
+                pixel_corrected.append(pixel[:, :2] + offset)
+            elif slice_plane == "Coronal":
+                pixel_corrected.append(
+                    np.column_stack((pixel[:, 0] + offset,
+                                     pixel[:, 2] + offset)))
+            else:
+                pixel_corrected.append(pixel[:, 1:] + offset)
+        return pixel_corrected, None
+
+    def interpolate_slices(self):
+        """Fill uncontoured slices between contoured ones by shape-based
+        signed-distance interpolation (utils/roi/interpolate), then
+        rebuild contours and meshes from the filled mask."""
+        from ..utils.roi.interpolate import interpolate_mask_slices
+
+        if self.contour_position is None:
+            return
+        axis = {"Axial": 0, "Coronal": 1}.get(self.plane, 2)
+        self.convert_mask(interpolate_mask_slices(self.compute_mask(),
+                                                  axis=axis))
+
+    def convert_mask(self, mask):
+        """Mask -> contours -> meshes (reference structure/roi.py:511-535)."""
+        from ..utils.convert.contour import MaskToContour
+        mask_to_contour = MaskToContour(
+            mask, spacing=self.image.spacing, origin=self.image.origin,
+            matrix=self.image.matrix, plane=self.plane)
+        self.contour_pixel, self.contour_position = \
+            mask_to_contour.create_contours()
+
+        if len(self.contour_pixel) > 0:
+            self.create_discrete_mesh()
+            self.create_display_mesh()
+        else:
+            self.mesh = None
+            self.volume = None
+            self.com = None
+            self.bounds = None
+
+    def update_pixel(self, pixel, plane="Axial"):
+        self.plane = plane
+        self.contour_pixel = pixel
+        if pixel is not None and len(pixel) > 0:
+            self.contour_position = self.convert_pixel_to_position(pixel=pixel)
+            self.create_discrete_mesh()
+            self.create_display_mesh()
+        else:
+            self.contour_pixel = None
+            self.contour_position = None
+            self.mesh = None
+
+    def update_mesh(self, mesh):
+        self.mesh = mesh
+        self.volume = mesh.volume
+        self.com = mesh.center
+        self.bounds = mesh.bounds
+        self.contour_pixel = None
+        self.contour_position = None

@@ -1,6 +1,6 @@
-"""Utilities: the synthetic DICOM series writer, contour conversion,
-metrics, dose accumulation and goals, radiobiology, ROI margins and the
-deformable backend.
+"""Utilities: the synthetic DICOM series writer, contour and mesh
+conversion, the external threshold, metrics, dose accumulation and goals,
+radiobiology, ROI margins and the deformable backend.
 
 The exports match the JAX package's utils/__init__.py, lazily. The names
 it exports that the port has not ported yet stand in as callables that
@@ -13,6 +13,10 @@ _LAZY = {
     "MaskToContour": ("convert.contour", "MaskToContour"),
     "DeformableITK": ("deformable.torch_backend", "DeformableITK"),
     "DeformableJAX": ("deformable.torch_backend", "DeformableJAX"),
+    "TriMesh": ("mesh.trimesh", "TriMesh"),
+    "Refinement": ("mesh.surface", "Refinement"),
+    "external": ("image.threshold", "external"),
+    "contours_from_mask": ("roi.contour", "contours_from_mask"),
     "CreateDicomImage": ("creation", "CreateDicomImage"),
     **{n: ("dose", n) for n in ("accumulate_dose", "register_dose_grid",
                                 "evaluate_constraints")},
@@ -26,11 +30,10 @@ _LAZY = {
 
 _WAITING = {
     "CreateImageFromMask": "item 2, utils/creation",
-    **dict.fromkeys(("external", "euler_transform", "contours_from_mask"),
-                    "item 6, structure layer"),
-    **dict.fromkeys(("ModelToMask", "Volume", "TriMesh", "Refinement",
-                     "clean_mesh", "expansion", "surface_boundary",
-                     "only_main_component", "ICP"), "item 9, mesh"),
+    "euler_transform": "item 6, structure layer",
+    **dict.fromkeys(("ModelToMask", "Volume", "clean_mesh", "expansion",
+                     "surface_boundary", "only_main_component", "ICP"),
+                    "item 9, mesh"),
     **dict.fromkeys(("find_phase_groups", "combine_phases", "compute_itv"),
                     "item 10, utils/fourd"),
 }

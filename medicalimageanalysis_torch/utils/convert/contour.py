@@ -1,12 +1,15 @@
-"""Contour -> mask conversion.
+"""Contour <-> mask <-> mesh conversion.
 
 Port of medicalimageanalysis_tpu/utils/convert/contour.py (``_plane_split``,
-``_rasterize_plane``, ``ContourToMask``, the mask half of
-``ContourToDiscreteMesh``). Contours rasterize through the port's
-ops/rasterize on the device, always: the cv2 host backend and the
-tunnel-rate choice between backends are not carried over (the card's
-machine has no cv2). Meshes (marching cubes) and ``MaskToContour`` (a
-contour tracer without cv2) raise naming their ROADMAP items.
+``_rasterize_plane``, ``ContourToMask``, ``ContourToDiscreteMesh``,
+``MaskToContour`` with ``_trace_with_holes``). Contours rasterize through
+the port's ops/rasterize on the device, always: the cv2 host backend and
+the tunnel-rate choice between backends are not carried over (the card's
+machine has no cv2). Meshes come from ops/marching_cubes and
+utils/mesh/surface on the device. Boundaries are traced on the host by
+the port's own C++ border follower (native.trace_external), which gives
+``cv2.findContours(RETR_EXTERNAL, CHAIN_APPROX_SIMPLE)``'s contours
+point for point. ``ModelToMask`` waits for the mesh slice.
 """
 
 from __future__ import annotations
@@ -64,8 +67,8 @@ def _rasterize_plane(contour_pixel, dimensions, plane, device=None):
 
 
 class ContourToDiscreteMesh(object):
-    """Contours -> mask (reference utils/convert/contour.py:24-162). The
-    surface mesh waits for the mesh slice."""
+    """Contours -> mask -> surface mesh
+    (reference utils/convert/contour.py:24-162)."""
 
     def __init__(self, contour_position=None, contour_pixel=None,
                  spacing=None, origin=None, dimensions=None, matrix=None,
@@ -99,11 +102,22 @@ class ContourToDiscreteMesh(object):
         self.mask = _rasterize_plane(self.contour_pixel, self.dimensions,
                                      self.plane, device=self.device)
 
-    def compute_mesh(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ContourToDiscreteMesh.compute_mesh is not ported yet: "
-            "marching cubes and surface smoothing — ROADMAP.md queue 1, "
-            "item 9 (mesh)")
+    def compute_mesh(self, discrete=False, smoothing_iterations=20,
+                     smoothing_relaxation=.5, smoothing_distance=1):
+        """Mask -> physical-space mesh on ``device``. discrete=True
+        returns the raw (blocky) isosurface; otherwise constrained
+        smoothing follows."""
+        from ...ops.marching_cubes import mask_to_mesh
+        from ..mesh.surface import constrained_smooth
+
+        mesh = mask_to_mesh(self.mask, self.spacing, self.origin,
+                            self.matrix, device=self.device)
+        if not discrete and mesh.number_of_points > 0:
+            mesh = constrained_smooth(
+                mesh, iterations=smoothing_iterations,
+                relaxation=smoothing_relaxation,
+                max_distance=smoothing_distance, device=self.device)
+        return mesh
 
 
 class ContourToMask(object):
@@ -144,11 +158,76 @@ class ContourToMask(object):
                                      self.plane, device=self.device)
 
 
-class MaskToContour(object):
-    """Mask -> per-slice contours. The JAX package traces boundaries with
-    cv2.findContours, which the card's machine does not have."""
+def _trace_with_holes(slice_u8):
+    """All boundary contours of a 2D mask, nesting-exact for the XOR
+    rasterizer: external contours of the hole-filled mask, then the same
+    for the hole region, so hole boundaries are traced on hole pixels
+    (a hole traced on its foreground pixels and XOR-rasterized would
+    remove a one-pixel ring of foreground each round trip). Islands
+    inside holes come from the recursion."""
+    from scipy import ndimage
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "MaskToContour is not ported yet: it needs a contour tracer "
-            "without cv2 — ROADMAP.md queue 1, item 6 (structure layer)")
+    from ...native import trace_external
+
+    inside = slice_u8 > 0
+    filled = ndimage.binary_fill_holes(inside)
+    out = list(trace_external(filled))
+    inner = filled & ~inside
+    if inner.any():
+        out += _trace_with_holes(inner)
+    return out
+
+
+class MaskToContour(object):
+    """Mask -> per-slice pixel contours -> physical contours
+    (reference utils/convert/contour.py:255-328), holes traced too
+    (``_trace_with_holes``): identical to the reference for hole-free
+    masks, and annular masks survive the round trip through the XOR
+    rasterizer."""
+
+    def __init__(self, mask=None, spacing=None, origin=None, matrix=None,
+                 plane="axial"):
+        self.mask = mask
+        self.spacing = spacing
+        self.origin = origin
+        self.matrix = matrix
+        self.plane = plane
+
+        self.contour_position = []
+        self.contour_pixel = []
+
+    def create_contours(self):
+        self.compute_pixel()
+        if self.spacing is not None and self.origin is not None \
+                and self.matrix is not None:
+            self.compute_position()
+        return self.contour_pixel, self.contour_position
+
+    def compute_pixel(self):
+        axis = {"axial": 0, "coronal": 1}.get(self.plane.lower(), 2)
+        stack = np.moveaxis(np.asarray(self.mask) > 0, axis, 0)
+        for i in np.nonzero(stack.reshape(stack.shape[0], -1).any(1))[0]:
+            for contour in _trace_with_holes(stack[i]):
+                if len(contour) > 2:
+                    n = contour.shape[0]
+                    xyz = np.zeros((n, 3), dtype=np.int32)
+                    if axis == 0:
+                        xyz[:, 0] = contour[:, 0]
+                        xyz[:, 1] = contour[:, 1]
+                        xyz[:, 2] = i
+                    elif axis == 1:
+                        xyz[:, 0] = contour[:, 0]
+                        xyz[:, 1] = i
+                        xyz[:, 2] = contour[:, 1]
+                    else:
+                        xyz[:, 0] = i
+                        xyz[:, 1] = contour[:, 0]
+                        xyz[:, 2] = contour[:, 1]
+                    self.contour_pixel.append(xyz)
+
+    def compute_position(self):
+        m = geo.pixel_to_position_matrix(self.matrix, self.spacing,
+                                         self.origin)
+        for pix in self.contour_pixel:
+            self.contour_position.append(
+                geo.apply_homogeneous(np.asarray(pix, dtype=np.float64), m))

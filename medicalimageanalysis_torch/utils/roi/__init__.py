@@ -1,1 +1,2 @@
-"""ROI utilities: margin expansion and boolean combination (margin.py)."""
+"""ROI utilities: margins and boolean combination (margin.py), mask ->
+contour extraction (contour.py), slice interpolation (interpolate.py)."""

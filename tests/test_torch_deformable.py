@@ -179,7 +179,7 @@ def test_compute_biomechanical_matches_jax(tmp_path):
 
 
 @pytest.mark.parametrize("method,args", [
-    ("update_pois", ()), ("compute_tps", ()), ("create_reg", ()),
+    ("compute_aspect", ("Axial",)), ("compute_tps", ()), ("create_reg", ()),
     ("save_deformable", ("x",)), ("export_image", ("x",))])
 def test_waiting_methods_name_their_roadmap_item(method, args):
     d = tmia.Deformable(device="cpu")

@@ -193,8 +193,15 @@ def test_roi_dose_array_and_dvh_match_jax(tmp_path):
         np.testing.assert_array_equal(tp, jp)
     # on the CPU the plain twin ran: no kernel launch
     assert thist.LAUNCHES["dose_hist"] == before
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        td.compute_isodose_contours()
+    # isodose contours (the port's tracer) equal the JAX package's (cv2)
+    t_iso, j_iso = td.compute_isodose_contours(), jd.compute_isodose_contours()
+    assert list(t_iso) == list(j_iso) and len(t_iso) == 9
+    for level, (pix, pos) in j_iso.items():
+        assert len(t_iso[level][0]) == len(pix) > 0
+        for a, b in zip(t_iso[level][0], pix):
+            np.testing.assert_array_equal(a, b)
+        for a, b in zip(t_iso[level][1], pos):
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-9)
 
 
 def test_dvh_batch_agrees_with_per_roi_statistics(tmp_path):

@@ -163,7 +163,9 @@ def test_rasterize_batch_matches_jax(plane):
 
 
 def test_no_cv2_and_no_mesh_in_the_port():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tcontour.MaskToContour(np.zeros((2, 4, 4), np.uint8))
+    # MaskToContour traces with the port's own tracer, not cv2
+    assert tcontour.MaskToContour(np.zeros((2, 4, 4), np.uint8),
+                                  [1, 1, 1], [0, 0, 0],
+                                  np.eye(3)).create_contours() == ([], [])
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tbatch.rasterize_batch([], (2, 4, 4), mesh=object())
