@@ -60,8 +60,19 @@ runs the ROI mesh path
         Dose.compute_isodose_contours -> Rigid.update_translation and
         Deformable.update_rois with visible meshes (the coords mode)
 
-on the dose-QA folder. Each phase prints one JSON line; any failure raises
-and exits non-zero. Near the end it
+on the dose-QA folder, and after it the image-analysis path
+
+    Image.resample_to (the CT onto the dose grid and back) /
+        create_rotated_volume / compute_projection (MIP, mean, DRR) ->
+        the Deformable Display's frames and grid planes ->
+        a whole-body PET: compute_suv / compute_mtv_tlg / compute_radiomics
+        (and the CT's PTV) -> an MR's correct_bias and n4_batch ->
+        a 10-phase 4D-CT: find_phase_groups / combine_phases / compute_itv
+        -> parallel.batch.demons_batch
+
+(resamples bit-equal to the plain affine twin, texture counts bit-equal
+to a numpy count, one N4 level against its float64 twin). Each phase
+prints one JSON line; any failure raises and exits non-zero. Near the end it
 prints the card's name and power limit (nvidia-smi) and a JSON line with
 every kernel's launches, error, times, bound and ms lost; the last line is
 
@@ -160,6 +171,54 @@ GAMMA_SCALE = 1.05
 GAMMA_BRUTE_VOXELS = 2000
 MARGIN_MM = 5.0
 EXTERNAL_HU = -250                          # create_external's default
+# the image-analysis path (phase_image_analysis). PET: a whole-body PT
+# series (Z, Y, X) at [sx, sy, sz] mm, stored int16 with a rescale slope,
+# START decay over one hour, three hot spheres ((x, y, z) mm from the
+# volume centre, radius mm, Bq/mL) in a body of PET_BACKGROUND_BQML; the
+# lesion ROI is the largest sphere grown by PET_ROI_MARGIN_MM. MR: a
+# phantom with a known smooth multiplicative bias (tests/test_n4.py's
+# form), corrected at shrink 4. 4D: ten breathing phases whose tumour
+# moves FOURD_AMPLITUDE_MM in z, cut to 64 slices (PERF.md §4). The
+# demons_batch pairs, the Display's frame count, and the rotation and
+# projection angles (degrees, zyx).
+PET_UID = "1.2.826.0.1.3680043.10.1016.4"
+MR_UID = "1.2.826.0.1.3680043.10.1016.5"
+FOURD_UID = "1.2.826.0.1.3680043.10.1016.6"
+PET_SHAPE = (250, 200, 200)
+PET_SPACING = [4.07, 4.07, 3.0]
+PET_SLOPE = 2.0
+PET_BACKGROUND_BQML = 3000.0
+PET_SPHERES = (((40.0, -20.0, 60.0), 25.0, 30000.0),
+               ((-60.0, 10.0, -150.0), 15.0, 24000.0),
+               ((20.0, 30.0, 200.0), 10.0, 18000.0))
+PET_WEIGHT_KG = 75.0
+PET_DOSE_BQ = 3.7e8
+PET_HALF_LIFE_S = 6586.2
+PET_START, PET_SERIES_TIME = "090000", "100000"
+PET_ROI_MARGIN_MM = 10.0
+PET_BIN_SUV = 0.5
+PTV_BIN_HU = 25.0
+SUV_CUT = 2.5
+SUV_RELATIVE = 0.41
+MR_SHAPE = (176, 256, 256)
+MR_SPACING = [1.0, 1.0, 1.0]
+MR_SHRINK = 4
+# the B-spline control spacing floor of the MR's correction: at the
+# default 32 voxels the finest levels absorb the phantom's sphere into
+# the bias at this size (field spread 0.147 against the bound 0.041, on
+# the card and in both packages on the CPU: scripts/image_analysis_cpu.py
+# n4 --jax)
+MR_CONTROL_SPACING_MM = 128.0
+FOURD_PHASES = 10
+FOURD_SHAPE = (64, 512, 512)
+FOURD_SPACING = [0.98, 0.98, 2.5]
+FOURD_AMPLITUDE_MM = 10.0
+FOURD_TUMOUR_MM = 15.0
+DEMONS_BATCH_SHAPE = (64, 256, 256)
+DEMONS_BATCH_ITERATIONS = 50
+DISPLAY_DIVISION = 4
+ROTATE_DEG = (0.0, 0.0, 10.0)
+PROJECTION_DEG = (0.0, 0.0, 15.0)
 # the card's published peaks (H100 SXM at 700 W): the bound of a kernel
 # is the larger of its bytes over the memory rate and its operations
 # over the float32 rate outside the tensor cores
@@ -345,7 +404,7 @@ def bound(nbytes, ops, ops_per_s=F32_OPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def plain_program_rows(profiles, plan, mesh_work):
+def plain_program_rows(profiles, plan, mesh_work, analysis_work):
     """The JAX package's programs on the plan-QA and ROI mesh paths that
     run as plain PyTorch on the card (no hand kernel yet): device ms and
     device events under the profiler against the bound of their work.
@@ -357,7 +416,13 @@ def plain_program_rows(profiles, plan, mesh_work):
     the external's mask: the uint8 mask read, float32 points and int32
     faces written. taubin_smooth of its mesh (40 umbrella steps): float64
     points and int32 faces read, points written; per step 3 adds per
-    directed edge and 12 float64 operations per point."""
+    directed edge and 12 float64 operations per point. One N4 level of
+    the MR (shrink 4): res, total and w read, res and total written; the
+    float32 operations of the B-spline contractions it ran (counted per
+    call). texture_matrices of the PTV's crop: int32 levels and the bool
+    mask read once; per voxel 10 + 3 ceil(log2 Lmax) operations for each
+    of the 13 directions and 7 for each of the 26 neighbours, integer and
+    boolean operations counted at the float32 rate."""
     Z, Y, X = plan["edt_shape"]
     n = Z * Y * X
     w = plan["gamma_work"]
@@ -377,6 +442,13 @@ def plain_program_rows(profiles, plan, mesh_work):
             bound(48 * tb["points"] + 12 * tb["faces"],
                   tb["steps"] * (6 * tb["edges"] + 12 * tb["points"]),
                   F64_OPS_PER_S))}
+    n4w, tex = analysis_work["n4_level"], analysis_work["texture_matrices"]
+    work["n4_level"] = ("medicalimageanalysis_tpu/ops/n4.py:203",
+                        bound(20 * n4w["voxels"], n4w["ops"]))
+    work["texture_matrices"] = (
+        "medicalimageanalysis_tpu/ops/radiomics.py:141",
+        bound(5 * tex["voxels"], tex["voxels"] * (
+            13 * (10 + 3 * math.ceil(math.log2(tex["Lmax"]))) + 26 * 7)))
     rows = {}
     for name, (replaces, (b, by)) in work.items():
         p = profiles[name]
@@ -388,6 +460,8 @@ def plain_program_rows(profiles, plan, mesh_work):
     rows["compute_gamma"]["search_offsets"] = w["offsets"]
     rows["marching_tetrahedra"].update(mc)
     rows["taubin_smooth"].update(tb)
+    rows["n4_level"].update(n4w)
+    rows["texture_matrices"].update(tex)
     return rows
 
 
@@ -1301,13 +1375,10 @@ def known_bump():
     return np.exp(-r2 / (2 * BUMP_SIGMA_MM ** 2)).astype(np.float32)
 
 
-def write_deformed(ref, folder):
+def bump_deformed(ref):
     """The reference phantom sampled at p + u(p), u the known bump field
-    (scipy, order 1, on the host), written as a third series with the
-    reference's origin and spacing. Returns the bump."""
+    (scipy, order 1, on the host), as int16 HU."""
     from scipy import ndimage
-
-    from medicalimageanalysis_torch.utils.creation import CreateDicomImage
 
     g = known_bump()
     zz, yy, xx = np.meshgrid(*(np.arange(n, dtype=np.float32)
@@ -1316,11 +1387,17 @@ def write_deformed(ref, folder):
     xx += (BUMP_MM / SPACING[0]) * g
     mov = ndimage.map_coordinates(ref.astype(np.float32), [zz, yy, xx],
                                   order=1, mode="nearest")
-    del zz, yy, xx
-    CreateDicomImage(folder, np.round(mov).astype(np.int16), series=DEF_UID,
+    return np.round(mov).astype(np.int16)
+
+
+def write_deformed(ref, folder):
+    """bump_deformed(ref) written as a third series with the reference's
+    origin and spacing."""
+    from medicalimageanalysis_torch.utils.creation import CreateDicomImage
+
+    CreateDicomImage(folder, bump_deformed(ref), series=DEF_UID,
                      origin=REF_ORIGIN, spacing=SPACING[:2],
                      thickness=SPACING[2]).run(patient_id="SMOKE")
-    return g
 
 
 def residual_ratio(warped, moving, fixed, body):
@@ -2096,6 +2173,92 @@ def recording(module, name):
         setattr(module, name, fn)
 
 
+@contextlib.contextmanager
+def uncounted():
+    """Within the block the wrappers' launches count nowhere: a check run
+    inside a path's launch window (a comparison, an input made on the
+    card) leaves the path's counts and shapes as they were."""
+    from medicalimageanalysis_torch.ops import hist, lane_interp, warp
+
+    saved = [(c, dict(c)) for c in (warp.LAUNCHES, hist.LAUNCHES,
+                                    lane_interp.LAUNCHES, warp.LAUNCH_SHAPES,
+                                    hist.LAUNCH_SHAPES)]
+    try:
+        yield
+    finally:
+        for counts, before in saved:
+            counts.clear()
+            counts.update(before)
+
+
+@contextlib.contextmanager
+def recording_warp_calls(calls):
+    """Within the block, keep in ``calls`` copies of the inputs of the
+    first warp_coords / warp_disp operator call at each (kernel,
+    timed_key): the path's own tensors, to check and time the kernel on
+    after it."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    kernels = {"mia_torch::warp_coords": "warp_coords",
+               "mia_torch::warp_disp": "warp_disp"}
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = kernels.get(func._schema.name)
+            if name is not None:
+                key = (name, timed_key(args[0].shape[0], args[-1],
+                                       args[1].shape[-3:]))
+                if key not in calls:
+                    calls[key] = tuple(a.clone() if torch.is_tensor(a)
+                                       else a for a in args)
+            return func(*args, **(kwargs or {}))
+
+    with Record():
+        yield calls
+
+
+def warp_path_rows(calls):
+    """The warp kernels at each key recorded by recording_warp_calls, on
+    those tensors: held bit-equal to the plain twin, timed, with the bound
+    of their work (warp_bound) and F.grid_sample at the same points
+    (library_sample_ms). Returns {kernel: {timed_key: row}}."""
+    from medicalimageanalysis_torch.ops.warp import (MAX_B,
+                                                     warp_coords_plain,
+                                                     warp_disp_plain)
+
+    plain = {"warp_coords": warp_coords_plain, "warp_disp": warp_disp_plain}
+    out = {}
+    for (name, key), args in sorted(calls.items()):
+        B, want, shape = key
+        assert B <= MAX_B, (name, key)         # one launch a call
+        op = getattr(torch.ops.mia_torch, name)
+        k, p = op(*args), plain[name](*args)
+        torch.cuda.synchronize()
+        errs = [max_abs(a, b) for a, b in zip(k, p)]
+        assert errs == [0.0] * len(errs), \
+            f"{name} at the path's {key}: kernel != plain {errs}"
+        del k, p
+        row = dict(B=B, grad=want, shape=list(shape), max_abs_err=errs,
+                   ms=cuda_ms(lambda: op(*args)),
+                   plain_ms=cuda_ms(lambda: plain[name](*args), reps=3,
+                                    warmup=1))
+        row["bound_ms"], row["bound_by"] = warp_bound(
+            args[0][0].numel(), math.prod(shape), B, 3, want)
+        if name == "warp_coords":
+            cz, cy, cx = args[1:4]
+        else:
+            zz, yy, xx = (torch.arange(n, device=args[1].device,
+                                       dtype=torch.float32) for n in shape)
+            cz = zz[:, None, None] + args[1][2]
+            cy = yy[None, :, None] + args[1][1]
+            cx = xx[None, None, :] + args[1][0]
+        row["library_ms"] = library_sample_ms(args[0], cz, cy, cx, want)
+        del cz, cy, cx
+        out.setdefault(name, {})[key] = row
+    torch.cuda.empty_cache()
+    return out
+
+
 def carry_meshes(image, meshes, poi):
     """ROIs holding ``meshes`` (name -> TriMesh), visible, and a POI
     "Iso" at ``poi`` (mm) on ``image``: structures to carry across a
@@ -2324,7 +2487,8 @@ def mesh_taps(planar, cz, cy, cx):
 def phase_mesh_warp(path, dev):
     """After the ROI mesh path: its mesh warp's warp_coords launch at the
     Body's points against the plain version on the same tensors (bit-
-    equal), timed with its bound; then the profiles of a mesh build, the
+    equal), timed with its bound and beside F.grid_sample at the same
+    points; then the profiles of a mesh build, the
     marching-tetrahedra pass, the Taubin smoothing and the mesh warp.
     Removes the path's ROIs and its Rigid. Returns the kernel row (with
     the launch shape it times), the profiles and the work sizes of their
@@ -2352,7 +2516,8 @@ def phase_mesh_warp(path, dev):
     row = dict(max_abs_err=err, points=n_pts, taps=mesh_taps(*args),
                ms=cuda_ms(lambda: op(*args, 0.0, False)),
                plain_ms=cuda_ms(lambda: warp_coords_plain(*args, 0.0, False),
-                                reps=3, warmup=1))
+                                reps=3, warmup=1),
+               library_ms=library_sample_ms(*args))
     # what these points need: the 3 components of each field voxel among
     # their taps read once, the coordinates read, the samples written;
     # 30 float32 operations a sample
@@ -2820,6 +2985,786 @@ def phase_cohort_rigid(names, truth, rigid, dev):
     return refs, movs, geo_in
 
 
+def ia_timed(fn, dev):
+    """(fn(), its wall ms with the card synchronised on both sides)."""
+    sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(dev)
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def affine_coef(A):
+    """The 12 coefficients affine_resample hands the ``affine`` launch for
+    the output -> input pixel map A."""
+    return [float(v) for v in np.asarray(A, np.float32)[:3].reshape(-1)]
+
+
+def affine_plain(vol, A, out_shape, background):
+    """The plain twin of the ``affine`` launch affine_resample makes for
+    the map A, on vol's device."""
+    from medicalimageanalysis_torch.ops.warp import warp_affine_plain
+
+    return warp_affine_plain(vol[None].contiguous(), affine_coef(A),
+                             tuple(int(s) for s in out_shape),
+                             float(background))[0]
+
+
+def held_equal(what, out, plain):
+    """Assert an entry point's numpy result bit-equal to its plain twin
+    computed on the card; returns the max |difference| (0)."""
+    got = torch.as_tensor(out, device=plain.device)
+    assert got.shape == plain.shape, (what, got.shape, plain.shape)
+    assert torch.equal(got, plain), \
+        f"{what}: entry point != plain affine ({max_abs(got, plain)})"
+    return 0.0
+
+
+def ia_resample(img_name, dose_name, dev):
+    """Image.resample_to (the CT onto the dose grid; the dose, registered
+    as an image by CreateImageFromMask, onto the CT), create_rotated_volume
+    about the PTV and compute_projection (MIP, mean and DRR, rotated), each
+    bit-equal to the plain affine twin on the card and timed (the call,
+    host copies included); the kernel alone timed at the dose grid."""
+    from medicalimageanalysis_torch.config import config
+    from medicalimageanalysis_torch.data import Data
+    from medicalimageanalysis_torch.ops.resample import compose_pixel_matrix
+    from medicalimageanalysis_torch.structure.image import (clamp_to_air,
+                                                            project)
+    from medicalimageanalysis_torch.utils.creation import CreateImageFromMask
+
+    ct, dose = Data.image[img_name], Data.dose[dose_name]
+    vol = torch.as_tensor(np.asarray(ct.array, np.float32), device=dev)
+    ms, errs = {}, {}
+    dose_shape = tuple(int(n) for n in dose.dimensions)
+    out, ms["ct_to_dose_grid"] = ia_timed(lambda: ct.resample_to(dose), dev)
+    A = compose_pixel_matrix(ct.matrix, ct.spacing, ct.origin, dose.matrix,
+                             dose.spacing, dose.origin)
+    errs["ct_to_dose_grid"] = held_equal("resample_to(dose)", out,
+                                         affine_plain(vol, A, dose_shape,
+                                                      -3001.0))
+
+    darr = np.asarray(dose.array, np.float32)
+    CreateImageFromMask(darr, list(np.asarray(dose.origin, float)),
+                        list(np.asarray(dose.spacing, float)), "Dose grid",
+                        modality="RTDOSE").add_image()
+    dimg = Data.image["Dose grid"]
+    assert np.allclose(dimg.matrix, dose.matrix)
+    out, ms["dose_to_ct"] = ia_timed(
+        lambda: dimg.resample_to(img_name, background=0.0), dev)
+    A = compose_pixel_matrix(dimg.matrix, dimg.spacing, dimg.origin,
+                             ct.matrix, ct.spacing, ct.origin)
+    errs["dose_to_ct"] = held_equal(
+        "resample_to(ct)", out,
+        affine_plain(torch.as_tensor(darr, device=dev), A, SHAPE, 0.0))
+    Data.delete_image("Dose grid")
+
+    ptv = ct.rois["PTV"]
+    if ptv.mesh is None:
+        ptv.create_discrete_mesh()
+    out, ms["rotated_volume"] = ia_timed(
+        lambda: ct.create_rotated_volume(angles=ROTATE_DEG, roi_name="PTV"),
+        dev)
+    errs["rotated_volume"] = held_equal(
+        "create_rotated_volume", out,
+        affine_plain(vol, ct._rotation_pixel_matrix(
+            ROTATE_DEG, ptv.mesh.center), SHAPE, 0.0))
+    rotated = clamp_to_air(affine_plain(
+        vol, ct._rotation_pixel_matrix(PROJECTION_DEG, np.asarray(
+            ct.compute_center(), np.float64)),
+        SHAPE, config.background_fill))
+    projections = {}
+    for mode in ("mip", "mean", "drr"):
+        out, ms[f"projection_{mode}"] = ia_timed(
+            lambda: ct.compute_projection(mode=mode, axis="y",
+                                          angles=PROJECTION_DEG), dev)
+        errs[f"projection_{mode}"] = held_equal(
+            f"compute_projection({mode})", out,
+            project(rotated, mode, 1, ct.spacing))
+        assert np.isfinite(out).all()
+        projections[mode] = [float(out.min()), float(out.max())]
+    assert 0.0 <= projections["drr"][0] and projections["drr"][1] < 1.0
+    del vol, rotated
+    row = dict(ms=ms, max_abs_err=errs, dose_shape=list(dose_shape),
+               projection_range=projections)
+    emit("image_analysis_resample", **row)
+    return row
+
+
+def affine_at_dose_grid(img_name, dose_name, dev):
+    """After the image-analysis path's launch window: the ``affine``
+    launch of resample_to(dose) against its plain twin on the same
+    tensors (bit-equal), timed with its bound: the CT voxels the taps of
+    its samples inside the volume touch read once, the samples written,
+    30 float32 operations each. Returns the kernel row and its
+    timed_key."""
+    from medicalimageanalysis_torch.data import Data
+    from medicalimageanalysis_torch.ops.resample import compose_pixel_matrix
+    from medicalimageanalysis_torch.ops.warp import affine_coords
+
+    ct, dose = Data.image[img_name], Data.dose[dose_name]
+    vol = torch.as_tensor(np.asarray(ct.array, np.float32), device=dev)
+    A = compose_pixel_matrix(ct.matrix, ct.spacing, ct.origin, dose.matrix,
+                             dose.spacing, dose.origin)
+    shape = tuple(int(n) for n in dose.dimensions)
+    op = torch.ops.mia_torch.warp_affine
+    coef, volb = affine_coef(A), vol[None].contiguous()
+    k = op(volb, coef, list(shape), -3001.0)[0]
+    err = max_abs(k, affine_plain(vol, A, shape, -3001.0))
+    assert err == 0.0, f"affine at the dose grid: kernel != plain ({err})"
+    row = dict(max_abs_err=err, shape=list(shape),
+               ms=cuda_ms(lambda: op(volb, coef, list(shape), -3001.0)),
+               plain_ms=cuda_ms(lambda: affine_plain(vol, A, shape,
+                                                     -3001.0),
+                                reps=3, warmup=1))
+    n_out = int(np.prod(shape))
+    cz, cy, cx = affine_coords(torch.as_tensor(np.asarray(A, np.float32),
+                                               device=dev), shape)
+    inside = (cz >= 0) & (cz <= SHAPE[0] - 1) & (cy >= 0) \
+        & (cy <= SHAPE[1] - 1) & (cx >= 0) & (cx <= SHAPE[2] - 1)
+    row["taps"] = mesh_taps(vol[None], cz[inside], cy[inside], cx[inside])
+    del cz, cy, cx, inside
+    row["bound_ms"], row["bound_by"] = bound(4 * (row["taps"] + n_out),
+                                             30 * n_out)
+    emit("affine_at_dose_grid", tolerance=0.0, **row)
+    del vol, volb, k
+    torch.cuda.empty_cache()
+    return row, timed_key(1, False, shape)
+
+
+def ia_display(names, dev):
+    """The demons field of the deformable path through the Deformable
+    Display: DISPLAY_DIVISION frames (the last bit-equal to create_image,
+    which launches outside the path's counts), the field's component
+    planes against the field itself, and the queries. Returns the row and
+    a closure computing the frames again."""
+    from medicalimageanalysis_torch.data import Data
+
+    deform = Data.deformable[f"DVF_{names['ref']}_{names['deformed']}"]
+    display = deform.display
+
+    def frames():
+        display.array = []
+        display.compute_deformation(division=DISPLAY_DIVISION)
+
+    _, frames_ms = ia_timed(frames, dev)
+    assert len(display.array) == DISPLAY_DIVISION
+    with uncounted():
+        full, full_ms = ia_timed(deform.create_image, dev)
+    assert np.array_equal(display.array[-1], full["array"]), \
+        "Display frame at ratio 1 != create_image"
+    fixed = Data.image[names["ref"]].array.astype(np.float32)
+    moving = Data.image[names["deformed"]].array.astype(np.float32)
+    body = fixed > -900.0
+    # each frame's residual against the fixed image, for information
+    ratios = [residual_ratio(f, moving, fixed, body) for f in display.array]
+    assert all(np.isfinite(f).all() and f.shape == SHAPE
+               for f in display.array)
+    display.compute_slice_location()
+    dvf = np.asarray(deform.dvf)
+    loc = [int(v) for v in display.slice_location]
+    cuts = {"Axial": np.s_[loc[0]], "Coronal": np.s_[:, loc[1]],
+            "Sagittal": np.s_[:, :, loc[2]]}
+    planes_ms = {}
+    for plane in PLANES:
+        for k, vector in enumerate("xyz"):
+            g, planes_ms[f"{plane}_{vector}"] = ia_timed(
+                lambda: deform.retrieve_grid(plane, vector), dev)
+            assert np.array_equal(g, dvf[cuts[plane]][..., k])
+        frame = deform.retrieve_array_plane(plane, solo=True)
+        assert np.array_equal(frame, display.array[0][cuts[plane]])
+    queries = {p: dict(offset=deform.retrieve_offset(p),
+                       location=int(deform.retrieve_slice_location(p)),
+                       scroll_max=int(deform.retrieve_scroll_max(p)),
+                       aspect=float(deform.compute_aspect(p)))
+               for p in PLANES}
+    display.array = []
+    row = dict(division=DISPLAY_DIVISION, frames_ms=frames_ms,
+               create_image_ms=full_ms, residual_ratio_per_frame=ratios,
+               grid_ms=planes_ms, queries=queries)
+    emit("image_analysis_display", **row)
+    return row, lambda: (frames(), display.array.clear())
+
+
+def pet_phantom():
+    """(stored int16 (Z, Y, X), origin mm): the body, an elliptic cylinder
+    of PET_BACKGROUND_BQML varying by up to 20 % in z, and the hot
+    spheres, on a grid centred at the origin's opposite corner."""
+    Z, Y, X = PET_SHAPE
+    sx, sy, sz = PET_SPACING
+    origin = -np.array([(X - 1) * sx, (Y - 1) * sy, (Z - 1) * sz]) / 2
+    z = origin[2] + sz * np.arange(Z)[:, None, None]
+    y = origin[1] + sy * np.arange(Y)[None, :, None]
+    x = origin[0] + sx * np.arange(X)[None, None, :]
+    act = np.where((x / 170.0) ** 2 + (y / 110.0) ** 2 <= 1.0,
+                   PET_BACKGROUND_BQML * (1.0 + 0.2 * np.sin(z / 90.0)), 0.0)
+    act = np.broadcast_to(act, PET_SHAPE).copy()
+    for (cx, cy, cz), r, bq in PET_SPHERES:
+        act[(x - cx) ** 2 + (y - cy) ** 2 + (z - cz) ** 2 <= r * r] = bq
+    return np.round(act / PET_SLOPE).astype(np.int16), origin
+
+
+def write_pet(folder):
+    from medicalimageanalysis_torch.dicom import Dataset, Sequence
+    from medicalimageanalysis_torch.utils.creation import CreateDicomImage
+
+    raw, origin = pet_phantom()
+    info = Dataset()
+    info.RadionuclideTotalDose = PET_DOSE_BQ
+    info.RadionuclideHalfLife = PET_HALF_LIFE_S
+    info.RadiopharmaceuticalStartTime = PET_START
+    CreateDicomImage(folder, raw, series=PET_UID, origin=list(origin),
+                     spacing=PET_SPACING[:2], thickness=PET_SPACING[2]).run(
+        patient_id="SMOKE", modality="PT", rescale_slope=PET_SLOPE,
+        extra_tags={"Units": "BQML", "DecayCorrection": "START",
+                    "SeriesTime": PET_SERIES_TIME,
+                    "PatientWeight": PET_WEIGHT_KG,
+                    "RadiopharmaceuticalInformationSequence":
+                        Sequence([info])})
+
+
+def numpy_texture_counts(lev, mask, ng, lmax, alpha=0):
+    """Texture counts of levels ``lev`` under ``mask`` in numpy, by another
+    route than the port's: every voxel's GLCM pair and 26 neighbours read
+    from a padded copy, every run walked forward from its first voxel.
+    Returns glcm (13, ng, ng), glrlm (13, ng, lmax), gldm (ng, 27),
+    ngtdm_n, hist (ng,) as float64 counts and ngtdm_s (ng,) float64."""
+    from medicalimageanalysis_torch.ops.radiomics import DIRECTIONS_13
+
+    lp = np.full(tuple(n + 2 for n in lev.shape), -1, np.int64)
+    lp[1:-1, 1:-1, 1:-1] = np.where(mask, lev, -1)
+    vz, vy, vx = np.nonzero(mask)
+    lv = lev[mask].astype(np.int64)
+    glcm = np.zeros((13, ng, ng))
+    glrlm = np.zeros((13, ng, lmax))
+    for k, (dz, dy, dx) in enumerate(DIRECTIONS_13):
+        prev = lp[vz - dz + 1, vy - dy + 1, vx - dx + 1]
+        ok = prev >= 0
+        np.add.at(glcm[k], (lv[ok], prev[ok]), 1.0)
+        glcm[k] += glcm[k].T.copy()
+        first = np.flatnonzero(~(ok & (prev == lv)))
+        pos = np.stack([vz[first], vy[first], vx[first]], 1)
+        length = np.ones(first.size, np.int64)
+        walking = np.arange(first.size)
+        while walking.size:
+            pos[walking] += (dz, dy, dx)
+            nxt = lp[pos[walking, 0] + 1, pos[walking, 1] + 1,
+                     pos[walking, 2] + 1]
+            walking = walking[nxt == lv[first[walking]]]
+            length[walking] += 1
+        np.add.at(glrlm[k], (lv[first], length - 1), 1.0)
+    dep = np.zeros(lv.size, np.int64)
+    nsum = np.zeros(lv.size)
+    ncount = np.zeros(lv.size, np.int64)
+    for dz in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                if not (dz or dy or dx):
+                    continue
+                nb = lp[vz + dz + 1, vy + dy + 1, vx + dx + 1]
+                ok = nb >= 0
+                dep += ok & (np.abs(nb - lv) <= alpha)
+                nsum += np.where(ok, nb + 1, 0)
+                ncount += ok
+    gldm = np.zeros((ng, 27))
+    np.add.at(gldm, (lv, dep), 1.0)
+    has = ncount > 0
+    s = np.zeros(ng)
+    np.add.at(s, lv[has], np.abs(lv[has] + 1 - nsum[has] / ncount[has]))
+    return {"glcm": glcm, "glrlm": glrlm, "gldm": gldm, "ngtdm_s": s,
+            "ngtdm_n": np.bincount(lv[has], minlength=ng).astype(float),
+            "hist": np.bincount(lv, minlength=ng).astype(float)}
+
+
+def radiomics_pin(image, roi_name, values, bin_width, dev):
+    """Image.compute_radiomics of one ROI; the texture matrices it counted
+    on the card against numpy_texture_counts of the same crop: counts
+    bit-equal, ngtdm_s to 1e-6 relative. Returns its row and the counted
+    inputs (for the profile)."""
+    from medicalimageanalysis_torch.ops import radiomics
+
+    with recording(radiomics, "texture_matrices") as seen:
+        out, ms = ia_timed(lambda: image.compute_radiomics(
+            roi_name, values=values, bin_width=bin_width), dev)
+    assert len(seen) == 1
+    mask = np.asarray(image.rois[roi_name].compute_mask()) > 0
+    vals = np.asarray(image.array if values is None else values, np.float32)
+    _, _, cvol, cm = radiomics._crop(vals, mask)
+    levels, ng = radiomics.discretize(cvol, cm, bin_width=bin_width)
+    assert ng == out["meta"]["Ng"] and int(cm.sum()) == out["meta"]["voxels"]
+    ref, ref_ms = ia_timed(lambda: numpy_texture_counts(
+        levels, cm, ng, max(levels.shape)), "cpu")
+    got = seen[0]
+    for key in ("glcm", "glrlm", "gldm", "ngtdm_n", "hist"):
+        assert np.array_equal(got[key], ref[key]), \
+            f"{roi_name} {key}: card counts != numpy count"
+    s_err = float(np.abs(got["ngtdm_s"] - ref["ngtdm_s"]).max()
+                  / max(ref["ngtdm_s"].max(), 1e-30))
+    assert s_err <= 1e-6, f"{roi_name} ngtdm_s: {s_err}"
+    for fam, feats in out.items():
+        if fam != "meta":
+            assert all(np.isfinite(v) for v in feats.values()), (fam, feats)
+    return dict(ms=ms, numpy_count_ms=ref_ms, voxels=out["meta"]["voxels"],
+                crop=[int(n) for n in cm.shape], Ng=ng,
+                ngtdm_s_rel_err=s_err, counts_equal=True,
+                glcm_contrast=out["glcm"]["Contrast"],
+                mesh_volume_cc=out["shape"]["MeshVolume"] / 1000.0), \
+        (levels, cm, ng)
+
+
+def ia_pet(folder, img_name, dev):
+    """A whole-body PT series written and read: compute_suv against a
+    float64 host reading of the same tags; compute_mtv_tlg of the largest
+    sphere's ROI at an absolute and a relative cut against its known
+    voxels; compute_radiomics of that lesion (on SUV) and of the CT's PTV
+    (on HU), their counts pinned against numpy."""
+    import medicalimageanalysis_torch as mia
+    from medicalimageanalysis_torch.data import Data
+    from medicalimageanalysis_torch.utils.metrics import voxel_volume_cc
+
+    write_pet(folder)
+    _, read_ms = ia_timed(lambda: mia.read_dicoms(folder_path=folder,
+                                                  clear=False, device=dev),
+                          dev)
+    name = [n for n in Data.image_list if Data.image[n].series_uid == PET_UID]
+    assert len(name) == 1, Data.image_list
+    pet = Data.image[name[0]]
+    assert pet.array.shape == PET_SHAPE and pet.array.dtype == np.float32
+    suv, suv_ms = ia_timed(pet.compute_suv, dev)
+    decayed = PET_DOSE_BQ * 2.0 ** (-3600.0 / PET_HALF_LIFE_S)
+    scale = PET_WEIGHT_KG * 1000.0 / decayed
+    expect = pet.array.astype(np.float64) * scale
+    suv_err = float(np.abs(suv - expect).max() / expect.max())
+    assert suv_err <= 1e-6, f"compute_suv: {suv_err} relative"
+
+    (cx, cy, cz), r, _ = PET_SPHERES[0]
+    Z, Y, X = PET_SHAPE
+    o = np.asarray(pet.origin, np.float64)
+    sp = np.asarray(pet.spacing, np.float64)
+    z = o[2] + sp[2] * np.arange(Z)[:, None, None]
+    y = o[1] + sp[1] * np.arange(Y)[None, :, None]
+    x = o[0] + sp[0] * np.arange(X)[None, None, :]
+    d2 = (x - cx) ** 2 + (y - cy) ** 2 + (z - cz) ** 2
+    pet.create_roi(name="Lesion", color=[255, 0, 0])
+    pet.rois["Lesion"].convert_mask(
+        (d2 <= (r + PET_ROI_MARGIN_MM) ** 2).astype(np.uint8))
+    roi = np.asarray(pet.rois["Lesion"].compute_mask()) > 0
+    sphere = (d2 <= r * r) & roi
+    voxel_cc = voxel_volume_cc(pet.spacing)
+    mtv = {}
+    for label, threshold, relative in (("absolute", SUV_CUT, False),
+                                       ("relative", SUV_RELATIVE, True)):
+        got, ms = ia_timed(lambda: pet.compute_mtv_tlg(
+            "Lesion", suv=suv, threshold=threshold, relative=relative),
+            dev)
+        inside = expect[roi]
+        cut = threshold * (inside.max() if relative else 1.0)
+        hot = inside[inside >= cut]
+        assert hot.size == int(sphere.sum()), (label, hot.size)
+        known = dict(mtv_cc=hot.size * voxel_cc, tlg=hot.sum() * voxel_cc,
+                     suv_max=inside.max())
+        assert got["mtv_cc"] == known["mtv_cc"], (label, got, known)
+        for key in ("tlg", "suv_max"):
+            assert abs(got[key] - known[key]) <= 1e-6 * known[key], \
+                (label, key, got[key], known[key])
+        mtv[label] = dict(got, ms=ms, known_tlg=known["tlg"],
+                          sphere_cc=4.0 / 3.0 * np.pi * r ** 3 / 1000.0)
+    assert abs(mtv["absolute"]["mtv_cc"] - mtv["absolute"]["sphere_cc"]) \
+        <= 0.1 * mtv["absolute"]["sphere_cc"]
+    lesion, _ = radiomics_pin(pet, "Lesion", suv, PET_BIN_SUV, dev)
+    ptv, tex_inputs = radiomics_pin(Data.image[img_name], "PTV", None,
+                                    PTV_BIN_HU, dev)
+    drop_structures(["Lesion"])
+    Data.delete_image(name[0])
+    row = dict(shape=list(PET_SHAPE), read_ms=read_ms, suv_ms=suv_ms,
+               suv_rel_err=suv_err, suv_max=float(suv.max()), mtv_tlg=mtv,
+               radiomics_lesion=lesion, radiomics_ptv=ptv)
+    emit("image_analysis_pet", **row)
+    return row, tex_inputs
+
+
+def mr_phantom(seed):
+    """(volume, truth, bias) on MR_SHAPE: tests/test_n4.py's biased volume
+    (two tissue classes, 15 of noise, a smooth polynomial log-bias)."""
+    rng = np.random.default_rng(seed)
+    zz, yy, xx = np.meshgrid(*[np.linspace(-1, 1, n) for n in MR_SHAPE],
+                             indexing="ij")
+    logb = 0.25 * zz + 0.18 * yy * xx - 0.15 * xx ** 2
+    truth = np.where(zz ** 2 + yy ** 2 + xx ** 2 < 0.6, 800.0, 300.0)
+    del zz, yy
+    truth = np.clip(truth + rng.normal(0, 15, MR_SHAPE), 1, None)
+    bias = np.exp(logb)
+    return truth * bias, truth, bias
+
+
+def n4_work(shape3, mats_shapes, evals, adjoints):
+    """Float32 operations of the einsums an N4 level ran: per B-spline
+    evaluation and adjoint, its three contractions (B lanes of Z, Y, X
+    voxels on a C, D, E control grid)."""
+    Z, Y, X = shape3
+    C, D, E = mats_shapes
+    ev = 2 * (Z * C * D * E + Z * Y * D * E + Z * Y * X * E)
+    adj = 2 * (C * Z * Y * X + C * D * Y * X + C * D * E * X)
+    return sum(b * ev for b in evals) + sum(b * adj for b in adjoints)
+
+
+def ia_mr(folder, dev):
+    """An MR with a known bias through Image.correct_bias (shrink 4): the
+    recovery bounds of tests/test_n4.py:58-76; the first fitting level at
+    full size pinned against the host float64 twin (one iteration, then
+    six: tests/test_n4.py's 2e-3 and 1.2e-2); n4_batch of two volumes,
+    each lane held to its single-volume field. Returns the row and the
+    level's profile closure with the work of its bound."""
+    import medicalimageanalysis_torch as mia
+    from medicalimageanalysis_torch.data import Data
+    from medicalimageanalysis_torch.ops import n4
+    from medicalimageanalysis_torch.parallel.batch import n4_batch
+    from medicalimageanalysis_torch.utils.creation import CreateDicomImage
+
+    vol, truth, bias = mr_phantom(SEED)
+    CreateDicomImage(folder, np.round(vol).astype(np.int16), series=MR_UID,
+                     origin=[-128.0, -128.0, -88.0], spacing=MR_SPACING[:2],
+                     thickness=MR_SPACING[2]).run(patient_id="SMOKE",
+                                                  modality="MR")
+    del vol
+    mia.read_dicoms(folder_path=folder, clear=False, device=dev)
+    name = [n for n in Data.image_list if Data.image[n].series_uid == MR_UID]
+    mr = Data.image[name[0]]
+    arr = mr.array.astype(np.float64)
+    (corr, field), correct_ms = ia_timed(lambda: mr.correct_bias(
+        shrink=MR_SHRINK, control_spacing_mm=MR_CONTROL_SPACING_MM,
+        return_field=True), dev)
+    ident = float(np.abs(corr * field - arr).max() / arr.max())
+    assert np.allclose(arr, corr * field, rtol=2e-3)
+    r = field / bias
+    r = r / r.mean()
+    recovered = float(r.std())
+    limit = 0.25 * float(bias.std() / bias.mean())
+    bright = truth > 500
+    cv_before = float(arr[bright].std() / arr[bright].mean())
+    cv_after = float(corr[bright].std() / corr[bright].mean())
+    assert recovered < limit, (recovered, limit)
+    assert cv_after < 0.45 * cv_before, (cv_after, cv_before)
+    del truth, corr
+
+    # one full-size level against the float64 twin, from the same state
+    logv, sm = n4._shrunk_log(arr, arr > 0, MR_SHRINK)
+    w64 = sm.astype(np.float64)
+    shape3 = logv.shape
+    floor = [MR_CONTROL_SPACING_MM / s for s in MR_SPACING[::-1]]
+    sp_vox = n4._level_spacings(shape3, 4, floor, MR_SHRINK)[0]
+    mats = n4._level_basis_mats(shape3, sp_vox, dev)
+    mats_host = [n4._bspline_basis_matrix(n, sp_vox[ax], p)
+                 for p in (1, 2) for ax, n in enumerate(shape3)]
+    res0 = torch.as_tensor(logv.astype(np.float32), device=dev)[None]
+    w = torch.as_tensor(sm.astype(np.float32), device=dev)[None]
+    pin = {}
+    for n_it, tol in ((1, 2e-3), (6, 1.2e-2)):
+        (res_d, tot_d), dev_ms = ia_timed(lambda: n4._n4_level(
+            res0.clone(), torch.zeros_like(res0), w, 200, 0.15, 0.01, 1e-4,
+            n_it, *mats), dev)
+        (res_h, tot_h), host_ms = ia_timed(lambda: n4._host_n4_level(
+            logv, np.zeros_like(logv), w64, 200, 0.15, 0.01, 1e-4, n_it,
+            mats_host), "cpu")
+        err = max(float(np.abs(tot_d[0].cpu().numpy() - tot_h).max()),
+                  float(np.abs(res_d[0].cpu().numpy() - res_h).max()))
+        assert err <= tol, f"N4 level, {n_it} iterations: {err} > {tol}"
+        pin[f"iterations_{n_it}"] = dict(max_abs_err=err, tolerance=tol,
+                                         ms=dev_ms, host_f64_ms=host_ms)
+
+    # the level as correct_bias runs it, its einsum work counted
+    evals, adjoints = [], []
+    ev, adj = n4._bspline_eval, n4._bspline_adjoint
+
+    def count_eval(phi, *m):
+        evals.append(phi.shape[0])
+        return ev(phi, *m)
+
+    def count_adj(v, *m):
+        adjoints.append(v.shape[0])
+        return adj(v, *m)
+
+    def level():
+        return n4._n4_level(res0.clone(), torch.zeros_like(res0), w, 200,
+                            0.15, 0.01, 1e-3, 50, *mats)
+
+
+    n4._bspline_eval, n4._bspline_adjoint = count_eval, count_adj
+    try:
+        level()
+    finally:
+        n4._bspline_eval, n4._bspline_adjoint = ev, adj
+    ctrl = tuple(int(m.shape[1]) for m in mats[:3])
+    work = dict(voxels=int(np.prod(shape3)), control_grid=list(ctrl),
+                fits=len(adjoints) - len(evals),
+                cg_evaluations=len(evals),
+                ops=n4_work(shape3, ctrl, evals, adjoints))
+
+    vol2, _, bias2 = mr_phantom(SEED + 1)
+    vol2 = np.round(vol2).astype(np.float32)
+    batch = np.stack([mr.array.astype(np.float32), vol2])
+    (_, fields), batch_ms = ia_timed(lambda: n4_batch(
+        batch, shrink=MR_SHRINK, min_control_spacing=floor,
+        return_fields=True, device=dev), dev)
+    (_, field2), single_ms = ia_timed(lambda: n4.n4_bias_correction(
+        vol2, shrink=MR_SHRINK, min_control_spacing=floor,
+        return_field=True, device=dev), dev)
+    del vol2, batch
+    lanes = []
+    for lane, single in zip(fields, (field, field2)):
+        ratio = lane.astype(np.float64) / single
+        lanes.append([float(ratio.mean()), float(ratio.std())])
+        # tests/test_n4.py's n4_batch rule: each lane its single call's
+        assert abs(lanes[-1][0] - 1.0) < 2e-3 and lanes[-1][1] < 5e-3, lanes
+    r2 = fields[1] / bias2
+    r2 = r2 / r2.mean()
+    recovered2 = float(r2.std())
+    assert recovered2 < 0.25 * float(bias2.std() / bias2.mean()), recovered2
+    Data.delete_image(name[0])
+    row = dict(shape=list(MR_SHAPE), shrink=MR_SHRINK, correct_ms=correct_ms,
+               identity_rel_err=ident, field_std_after=recovered,
+               field_std_limit=limit, cv_bright_before=cv_before,
+               cv_bright_after=cv_after, level_pin=pin,
+               control_spacing_mm=MR_CONTROL_SPACING_MM,
+               n4_batch_ms=batch_ms, n4_batch_volumes=2,
+               n4_single_ms=single_ms, n4_batch_lane_ratio=lanes,
+               n4_batch_lane1_field_std=recovered2)
+    emit("image_analysis_mr", **row)
+    return row, level, work
+
+
+def fourd_phase(k):
+    """Phase k of the breathing phantom (int16 HU): a body with two
+    lungs, the tumour sphere moving FOURD_AMPLITUDE_MM in z and 3 mm in
+    y over the cycle; and the tumour's mask."""
+    Z, Y, X = FOURD_SHAPE
+    sx, sy, sz = FOURD_SPACING
+    z = (np.arange(Z) - (Z - 1) / 2)[:, None, None] * sz
+    y = (np.arange(Y) - (Y - 1) / 2)[None, :, None] * sy
+    x = (np.arange(X) - (X - 1) / 2)[None, None, :] * sx
+    vol = np.full(FOURD_SHAPE, -1000, np.int16)
+    body = np.broadcast_to((x / 200.0) ** 2 + (y / 140.0) ** 2 <= 1,
+                           FOURD_SHAPE)
+    vol[body] = 40
+    for cx in (-90.0, 90.0):
+        lung = np.broadcast_to(((x - cx) / 70.0) ** 2 + (y / 90.0) ** 2
+                               + (z / 90.0) ** 2 <= 1, FOURD_SHAPE)
+        vol[lung] = -820
+    t = 2 * np.pi * k / FOURD_PHASES
+    tumour = ((x + 90.0) ** 2 + (y - 3.0 * np.sin(t)) ** 2
+              + (z - FOURD_AMPLITUDE_MM * np.sin(t)) ** 2
+              <= FOURD_TUMOUR_MM ** 2)
+    vol[tumour] = 30
+    return vol, tumour
+
+
+def ia_fourd(folder, dev):
+    """Ten phases written as one series (TemporalPositionIdentifier) and
+    read: find_phase_groups, combine_phases (mean, MIP) against the host
+    reductions, per-phase GTVs, compute_itv onto the average (the union)
+    and onto a coarser planning grid (one affine resample, held against
+    the plain twin on the card)."""
+    import medicalimageanalysis_torch as mia
+    from medicalimageanalysis_torch.data import Data
+    from medicalimageanalysis_torch.ops.resample import compose_pixel_matrix
+    from medicalimageanalysis_torch.utils import fourd
+    from medicalimageanalysis_torch.utils.creation import (
+        CreateDicomImage, CreateImageFromMask)
+    from medicalimageanalysis_torch.dicom import generate_uid
+
+    study, frame = generate_uid(), generate_uid()
+    Z = FOURD_SHAPE[0]
+    origin = [-(n - 1) / 2 * s for n, s in zip(FOURD_SHAPE[::-1],
+                                               FOURD_SPACING)]
+    vols, gtvs = [], []
+    t0 = time.perf_counter()
+    for k in range(FOURD_PHASES):
+        vol, gtv = fourd_phase(k)
+        vols.append(vol)
+        gtvs.append(gtv)
+        CreateDicomImage(folder, vol, study=study, series=FOURD_UID,
+                         frame=frame, origin=origin,
+                         spacing=FOURD_SPACING[:2],
+                         thickness=FOURD_SPACING[2]).run(
+            patient_id="SMOKE", modality="CT", instance_offset=k * Z,
+            extra_tags={"TemporalPositionIdentifier": str(k + 1),
+                        "NumberOfTemporalPositions": str(FOURD_PHASES)})
+    write_s = time.perf_counter() - t0
+    _, read_ms = ia_timed(lambda: mia.read_dicoms(
+        folder_path=folder, clear=False, device=dev), dev)
+    phases = [n for n in Data.image_list
+              if Data.image[n].series_uid == FOURD_UID]
+    groups, group_ms = ia_timed(lambda: fourd.find_phase_groups(phases),
+                                "cpu")
+    assert len(groups) == 1 and len(groups[0]) == FOURD_PHASES, groups
+    group = groups[0]
+    assert [fourd.temporal_sort_key(Data.image[n]) for n in group] == \
+        [(0, float(k + 1)) for k in range(FOURD_PHASES)]
+    for k, n in enumerate(group):
+        assert np.array_equal(Data.image[n].array, vols[k])
+    stack = np.stack(vols).astype(np.float64)
+    aip, mean_ms = ia_timed(lambda: fourd.combine_phases(group, "mean",
+                                                         device=dev), dev)
+    mip, mip_ms = ia_timed(lambda: fourd.combine_phases(group, "mip",
+                                                        device=dev), dev)
+    mean_err = int(np.abs(aip.array.astype(np.int64)
+                          - np.rint(stack.mean(0))).max())
+    assert mean_err <= 1 and aip.array.dtype == np.int16, mean_err
+    assert np.array_equal(mip.array, np.max(np.stack(vols), 0))
+    del stack, vols
+    t0 = time.perf_counter()
+    union = np.zeros(FOURD_SHAPE, bool)
+    for k, n in enumerate(group):
+        img = Data.image[n]
+        img.create_roi(name="GTV", color=[255, 0, 0])
+        img.rois["GTV"].convert_mask(gtvs[k].astype(np.uint8))
+        union |= np.asarray(img.rois["GTV"].compute_mask()) > 0
+    gtv_s = time.perf_counter() - t0
+    _, itv_ms = ia_timed(lambda: fourd.compute_itv(
+        group, "GTV", target=aip.image_name), dev)
+    got = np.asarray(aip.rois["ITV_GTV"].compute_mask()) > 0
+    assert np.array_equal(got, union), "ITV on the average != union"
+    plan_shape = (Z // 2, FOURD_SHAPE[1] // 2, FOURD_SHAPE[2] // 2)
+    CreateImageFromMask(np.zeros(plan_shape, np.int16), origin,
+                        [2 * s for s in FOURD_SPACING], "Planning 4D") \
+        .add_image()
+    plan = Data.image["Planning 4D"]
+    _, itv_plan_ms = ia_timed(lambda: fourd.compute_itv(
+        group, "GTV", target="Planning 4D"), dev)
+    first = Data.image[group[0]]
+    A = compose_pixel_matrix(first.matrix, first.spacing, first.origin,
+                             plan.matrix, plan.spacing, plan.origin)
+    plain = affine_plain(torch.as_tensor(union.astype(np.float32),
+                                         device=dev), A, plan_shape,
+                         0.0) >= 0.5
+    got = torch.as_tensor(np.asarray(plan.rois["ITV_GTV"].compute_mask())
+                          > 0, device=dev)
+    assert torch.equal(got, plain), "ITV on the planning grid != plain"
+    itv_cc = float(union.sum() * np.prod(FOURD_SPACING) / 1000.0)
+    drop_structures(["GTV", "ITV_GTV"])
+    for n in group + [aip.image_name, mip.image_name, "Planning 4D"]:
+        Data.delete_image(n)
+    row = dict(phases=FOURD_PHASES, shape=list(FOURD_SHAPE),
+               write_s=write_s, read_ms=read_ms, group_ms=group_ms,
+               mean_ms=mean_ms, mip_ms=mip_ms, mean_max_err=mean_err,
+               gtv_masks_s=gtv_s, itv_ms=itv_ms,
+               itv_planning_ms=itv_plan_ms, itv_cc=itv_cc,
+               itv_planning_voxels=int(got.sum()))
+    emit("image_analysis_fourd", **row)
+    return row
+
+
+def demons_batch_pairs(ref, deformed, dev):
+    """demons_batch's two pairs at DEMONS_BATCH_SHAPE from the full-size
+    reference and deformed series (host arrays), downsampled on ``dev``:
+    (fixed (2, Z, Y, X), moving (2, Z, Y, X), spacing [sx, sy, sz] mm,
+    the known fields (2, Z, Y, X, 3) mm). moving(x + d(x)) = fixed(x):
+    the reference registered to the deformed series (d the known bump:
+    the deformed series is the reference at p + bump) and to the
+    reference warped on ``dev`` by the opposite bump (d its opposite)."""
+    from medicalimageanalysis_torch.ops.registration.dvf import warp_volume
+    from medicalimageanalysis_torch.ops.resample import separable_resample
+
+    def down(arr):
+        return separable_resample(torch.as_tensor(
+            np.asarray(arr, np.float32), device=dev), DEMONS_BATCH_SHAPE)
+
+    ref, deformed, g = down(ref), down(deformed), down(known_bump())
+    sp = [s * n / m for s, n, m in zip(SPACING, SHAPE[::-1],
+                                       DEMONS_BATCH_SHAPE[::-1])]
+    known = torch.stack([BUMP_MM * g, BUMP_MM * g, torch.zeros_like(g)], -1)
+    opposite = warp_volume(ref, -known, sp, background=-1000.0)
+    return (torch.stack([deformed, opposite]), torch.stack([ref, ref]), sp,
+            torch.stack([known, -known]))
+
+
+def ia_demons_batch(names, dev):
+    """demons_batch of the two demons_batch_pairs, each within the
+    deformable path's residual bound (the known field's own ratio beside
+    it); the first bit-equal to the single-pair demons_registration. The
+    pairs' making and the checks launch outside the path's counts.
+    Returns the row and a closure running the batch again."""
+    from medicalimageanalysis_torch.data import Data
+    from medicalimageanalysis_torch.ops.registration.demons import (
+        demons_registration)
+    from medicalimageanalysis_torch.ops.registration.dvf import warp_volume
+    from medicalimageanalysis_torch.parallel.batch import demons_batch
+
+    with uncounted():
+        fixed, moving, sp, known = demons_batch_pairs(
+            Data.image[names["ref"]].array,
+            Data.image[names["deformed"]].array, dev)
+
+    def batch():
+        return demons_batch(fixed, moving, sp, method="fast",
+                            iterations=DEMONS_BATCH_ITERATIONS, device=dev)
+
+    dvfs, batch_ms = ia_timed(batch, dev)
+    assert dvfs.shape == (2,) + DEMONS_BATCH_SHAPE + (3,)
+    ratios, floors = [], []
+    with uncounted():
+        single, single_ms = ia_timed(lambda: demons_registration(
+            fixed[0], moving[0], sp, method="fast",
+            iterations=DEMONS_BATCH_ITERATIONS, device=dev), dev)
+        assert np.array_equal(dvfs[0], single), \
+            "demons_batch != single pair"
+        m = moving[0].cpu().numpy()
+        for b in range(2):
+            f = fixed[b].cpu().numpy()
+            body = f > -900.0
+            for out, d in ((ratios, dvfs[b]), (floors, known[b])):
+                warped = warp_volume(moving[b], d, sp, background=-3001.0)
+                out.append(residual_ratio(warped.cpu().numpy(), m, f, body))
+    row = dict(pairs=2, shape=list(DEMONS_BATCH_SHAPE), spacing=sp,
+               iterations=DEMONS_BATCH_ITERATIONS, ms=batch_ms,
+               single_pair_ms=single_ms, residual_ratio=ratios,
+               known_field_residual_ratio=floors,
+               residual_limit=RESIDUAL_LIMIT)
+    emit("image_analysis_demons_batch", **row)
+    assert all(r <= RESIDUAL_LIMIT for r in ratios), ratios
+    return row, batch
+
+
+def phase_image_analysis(folder, names, img_name, dose_name, dev):
+    """The image-analysis path at full width: resample / rotate / project
+    the dose-QA CT, the Deformable Display of the demons field, a
+    whole-body PET (SUV, MTV / TLG, radiomics), an MR's N4 correction and
+    n4_batch, a 10-phase 4D-CT's average, MIP and ITV, and demons_batch.
+    Returns the profile closures (one N4 level, one texture_matrices
+    call) with the work of their bounds, and closures running the
+    Display's frames and demons_batch again (``warp_calls``)."""
+    from medicalimageanalysis_torch.ops import radiomics
+
+    seconds = {}
+
+    def step(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        return out
+
+    step("resample", ia_resample, img_name, dose_name, dev)
+    _, frames = step("display", ia_display, names, dev)
+    _, (levels, cm, ng) = step("pet", ia_pet, os.path.join(folder, "pet"),
+                               img_name, dev)
+    _, n4_level, n4_work_row = step("mr", ia_mr, os.path.join(folder, "mr"),
+                                    dev)
+    step("fourd", ia_fourd, os.path.join(folder, "fourd"), dev)
+    _, batch = step("demons_batch", ia_demons_batch, names, dev)
+    emit("image_analysis", seconds=sum(seconds.values()),
+         seconds_per_step=seconds)
+    lmax = max(levels.shape)
+    tex_work = dict(voxels=int(levels.size), roi_voxels=int(cm.sum()),
+                    Ng=ng, Lmax=lmax)
+    return dict(profiles={
+                    "n4_level": n4_level,
+                    "texture_matrices": lambda: radiomics.texture_matrices(
+                        levels, cm, ng, device=dev)},
+                work=dict(n4_level=n4_work_row, texture_matrices=tex_work),
+                warp_calls=dict(display_frames=frames, demons_batch=batch))
+
+
 def phase_preprocess(gen, dev):
     from medicalimageanalysis_torch.ops.filters import _gauss_kernel_matrix
     from medicalimageanalysis_torch.parallel.batch import make_preprocess_fn
@@ -2944,6 +3889,32 @@ def main():
         coords["timed"][timed_key(3, False, row.pop("shape"))] = row
         coords["max_abs_err"] = max(coords["max_abs_err"], row["max_abs_err"])
         coords["mesh_warp"] = row
+        reset_counts()                     # the image-analysis path starts
+        analysis = phase_image_analysis(folder, names, img_name, dose_name,
+                                        dev)
+        image_analysis_launches = launch_counts()  # ... and ends here
+        shapes["image_analysis"] = launch_shapes()
+        # the CT onto the dose grid: its affine launch timed
+        row, key = affine_at_dose_grid(img_name, dose_name, dev)
+        kernels["warp_affine"]["timed"].setdefault(key, row)
+        kernels["warp_affine"]["at_dose_grid"] = row
+        # the Display's frames and demons_batch again, each warp launch
+        # key held and timed on their own tensors: these rows weigh the
+        # launches at their keys in ms_lost on every path
+        calls = {}
+        with recording_warp_calls(calls):
+            for rerun in analysis.pop("warp_calls").values():
+                rerun()
+        for name, rows in warp_path_rows(calls).items():
+            for key, row in rows.items():
+                synthetic = kernels[name]["timed"].get(key)
+                row["synthetic_field_ms"] = None if synthetic is None \
+                    else synthetic["ms"]
+                kernels[name]["max_abs_err"] = max(
+                    kernels[name]["max_abs_err"], max(row["max_abs_err"]))
+            kernels[name]["timed"].update(rows)
+            kernels[name]["image_analysis"] = list(rows.values())
+        del calls
         reset_counts()                     # the view path starts here
         view = phase_view(names, rigid, dev)
         view_launches = launch_counts()    # ... and ends here
@@ -2969,6 +3940,10 @@ def main():
         f"a kernel of the plan-QA path never launched: {plan_qa_launches}"
     assert roi_mesh_launches["warp_coords"], \
         f"the ROI mesh path never launched warp_coords: {roi_mesh_launches}"
+    assert all(image_analysis_launches[k] for k in
+               ("warp_affine", "warp_coords", "warp_disp")), \
+        f"a kernel of the image-analysis path never launched: " \
+        f"{image_analysis_launches}"
     # three lane_interp passes per shear reslice; the exact reslices (the
     # display, its volume bundle, two Rigid nudges and two comparisons).
     # No view route reaches the oblique entry: affine_resample keeps the
@@ -2982,11 +3957,11 @@ def main():
     assert oblique_launches == dict(
         {k: 0 for k in oblique_launches}, warp_coords=1,
         warp_affine_shear=1), oblique_launches
-    # every kernel's launches on the seven paths, and the warp launches by
+    # every kernel's launches on the eight paths, and the warp launches by
     # shape over them
     paths = (rigid_launches, cohort_launches, deformable_launches,
              dose_qa_launches, plan_qa_launches, roi_mesh_launches,
-             view_launches)
+             image_analysis_launches, view_launches)
     launches = {k: sum(p[k] for p in paths) for k in rigid_launches}
     all_shapes = {}
     for per_path in shapes.values():
@@ -3060,7 +4035,11 @@ def main():
             intensity_scale=1.0 / 65535.0), ["warp_coords"]),
         # the ROI mesh path: a mesh build (the external), the
         # marching-tetrahedra pass, the Taubin smoothing, the mesh warp
-        **mesh["profiles"]}
+        **mesh["profiles"],
+        # the image-analysis path: the MR's first N4 fitting level (up to
+        # 50 iterations) and the PTV's texture_matrices, plain PyTorch
+        **{name: profile_device(fn)
+           for name, fn in analysis["profiles"].items()}}
     descent = profiles["rigid"]
     descent["device_events_per_step"] = \
         descent["device_events"] / sum(s for _, s, _ in RIGID_LEVELS)
@@ -3085,6 +4064,7 @@ def main():
          launches_dose_qa_path=dose_qa_launches,
          launches_plan_qa_path=plan_qa_launches,
          launches_roi_mesh_path=roi_mesh_launches,
+         launches_image_analysis_path=image_analysis_launches,
          launches_view_path=view_launches,
          launches_oblique_entry=oblique_launches,
          launch_shapes={k: shape_rows(v) for k, v in shapes.items()},
@@ -3092,7 +4072,8 @@ def main():
     for name, p in profiles.items():
         check_profile(name, p)
     emit("plain_programs", **plain_program_rows(profiles, plan,
-                                                mesh["work"]))
+                                                mesh["work"],
+                                                analysis["work"]))
     phase_preprocess(cpu_gen, dev)
     # the port and this script ran without JAX and without the JAX package
     loaded = sorted(m for m in sys.modules

@@ -21,7 +21,16 @@ Port of medicalimageanalysis_tpu/parallel/batch.py:
 - ``gamma_batch`` (:404-486): gamma of B dose pairs on a shared grid
   (ops/gamma).
 - ``rasterize_batch`` (:667-735): every contour of B ROIs in one pooled
-  pass (ops/rasterize).
+  pass (ops/rasterize);
+- ``demons_batch`` (:144-221): B deformable pairs one after another, each
+  the single-pair ``_demons_core`` / ``_syn_core`` (the ``disp`` mode on
+  the card), SyN assembled by ``invert_dvf`` / ``compose_dvf``;
+- ``radiomics_batch`` (:489-585): the texture matrices of B (volume, ROI)
+  pairs counted in one batched pass on the device (ops/radiomics), the
+  formulas per pair on the host;
+- ``n4_batch`` (:587-665): every N4 fitting level of B volumes as one
+  batched loop (ops/n4), each lane gated on its own convergence
+  statistic, so a lane follows its single-volume trajectory.
 
 A ``mesh`` (the JAX package's data-sharded path) raises: multi-device is
 ROADMAP.md queue 1, item 11.
@@ -35,9 +44,10 @@ from ..device import default_device, full_float32
 from ..ops.filters import _gauss_kernel_matrix
 from ..ops.resample import _interp_matrix
 
-__all__ = ["compare_masks_batch", "dvh_batch", "gamma_batch",
-           "make_preprocess_fn", "make_registration_step",
-           "preprocess_batch", "rasterize_batch"]
+__all__ = ["compare_masks_batch", "demons_batch", "dvh_batch",
+           "gamma_batch", "make_preprocess_fn", "make_registration_step",
+           "n4_batch", "preprocess_batch", "radiomics_batch",
+           "rasterize_batch"]
 
 
 def make_preprocess_fn(in_shape, out_shape, ffs_op="ax_rot2",
@@ -348,3 +358,142 @@ def gamma_batch(ref_doses, eval_doses, spacing, dose_pct=3.0,
     if return_maps:
         out["gamma"] = torch.stack(maps).cpu().numpy()
     return out
+
+
+def demons_batch(fixed_batch, moving_batch, spacing_xyz=(1.0, 1.0, 1.0),
+                 method="fast", iterations=30, std=1.0, step=2.0,
+                 intensity_threshold=0.001, smooth=True, mesh=None,
+                 forces="ssd", lncc_radius=3, device=None):
+    """Deformable registration of B (fixed, moving) pairs (B, Z, Y, X) on
+    ``device`` (default: ``default_device()``), one pair after another,
+    each the single-level solve of ``demons_registration`` (one ``disp``
+    launch per iteration on the card). method='syn' assembles each
+    u2 o u1^{-1} through ``invert_dvf`` / ``compose_dvf``. Returns the
+    (B, Z, Y, X, 3) float32 numpy DVFs in mm."""
+    from ..device import as_f32
+    from ..ops.registration.demons import _demons_core, _syn_core
+    from ..ops.registration.dvf import compose_dvf, invert_dvf
+
+    _no_mesh("demons_batch", mesh)
+    if forces not in ("ssd", "lncc"):
+        raise ValueError(f"demons_batch: forces must be 'ssd' or "
+                         f"'lncc', got {forces!r}")
+    method = str(method).lower()
+    if method not in ("demons", "fast", "diffeomorphic",
+                      "biomechanical", "syn"):
+        raise ValueError(f"demons_batch: unknown method {method!r}")
+    device = default_device() if device is None else torch.device(device)
+    fixed = as_f32(fixed_batch, device)
+    moving = as_f32(moving_batch, device)
+    sp = as_f32(spacing_xyz, device)
+    outs = []
+    for f, m in zip(fixed, moving):
+        if method == "syn":
+            u1, u2 = _syn_core(f, m, sp, float(std), float(step),
+                               float(intensity_threshold), int(iterations),
+                               bool(smooth), forces, int(lncc_radius))
+            with torch.no_grad():
+                outs.append(compose_dvf(u2, invert_dvf(u1, sp), sp))
+        else:
+            outs.append(_demons_core(
+                f, m, sp, float(std), float(step),
+                float(intensity_threshold), int(iterations), method,
+                bool(smooth), forces=forces, lncc_radius=int(lncc_radius)))
+    return torch.stack(outs).cpu().numpy()
+
+
+def radiomics_batch(volumes, masks, spacing, bin_width=None, n_bins=32,
+                    alpha=0, families=None, mesh=None, device=None):
+    """Cohort radiomics: the texture matrices of B (volume, ROI) pairs
+    (B, Z, Y, X), pre-cropped to a shared bounding shape, counted in one
+    batched pass on ``device`` (default: ``default_device()``) at the
+    largest level count and the shared run-length cap; each pair's
+    formulas then run on the host at its own level count. Returns a list
+    of B dicts with the ``ops.radiomics.compute_radiomics`` schema."""
+    import numpy as np
+
+    from ..ops import radiomics as rad
+
+    _no_mesh("radiomics_batch", mesh)
+    vols = np.asarray(volumes, np.float32)
+    ms = np.asarray(masks) > 0
+    if vols.shape != ms.shape or vols.ndim != 4:
+        raise ValueError("radiomics_batch: expected matching "
+                         f"(B, Z, Y, X) stacks, got {vols.shape} vs "
+                         f"{ms.shape}")
+    if families is None:
+        families = rad.ALL_FAMILIES
+    device = default_device() if device is None else torch.device(device)
+    B = vols.shape[0]
+    sp = np.asarray(spacing, np.float64).reshape(-1)
+    levels = np.zeros(vols.shape, np.int32)
+    ngs = []
+    for b in range(B):
+        levels[b], ng = rad._discretize(vols[b], ms[b], bin_width, n_bins)
+        ngs.append(ng)
+    ng_max = max(ngs)
+
+    mats = None
+    if any(f in families for f in rad._TEXTURE_FAMILIES):
+        out = rad._texture_matrices(
+            torch.as_tensor(levels, device=device),
+            torch.as_tensor(ms, device=device), ng_max,
+            max(vols.shape[1:]), int(alpha))
+        mats = {k: v.cpu().numpy().astype(np.float64)
+                for k, v in out.items()}
+
+    results = []
+    for b in range(B):
+        ng = ngs[b]  # each pair's own level count: Ng enters Idn / Idmn
+        n_vox = int(ms[b].sum())
+        own = None if mats is None else {
+            "glcm": mats["glcm"][b][:, :ng, :ng],
+            "glrlm": mats["glrlm"][b][:, :ng, :],
+            "gldm": mats["gldm"][b][:ng],
+            "ngtdm_s": mats["ngtdm_s"][b][:ng],
+            "ngtdm_n": mats["ngtdm_n"][b][:ng],
+            "hist": mats["hist"][b][:ng]}
+        res = rad._panel(families, vols[b], ms[b], sp, levels[b], ng, own,
+                         n_vox, device)
+        res["meta"] = {"Ng": ng, "voxels": n_vox, "bin_width": bin_width,
+                       "n_bins": (None if bin_width is not None
+                                  else n_bins)}
+        results.append(res)
+    return results
+
+
+def n4_batch(volumes, masks=None, shrink=4, n_bins=200, fwhm=0.15,
+             noise=0.01, levels=4, max_iterations=50,
+             conv_threshold=1e-3, min_control_spacing=32.0,
+             return_fields=False, mesh=None, device=None):
+    """Cohort N4 bias correction: every fitting level of B volumes (B, Z,
+    Y, X) as one batched loop on ``device`` (default:
+    ``default_device()``). Each lane's update is gated on its own
+    convergence statistic, so each follows its single-volume trajectory
+    while the loop runs until the slowest lane converges; each lane's
+    fit inputs are made as ``n4_bias_correction`` makes them (the log in
+    float64 on the host). Returns the corrected (B, Z, Y, X) float32
+    numpy volumes (and the multiplicative fields with
+    ``return_fields``). Other knobs as ops/n4.n4_bias_correction."""
+    import numpy as np
+
+    from ..ops import n4 as _n4
+
+    _no_mesh("n4_batch", mesh)
+    vols = np.asarray(volumes, np.float32)
+    if vols.ndim != 4:
+        raise ValueError(f"n4_batch: expected (B, Z, Y, X), got "
+                         f"{vols.shape}")
+    m = (np.ones(vols.shape, bool) if masks is None
+         else np.asarray(masks) > 0)
+    if m.shape != vols.shape:
+        raise ValueError(f"n4_batch: masks shape {m.shape} != "
+                         f"volumes shape {vols.shape}")
+    device = default_device() if device is None else torch.device(device)
+    corrected, fields = _n4._n4_lanes(
+        vols, m & (vols > 0), max(1, int(shrink)), device, levels,
+        max_iterations, n_bins, fwhm, noise, conv_threshold,
+        min_control_spacing)
+    if return_fields:
+        return corrected.cpu().numpy(), fields.cpu().numpy()
+    return corrected.cpu().numpy()

@@ -1,7 +1,7 @@
-"""Deformable registration object.
+"""Deformable registration object + Display.
 
-Port of medicalimageanalysis_tpu/structure/deformable.py (``Deformable``,
-:240-747). DVFs are (Z, Y, X, 3) float32 numpy fields in mm, in the
+Port of medicalimageanalysis_tpu/structure/deformable.py (``Display``,
+:70-240, and ``Deformable``, :240-860). DVFs are (Z, Y, X, 3) float32 numpy fields in mm, in the
 point-displacement convention (update_rois adds d(p) to moving points;
 create_image inverts to get the sampling field); ``ratio`` scales the
 field for fractional-deformation display.
@@ -18,10 +18,13 @@ mask onto the reference grid through the same two stages (rigid resample
 by the ``affine`` mode, then the inverted field by the ``coords`` and
 ``disp`` modes). ``update_rois`` and ``update_pois`` carry ROI meshes
 and POIs through the rigid inverse and the field (ops/registration/dvf.
-sample_dvf_at_points: the ``coords`` mode with B = 3). The Display view
-state, the ROI-masked registrations, TPS, REG export, save/load and the
-image export wait for later slices; each raises ``NotImplementedError``
-naming its ROADMAP.md item.
+sample_dvf_at_points: the ``coords`` mode with B = 3). The ``Display``
+holds the frames at fractional ratios (``compute_deformation``: one
+rigid resample and one field upload for all frames, then each frame's
+inversion and warp) and the field's component planes, behind the
+``retrieve_*`` queries. The ROI-masked registrations, TPS, REG export,
+save/load, the image export and the Display's mesh cut wait for later
+slices; each raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ from ..ops.resample import affine_resample, compose_pixel_matrix
 from ..ops.warp import affine_coords, field_warp, warp_disp
 from .common import waits
 
-__all__ = ["Deformable"]
+__all__ = ["Display", "Deformable"]
 
 
 _waits = partial(waits, "Deformable")
@@ -64,6 +67,155 @@ def _jacobian_det(d, inv_spacing):
     i = 1.0 + gz[..., 2]
     return (a * (e * i - q * h) - b * (p * i - q * g)
             + c * (p * h - e * g))
+
+
+class Display(object):
+    """Deformation view state: the frames at fractional ratios and the
+    field's component planes (JAX structure/deformable.py:70-240)."""
+
+    def __init__(self, deformable):
+        self.deformable = deformable
+
+        self.origin = None
+        self.spacing = None
+        self.array = []
+        self.image = None
+        self.matrix = np.identity(3)
+
+        self.slice_location = [0, 0, 0]
+        self.scroll_max = None
+        self.offset = {"Axial": [0, 0], "Coronal": [0, 0],
+                       "Sagittal": [0, 0]}
+        self.misc = {}
+
+        self.compute_scroll_max()
+
+    def compute_array(self, slice_plane, portion=0):
+        array_slice = None
+        if slice_plane == "Axial":
+            if 0 <= self.slice_location[0] < self.array[portion].shape[0]:
+                array_slice = self.array[portion][
+                    self.slice_location[0], :, :].astype(np.double)
+        elif slice_plane == "Coronal":
+            if 0 <= self.slice_location[1] < self.array[portion].shape[1]:
+                array_slice = self.array[portion][
+                    :, self.slice_location[1], :].astype(np.double)
+        else:
+            if 0 <= self.slice_location[2] < self.array[portion].shape[2]:
+                array_slice = self.array[portion][
+                    :, :, self.slice_location[2]].astype(np.double)
+        return array_slice
+
+    def compute_deformation(self, division=1):
+        """Append the frames at ratios 1/division .. 1 (JAX
+        structure/deformable.py:107-118), each equal to
+        ``create_image(ratio=...)``: the moving image is resampled
+        (``affine``) and the field uploaded once for every frame, then
+        each frame inverts its scaled field and warps (``coords`` and
+        ``disp``) on the card; the frames come back as numpy arrays."""
+        d = self.deformable
+        ref = Data.image[d.reference_name]
+        resampled = d._rigid_resampled_moving()
+        field = as_f32(d.dvf, d.device)
+        for ii in range(division):
+            warped = d._warp_resampled_to_reference(
+                resampled, config.background_fill,
+                ratio=(ii + 1) / division, field=field)
+            self.array += [warped.cpu().numpy()]
+        self.spacing = tuple(np.asarray(ref.spacing))
+        self.origin = np.asarray(ref.origin)
+        self.compute_offset()
+        self.compute_scroll_max()
+
+    def compute_grid(self, slice_plane="Axial", vector="x"):
+        """A component plane of the field at the slice location (JAX
+        structure/deformable.py:120-131)."""
+        dvf = self.deformable.dvf
+        if slice_plane == "Axial":
+            dvf_plane = dvf[self.slice_location[0], :, :, :]
+        elif slice_plane == "Coronal":
+            dvf_plane = dvf[:, self.slice_location[1], :, :]
+        else:
+            dvf_plane = dvf[:, :, self.slice_location[2], :]
+        comp = {"x": 0, "y": 1}.get(vector, 2)
+        return dvf_plane[:, :, comp].astype(np.float32)
+
+    def compute_matrix_pixel_to_position(self):
+        return geo.pixel_to_position_matrix(self.matrix, self.spacing,
+                                            self.origin)
+
+    def compute_matrix_position_to_pixel(self):
+        return geo.position_to_pixel_matrix(self.matrix, self.spacing,
+                                            self.origin)
+
+    def compute_mesh_slice(self, roi_name=None, location=None,
+                           slice_plane=None, return_pixel=False):
+        raise NotImplementedError(
+            "Deformable Display.compute_mesh_slice is not ported yet: ROI "
+            "meshes (ROADMAP.md queue 1, item 9, mesh)")
+
+    def compute_offset(self):
+        if self.deformable.reference_name is not None:
+            pos = Data.image[self.deformable.reference_name].origin
+            self.offset["Axial"][0] = (self.origin[0] - pos[0]) \
+                / self.spacing[0]
+            self.offset["Axial"][1] = (self.origin[1] - pos[1]) \
+                / self.spacing[1]
+            self.offset["Coronal"][0] = (self.origin[0] - pos[0]) \
+                / self.spacing[0]
+            self.offset["Coronal"][1] = (self.origin[2] - pos[2]) \
+                / self.spacing[2]
+            self.offset["Sagittal"][0] = (self.origin[1] - pos[1]) \
+                / self.spacing[1]
+            self.offset["Sagittal"][1] = (self.origin[2] - pos[2]) \
+                / self.spacing[2]
+
+    def compute_slice_location(self, position=None):
+        if position is None:
+            src = Data.image[self.deformable.reference_name].display
+            source_location = np.flip(src.slice_location)
+            position = src.compute_index_positions(source_location)
+        self.slice_location = np.flip(np.round(
+            (position - self.origin) / self.spacing).astype(np.int32))
+
+    def compute_slice_origin(self, slice_plane):
+        slice_origin = None
+        if slice_plane == "Axial" \
+                and 0 <= self.slice_location[0] <= self.scroll_max[0]:
+            location = np.asarray([0, 0, self.slice_location[0]])
+            slice_origin = self.origin + location * self.spacing
+        elif slice_plane == "Coronal" \
+                and 0 <= self.slice_location[1] <= self.scroll_max[1]:
+            location = np.asarray([0, self.slice_location[1], 0])
+            slice_origin = self.origin + location * self.spacing
+        elif slice_plane == "Sagittal" \
+                and 0 <= self.slice_location[2] <= self.scroll_max[2]:
+            location = np.asarray([self.slice_location[2], 0, 0])
+            slice_origin = self.origin + location * self.spacing
+        return slice_origin
+
+    def compute_scroll_max(self):
+        if len(self.array) == 0:
+            if self.deformable.dimensions is not None:
+                self.scroll_max = np.asarray(
+                    self.deformable.dimensions) - 1
+        else:
+            self.scroll_max = [self.array[-1].shape[0] - 1,
+                               self.array[-1].shape[1] - 1,
+                               self.array[-1].shape[2] - 1]
+
+    def convert_position_to_pixel(self, position=None):
+        m = self.compute_matrix_position_to_pixel()
+        return [geo.apply_homogeneous(np.asarray(p, dtype=np.float64), m)
+                for p in position]
+
+    def update_slice_location(self, scroll, slice_plane):
+        if slice_plane == "Axial":
+            self.slice_location[0] = scroll
+        elif slice_plane == "Coronal":
+            self.slice_location[1] = scroll
+        else:
+            self.slice_location[2] = scroll
 
 
 class Deformable(object):
@@ -102,6 +254,8 @@ class Deformable(object):
             else rigid_matrix
 
         self.deformable_name = self.add_deformable(registration_name)
+
+        self.display = Display(self)
         if self.dvf is not None:
             self.update_rois()
 
@@ -122,6 +276,13 @@ class Deformable(object):
         Data.deformable[deformable_name] = self
         Data.deformable_list += [deformable_name]
         return deformable_name
+
+    def compute_aspect(self, slice_plane):
+        if slice_plane == "Axial":
+            return np.round(self.spacing[0] / self.spacing[1], 2)
+        if slice_plane == "Coronal":
+            return np.round(self.spacing[0] / self.spacing[2], 2)
+        return np.round(self.spacing[1] / self.spacing[2], 2)
 
     def _backend(self, modality_gradient, sigma):
         """Common setup: reference/moving volumes and the cross-modality
@@ -235,12 +396,15 @@ class Deformable(object):
         return dvf_rotated, spacing, origin_new, dvf_rotated.shape[0:3]
 
     @torch.no_grad()
-    def _warp_resampled_to_reference(self, resampled, background, ratio=1):
+    def _warp_resampled_to_reference(self, resampled, background, ratio=1,
+                                     field=None):
         """Invert the DVF and warp a (Z, Y, X) tensor already resampled
         onto the reference grid: the inverse field is sampled at the
         reference voxels by the ``coords`` mode, the image by the
-        ``disp`` mode."""
-        dvf = as_f32(self.dvf, self.device) * float(ratio)
+        ``disp`` mode. ``field``: the DVF already on the device."""
+        if field is None:
+            field = as_f32(self.dvf, self.device)
+        dvf = field * float(ratio)
         inv = invert_dvf(dvf, self.spacing)
         ref = Data.image[self.reference_name]
         ref_p2p = geo.pixel_to_position_matrix(ref.matrix, ref.spacing,
@@ -263,19 +427,25 @@ class Deformable(object):
             disp_pix = torch.einsum("ij,jzyx->izyx", L, disp)
         return warp_disp(resampled, disp_pix, background)
 
-    def create_image(self, ratio=1):
-        """Rigid resample -> invert DVF -> displacement warp onto the
-        reference grid; returns a volume dict with a numpy array."""
+    def _rigid_resampled_moving(self):
+        """The moving image resampled through ``rigid_matrix`` onto the
+        reference grid (one ``affine`` launch on the card)."""
         ref = Data.image[self.reference_name]
         mov = Data.image[self.moving_name]
         A = compose_pixel_matrix(mov.matrix, mov.spacing, mov.origin,
                                  ref.matrix, ref.spacing, ref.origin,
                                  phys_transform=self.rigid_matrix)
-        resampled = affine_resample(mov.array, A, ref.array.shape,
-                                    background=config.background_fill,
-                                    device=self.device)
+        return affine_resample(mov.array, A, ref.array.shape,
+                               background=config.background_fill,
+                               device=self.device)
+
+    def create_image(self, ratio=1):
+        """Rigid resample -> invert DVF -> displacement warp onto the
+        reference grid; returns a volume dict with a numpy array."""
+        ref = Data.image[self.reference_name]
         warped = self._warp_resampled_to_reference(
-            resampled, config.background_fill, ratio=ratio)
+            self._rigid_resampled_moving(), config.background_fill,
+            ratio=ratio)
         return {"array": warped.cpu().numpy(),
                 "origin": np.asarray(ref.origin),
                 "spacing": np.asarray(ref.spacing),
@@ -432,12 +602,6 @@ class Deformable(object):
             self.pois.update(out)
         return out
 
-    @property
-    def display(self):
-        raise NotImplementedError(
-            "Deformable.display: the Display view state arrives with the "
-            "structure slice (ROADMAP.md queue 1, item 6)")
-
     compute_tps = _waits("compute_tps", "item 7, the rest of deformable")
     create_reg = _waits("create_reg", "item 7, the rest of deformable")
     save_deformable = _waits("save_deformable",
@@ -445,17 +609,53 @@ class Deformable(object):
     load_deformable = classmethod(_waits("load_deformable",
                                          "item 7, the rest of deformable"))
     export_image = _waits("export_image", "item 10, remaining compute")
-    # the Display view state's queries
-    compute_aspect = _waits("compute_aspect",
-                            "item 7, the Deformable Display")
-    retrieve_array_plane = _waits("retrieve_array_plane",
-                                  "item 7, the Deformable Display")
-    retrieve_grid = _waits("retrieve_grid", "item 7, the Deformable Display")
-    retrieve_offset = _waits("retrieve_offset",
-                             "item 7, the Deformable Display")
-    retrieve_scroll_max = _waits("retrieve_scroll_max",
-                                 "item 7, the Deformable Display")
-    retrieve_slice_location = _waits("retrieve_slice_location",
-                                     "item 7, the Deformable Display")
-    retrieve_slice_position = _waits("retrieve_slice_position",
-                                     "item 7, the Deformable Display")
+
+    # -- view queries (JAX structure/deformable.py:811-860) ---------------
+    def retrieve_array_plane(self, slice_plane, solo=None, position=None,
+                             vector=None):
+        if len(self.display.array) == 0:
+            self.display.compute_deformation()
+            self.display.compute_slice_location()
+        if solo is None:
+            self.display.compute_slice_location(position=position)
+        if vector is None:
+            return self.display.compute_array(slice_plane)
+        if vector in ("x", "y", "z"):
+            return self.display.compute_grid(slice_plane=slice_plane,
+                                             vector=vector)
+        return None
+
+    def retrieve_grid(self, slice_plane="Axial", vector="x"):
+        return self.display.compute_grid(slice_plane=slice_plane,
+                                         vector=vector)
+
+    def retrieve_offset(self, slice_plane):
+        return self.display.offset[slice_plane]
+
+    def retrieve_slice_location(self, slice_plane):
+        if slice_plane == "Axial":
+            return self.display.slice_location[0]
+        if slice_plane == "Coronal":
+            return self.display.slice_location[1]
+        return self.display.slice_location[2]
+
+    def retrieve_slice_position(self, slice_plane=None):
+        m = self.display.compute_matrix_pixel_to_position()
+        if slice_plane is None:
+            location = [self.display.slice_location[2],
+                        self.display.slice_location[1],
+                        self.display.slice_location[0]]
+        elif slice_plane == "Axial":
+            location = [0, 0, self.display.slice_location[0]]
+        elif slice_plane == "Coronal":
+            location = [0, self.display.slice_location[1], 0]
+        else:
+            location = [self.display.slice_location[2], 0, 0]
+        return geo.apply_homogeneous(location, m)
+
+    def retrieve_scroll_max(self, slice_plane):
+        if slice_plane == "Axial":
+            return self.display.scroll_max[0]
+        if slice_plane == "Coronal":
+            return self.display.scroll_max[1]
+        return self.display.scroll_max[2]

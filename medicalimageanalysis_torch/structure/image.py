@@ -9,9 +9,13 @@ the ``Display`` matrices, slice location, ``compute_slice`` and the
 off-axis reslice (``compute_offaxis_array``, the warp kernel's ``affine``
 mode on the card). The metadata, geometry and view mixins are in
 structure/common.py. The array stays a numpy array, like the JAX
-package's. The external contour, margin and boolean ROIs are here too.
-The exports, SUV, SEG and the other image tools wait for their slices:
-each raises NotImplementedError naming its ROADMAP.md item.
+package's. The external contour, margin and boolean ROIs are here too,
+and the image analysis: ``resample_to``, ``create_rotated_volume`` and
+``compute_projection`` (the ``affine`` mode), ``compute_suv`` and
+``compute_mtv_tlg``, ``correct_bias`` (ops/n4) and ``compute_radiomics``
+(ops/radiomics), on the image's device. The exports, SEG and save/load
+wait for their slices: each raises NotImplementedError naming its
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -473,14 +477,227 @@ class Image(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
         self.rois[name].create_discrete_mesh()
         return self.rois[name]
 
-    # -- the JAX package's API that later slices port ----------------------
-    resample_to = _waits("resample_to", "item 6, structure layer")
-    compute_suv = _waits("compute_suv", "item 6, structure layer")
-    compute_projection = _waits("compute_projection",
-                                "item 6, structure layer")
-    create_rotated_volume = _waits("create_rotated_volume",
-                                   "item 6, structure layer")
+    # -- image analysis ----------------------------------------------------
+    def _compute_device(self):
+        """The device this image's compute runs on: the one it was
+        assembled on, else ``default_device()``."""
+        from ..device import default_device
+
+        return self.device if self.device is not None else default_device()
+
+    def resample_to(self, other, values=None, background=-3001.0):
+        """Resample this image's volume onto another image's grid (JAX
+        structure/image.py:510-540): one composed pixel -> pixel matrix,
+        one ``affine`` launch on the card. Both grids must share a frame
+        of reference; across studies compose a Rigid and use
+        ``Rigid.create_image``.
+
+        other: Image/Dose object or a registered image name; values: an
+        optional voxel-aligned map to resample instead of ``self.array``
+        (a SUV map, or an ROI mask with ``background=0``). Returns
+        float32 on the other grid."""
+        from ..ops.resample import affine_resample, compose_pixel_matrix
+
+        if isinstance(other, str):
+            other = Data.image[other]
+        vals = np.asarray(self.array if values is None else values,
+                          np.float32)
+        if vals.shape != tuple(self.dimensions):
+            raise ValueError(
+                f"resample_to: values shape {vals.shape} != image "
+                f"grid {tuple(self.dimensions)}")
+        A = compose_pixel_matrix(self.matrix, self.spacing, self.origin,
+                                 other.matrix, other.spacing,
+                                 other.origin)
+        out = affine_resample(vals, A, tuple(int(n) for n in
+                                             other.dimensions),
+                              background=float(background),
+                              device=self._compute_device())
+        return out.cpu().numpy()
+
+    def _rotation_pixel_matrix(self, angles, center):
+        """The output -> input pixel matrix of an Euler rotation (degrees,
+        zyx order) about ``center`` (mm) onto this image's own grid: the
+        map of ``create_rotated_volume`` and the rotated projections."""
+        from ..ops.resample import compose_pixel_matrix
+        from ..utils.image.transform import euler_transform
+
+        t = euler_transform(angles=angles, rotation_center=center, zyx=True)
+        return compose_pixel_matrix(self.matrix, self.spacing, self.origin,
+                                    self.matrix, self.spacing, self.origin,
+                                    phys_transform=t.as_matrix4())
+
+    def compute_projection(self, mode="mip", axis="y", angles=None,
+                           center=None, mu_water_mm=0.02):
+        """2D projection of the volume (JAX structure/image.py:1097-1152):
+        ``mip``, ``mean``, or ``drr`` (parallel-beam digitally
+        reconstructed radiograph: mu = mu_water (1 + HU/1000) clamped at
+        0, detector signal 1 - exp(-sum mu dl)). Optional Euler
+        ``angles`` (degrees, zyx) rotate about ``center`` (default the
+        volume center) through the ``affine`` mode, with the rotated-in
+        corners clamped to air. ``axis`` is the array axis integrated:
+        'z' | 'y' | 'x'. The reduction runs on the image's device.
+        Returns a 2D float32 array."""
+        import torch
+
+        from ..ops.resample import affine_resample
+
+        try:
+            ax = {"z": 0, "y": 1, "x": 2}[axis]
+        except KeyError:
+            raise ValueError(f"compute_projection: axis {axis!r} not "
+                             "in ('z', 'y', 'x')") from None
+        if mode not in ("mip", "mean", "drr"):
+            raise ValueError(f"compute_projection: mode {mode!r} not "
+                             "in ('mip', 'mean', 'drr')")
+
+        dev = self._compute_device()
+        vol = torch.as_tensor(np.asarray(self.array, np.float32),
+                              device=dev)
+        if angles is not None and np.any(np.asarray(angles)):
+            if center is None:
+                center = np.asarray(self.compute_center(), np.float64)
+            A = self._rotation_pixel_matrix(angles, center)
+            vol = clamp_to_air(affine_resample(
+                vol, A, tuple(vol.shape),
+                background=float(config.background_fill)))
+        return project(vol, mode, ax, self.spacing, mu_water_mm) \
+            .cpu().numpy()
+
+    def create_rotated_volume(self, angles=(0, 0, 10), roi_name="Liver",
+                              center=None):
+        """Euler-rotate the volume about an ROI's mesh center (or
+        ``center``, mm) and resample onto the same grid with background
+        0 (JAX structure/image.py:1155-1176): one ``affine`` launch on
+        the card. Returns float32."""
+        from ..ops.resample import affine_resample
+
+        if center is None:
+            center = self.rois[roi_name].mesh.center
+        A = self._rotation_pixel_matrix(angles, center)
+        out = affine_resample(np.asarray(self.array, np.float32), A,
+                              self.array.shape, background=0.0,
+                              device=self._compute_device())
+        return out.cpu().numpy()
+
     create_rotated_sitk_image = create_rotated_volume
+
+    def compute_suv(self):
+        """SUV body-weight map of a PT volume (JAX
+        structure/image.py:384-477): SUVbw = activity [Bq/mL] x weight
+        [g] / decayed dose [Bq], the dose decayed from injection to the
+        series time for DecayCorrection=START (ADMIN needs no factor).
+        Requires Units=BQML. The tags are read on the host; the map is
+        computed on the image's device. Returns a float32 (Z, Y, X)
+        array."""
+        import torch
+
+        if self.modality != "PT":
+            raise ValueError("compute_suv: PT volumes only, this "
+                             f"image is {self.modality}")
+        scale = suv_scale(self.tags)
+        vol = torch.as_tensor(np.asarray(self.array, np.float32),
+                              device=self._compute_device())
+        return (vol * torch.tensor(np.float32(scale), device=vol.device)) \
+            .cpu().numpy()
+
+    def compute_mtv_tlg(self, roi_name, suv=None, threshold=2.5,
+                        relative=False):
+        """Metabolic tumor volume and total lesion glycolysis inside an
+        ROI (JAX structure/image.py:607-655). ``threshold`` is an
+        absolute SUV cutoff, or a fraction of the ROI's SUVmax with
+        ``relative=True`` (the common 41 %-of-max segmentation). The
+        ROI's values, their maximum, the cut and the count run on the
+        image's device; the voxels above the cut are summed in float32
+        on the host in numpy's order, so every figure equals the JAX
+        package's. Returns {'mtv_cc', 'tlg', 'suv_max',
+        'suv_mean_in_mtv', 'threshold'} as python floats."""
+        import torch
+
+        from ..utils.metrics import voxel_volume_cc
+
+        if suv is None:
+            suv = self.compute_suv()
+        suv = np.asarray(suv, np.float32)
+        mask = np.asarray(self.rois[roi_name].compute_mask()) > 0
+        if suv.shape != mask.shape:
+            raise ValueError(
+                f"compute_mtv_tlg: SUV shape {suv.shape} != image "
+                f"grid {mask.shape}")
+        dev = self._compute_device()
+        inside = torch.as_tensor(suv, device=dev)[
+            torch.as_tensor(mask, device=dev)]
+        if inside.numel() == 0:
+            return {"mtv_cc": 0.0, "tlg": 0.0, "suv_max": 0.0,
+                    "suv_mean_in_mtv": 0.0,
+                    # relative cuts are undefined without a max
+                    "threshold": (float("nan") if relative
+                                  else float(threshold))}
+        suv_max = float(inside.max())
+        cut = float(threshold) * (suv_max if relative else 1.0)
+        hot = inside[inside >= cut].cpu().numpy()
+        voxel_cc = voxel_volume_cc(self.spacing)
+        return {
+            "mtv_cc": float(hot.size * voxel_cc),
+            "tlg": float(hot.sum() * voxel_cc) if hot.size else 0.0,
+            "suv_max": suv_max,
+            "suv_mean_in_mtv": float(hot.mean()) if hot.size else 0.0,
+            "threshold": cut,
+        }
+
+    def correct_bias(self, mask_roi=None, shrink=4,
+                     control_spacing_mm=None, return_field=False,
+                     in_place=False, **kwargs):
+        """N4-style MR bias field correction (JAX
+        structure/image.py:574-605) through ops/n4.n4_bias_correction on
+        the image's device. mask_roi: optional ROI name bounding the fit
+        (default: all positive voxels); control_spacing_mm: floor of the
+        B-spline control spacing in mm (per axis); in_place: replace
+        ``self.array`` with the corrected float32 map. Returns the
+        corrected volume, or (corrected, field) with ``return_field``."""
+        from ..ops.n4 import n4_bias_correction
+
+        mask = None
+        if mask_roi is not None:
+            mask = np.asarray(self.rois[mask_roi].compute_mask()) > 0
+        if control_spacing_mm is not None:
+            sx, sy, sz = [float(s) for s in self.spacing]
+            kwargs["min_control_spacing"] = [
+                control_spacing_mm / sz, control_spacing_mm / sy,
+                control_spacing_mm / sx]
+        kwargs.setdefault("device", self._compute_device())
+        out = n4_bias_correction(self.array, mask=mask, shrink=shrink,
+                                 return_field=return_field, **kwargs)
+        if in_place:
+            self.array = out[0] if return_field else out
+        return out
+
+    def compute_radiomics(self, roi_name, values=None, bin_width=None,
+                          n_bins=32, families=None, alpha=0):
+        """The radiomics panel of one ROI (JAX structure/image.py:771-793)
+        through ops/radiomics.compute_radiomics: texture matrices counted
+        on the image's device, formulas in host float64. ``values``
+        overrides the intensity map (e.g. ``compute_suv()``); discretise
+        with ``bin_width`` or ``n_bins``. Returns {family: {feature:
+        value}, 'meta': {...}}."""
+        from ..ops.radiomics import ALL_FAMILIES, compute_radiomics
+
+        mask = np.asarray(self.rois[roi_name].compute_mask()) > 0
+        vals = np.asarray(self.array if values is None else values,
+                          np.float32)
+        if vals.shape != mask.shape:
+            raise ValueError(
+                f"compute_radiomics: values shape {vals.shape} != "
+                f"image grid {mask.shape}")
+        out = compute_radiomics(
+            vals, mask, self.spacing, bin_width=bin_width,
+            n_bins=n_bins, alpha=alpha,
+            families=ALL_FAMILIES if families is None else families,
+            device=self._compute_device())
+        out["meta"]["ROI"] = roi_name
+        return out
+
+    # -- the JAX package's API that later slices port ----------------------
     input_seg = _waits("input_seg", "item 6, SEG")
     create_seg = _waits("create_seg", "item 6, SEG")
     create_rtstruct = _waits("create_rtstruct", "item 6, exports")
@@ -493,7 +710,115 @@ class Image(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
     load_rois = _waits("load_rois", "item 6, save/load")
     load_pois = _waits("load_pois", "item 6, save/load")
     load_image = classmethod(_waits("load_image", "item 6, save/load"))
-    correct_bias = _waits("correct_bias", "item 10, remaining compute")
-    compute_radiomics = _waits("compute_radiomics",
-                               "item 10, remaining compute")
-    compute_mtv_tlg = _waits("compute_mtv_tlg", "item 10, remaining compute")
+
+
+def clamp_to_air(vol):
+    """A rotated volume's rotated-in corners carry the -3001 fill, below
+    air, which would bias a mean, MIP or DRR: clamp to -1000 HU (JAX
+    structure/image.py:1141)."""
+    import torch
+
+    return torch.clamp(vol, min=-1000.0)
+
+
+def project(vol, mode, ax, spacing, mu_water_mm=0.02):
+    """The reduction of ``Image.compute_projection`` along array axis
+    ``ax`` of the (Z, Y, X) float32 tensor ``vol``, on its device: 'mip',
+    'mean', or 'drr' with steps of the axis' spacing (mm)."""
+    import torch
+
+    if mode == "mip":
+        return vol.amax(dim=ax)
+    if mode == "mean":
+        return vol.mean(dim=ax)
+    dl = float(spacing[{0: 2, 1: 1, 2: 0}[ax]])
+    mu = torch.clamp(mu_water_mm * (1.0 + vol / 1000.0), min=0.0)
+    return 1.0 - torch.exp(-mu.sum(dim=ax) * dl)
+
+
+def _tm_seconds(t):
+    """DICOM TM "HHMMSS.frac" with its legal truncations (PS3.5 6.2) ->
+    seconds; DT offsets are stripped by :func:`_dt_time` first."""
+    t = str(t).strip()
+    hh = int(t[0:2]) if len(t) >= 2 else 0
+    mm = int(t[2:4]) if len(t) >= 4 else 0
+    ss = float(t[4:]) if len(t) > 4 else 0.0
+    return hh * 3600 + mm * 60 + ss
+
+
+def _dt_time(t):
+    """DICOM DT "YYYYMMDDHHMMSS.frac&ZZXX" -> its time part: the UTC
+    offset is dropped (injection and scan share the site clock, so it
+    cancels in the difference), then the date."""
+    t = str(t).strip()
+    for sign in ("+", "-"):
+        cut = t.find(sign)
+        if cut > 0:
+            t = t[:cut]
+            break
+    return t[8:]
+
+
+def suv_scale(tags):
+    """weight [g] / decayed dose [Bq] from a PT series' datasets (JAX
+    structure/image.py:399-470, on the host): Units must be BQML;
+    DecayCorrection START decays the injected dose from the
+    radiopharmaceutical start (DT preferred over TM) to SeriesTime (else
+    the earliest AcquisitionTime), a negative interval crossing
+    midnight; ADMIN takes the dose as given. Raises ValueError naming
+    what is missing or unsupported."""
+    ds = tags[0]
+    units = str(ds.get("Units", "") or "")
+    if units != "BQML":
+        raise ValueError(
+            f"compute_suv: Units={units or '<missing>'} — only "
+            "BQML (decay-corrected activity concentration) is "
+            "convertible")
+    seq = getattr(ds, "RadiopharmaceuticalInformationSequence", None)
+    if not seq:
+        raise ValueError("compute_suv: no Radiopharmaceutical"
+                         "InformationSequence")
+    info = seq[0]
+    dose = info.get("RadionuclideTotalDose")
+    half_life = info.get("RadionuclideHalfLife")
+    weight = ds.get("PatientWeight")
+    for name, v in (("RadionuclideTotalDose", dose),
+                    ("RadionuclideHalfLife", half_life),
+                    ("PatientWeight", weight)):
+        if v is None:
+            raise ValueError(f"compute_suv: missing {name}")
+    dose, half_life = float(dose), float(half_life)
+    weight_g = float(weight) * 1000.0
+
+    decay = str(ds.get("DecayCorrection", "START") or "START")
+    if decay == "ADMIN":
+        decayed_dose = dose
+    elif decay == "START":
+        start_dt = info.get("RadiopharmaceuticalStartDateTime")
+        start_tm = info.get("RadiopharmaceuticalStartTime")
+        if start_dt:
+            inj_s = _tm_seconds(_dt_time(start_dt))
+        elif start_tm is not None:
+            inj_s = _tm_seconds(start_tm)
+        else:
+            raise ValueError("compute_suv: missing "
+                             "radiopharmaceutical start time")
+        scan = ds.get("SeriesTime")
+        if scan is None:
+            # the earliest acquisition across slices (QIBA's scan-start
+            # reference; tags[0] is position-sorted, not time-sorted)
+            acqs = [s.get("AcquisitionTime") for s in tags]
+            acqs = [a for a in acqs if a is not None]
+            if not acqs:
+                raise ValueError("compute_suv: missing SeriesTime/"
+                                 "AcquisitionTime")
+            scan = min(acqs, key=_tm_seconds)
+        dt = _tm_seconds(scan) - inj_s
+        if dt < 0:  # crossed midnight (times are date-less TM)
+            dt += 86400.0
+        decayed_dose = dose * 2.0 ** (-dt / half_life)
+    else:
+        raise ValueError(
+            f"compute_suv: DecayCorrection={decay} not supported "
+            "(START or ADMIN)")
+    return weight_g / decayed_dose

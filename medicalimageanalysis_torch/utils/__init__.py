@@ -1,6 +1,7 @@
-"""Utilities: the synthetic DICOM series writer, contour and mesh
-conversion, the external threshold, metrics, dose accumulation and goals,
-radiobiology, ROI margins and the deformable backend.
+"""Utilities: the synthetic DICOM series writer and in-memory image
+builder, contour and mesh conversion, the external threshold, the Euler
+transform, metrics, dose accumulation and goals, radiobiology, ROI
+margins, the 4D phase tools and the deformable backend.
 
 The exports match the JAX package's utils/__init__.py, lazily. The names
 it exports that the port has not ported yet stand in as callables that
@@ -18,6 +19,10 @@ _LAZY = {
     "external": ("image.threshold", "external"),
     "contours_from_mask": ("roi.contour", "contours_from_mask"),
     "CreateDicomImage": ("creation", "CreateDicomImage"),
+    "CreateImageFromMask": ("creation", "CreateImageFromMask"),
+    "euler_transform": ("image.transform", "euler_transform"),
+    **{n: ("fourd", n) for n in ("find_phase_groups", "combine_phases",
+                                 "compute_itv")},
     **{n: ("dose", n) for n in ("accumulate_dose", "register_dose_grid",
                                 "evaluate_constraints")},
     **{n: ("radiobiology", n) for n in ("bed", "eqd2", "geud", "ntcp_lkb",
@@ -29,13 +34,9 @@ _LAZY = {
 }
 
 _WAITING = {
-    "CreateImageFromMask": "item 2, utils/creation",
-    "euler_transform": "item 6, structure layer",
     **dict.fromkeys(("ModelToMask", "Volume", "clean_mesh", "expansion",
                      "surface_boundary", "only_main_component", "ICP"),
                     "item 9, mesh"),
-    **dict.fromkeys(("find_phase_groups", "combine_phases", "compute_itv"),
-                    "item 10, utils/fourd"),
 }
 
 __all__ = list(_LAZY) + list(_WAITING)

@@ -1,22 +1,26 @@
-"""Synthetic DICOM series writer.
+"""Synthetic DICOM series writer and in-memory image builder.
 
 Carried over from medicalimageanalysis_tpu/utils/creation.py
-(``CreateDicomImage``), on top of the port's copy of the DICOM writer
-(``dicom.dcmwrite``). Writes test and smoke fixtures; the in-memory image
-builders wait for a later slice.
+(``CreateDicomImage``, ``CreateImageFromMask``), on top of the port's
+copy of the DICOM object model and writer (``dicom``). Writes test and
+smoke fixtures and registers computed volumes as Images;
+``image_from_saved`` waits for the save/load slice.
 """
 
 from __future__ import annotations
 
+import copy
 import datetime
 import os
 
 import numpy as np
 
+from ..data import Data
 from ..dicom import Dataset, FileMetaDataset, dcmwrite, generate_uid, uids
 from ..dicom.dictionary import keyword_to_tag
+from ..ops import geometry as geo
 
-__all__ = ["CreateDicomImage"]
+__all__ = ["CreateDicomImage", "CreateImageFromMask"]
 
 
 class CreateDicomImage(object):
@@ -166,3 +170,132 @@ class CreateDicomImage(object):
                                        str(instance_offset + ii) + ".dcm")
             dcmwrite(export_file, ds,
                      transfer_syntax=self.transfer_syntax)
+
+
+class CreateImageFromMask(object):
+    """Fabricate in-memory datasets + geometry for an array so it can
+    become an Image (reference utils/creation.py:232-423; JAX
+    utils/creation.py:175-300). ``utils.fourd.combine_phases`` registers
+    its combined volume through it."""
+
+    def __init__(self, array, origin, spacing, image_name, dimensions=None,
+                 orientation=None, plane="Axial",
+                 description="Mask to Image", modality="CT"):
+        self.rois = {}
+        self.pois = {}
+
+        self.array = array
+        self.spacing = spacing
+        self.origin = origin
+
+        self.image_name = image_name
+
+        now = datetime.datetime.now()
+        self.date = str(now.year) + str(now.month) + str(now.day)
+        if len(str(now.second)) == 1:
+            self.time = str(now.hour) + "0" + str(now.second) + "00"
+        else:
+            self.time = str(now.hour) + str(now.second) + "00"
+        self.birthdate = self.date
+
+        self.filepaths = None
+
+        self.plane = plane
+        self.dimensions = array.shape if dimensions is None else dimensions
+        self.orientation = [1, 0, 0, 0, 1, 0] if orientation is None \
+            else orientation
+
+        self.image_matrix = geo.orientation_to_matrix(self.orientation)
+
+        self.camera_position = None
+        self.unverified = None
+        self.skipped_slice = None
+        self.sections = None
+        self.rgb = False
+
+        self.sops = [generate_uid() for _ in range(self.dimensions[0])]
+        self.slice_location = [int(self.dimensions[0] / 2),
+                               int(self.dimensions[1] / 2),
+                               int(self.dimensions[2] / 2)]
+
+        self.study_uid = generate_uid()
+        self.series_uid = generate_uid()
+        self.frame_ref = generate_uid()
+        self.acq_number = "1"
+        self.window = [0, 1]
+        self.modality = modality
+        sop_class = generate_uid()
+
+        dicoms = []
+        for ii in range(self.dimensions[0]):
+            ds = Dataset()
+            fm = FileMetaDataset()
+            fm.add(0x00020002, "UI", sop_class)
+            fm.add(0x00020003, "UI", str(self.sops[ii]))
+            fm.add(0x00020010, "UI", uids.ExplicitVRLittleEndian)
+            fm.add(0x00020012, "UI", "1.2.3.4")
+            ds.file_meta = fm
+
+            ds.PatientName = "User^Created^ ^"
+            ds.PatientSex = "M"
+            ds.SeriesDescription = description
+            ds.PatientID = "User^Created^ ^"
+            ds.Modality = modality
+            ds.StudyDate = self.date
+            ds.ContentDate = self.date
+            ds.StudyTime = self.time
+            ds.ContentTime = self.time
+            ds.StudyInstanceUID = self.study_uid
+            ds.SeriesInstanceUID = self.series_uid
+            ds.SOPInstanceUID = str(self.sops[ii])
+            ds.SOPClassUID = str(sop_class)
+            ds.StudyID = "1"
+
+            ds.FrameOfReferenceUID = self.frame_ref
+            ds.AcquisitionNumber = self.acq_number
+            ds.SeriesNumber = "1"
+            ds.InstanceNumber = str(ii)
+            ds.ImageOrientationPatient = list(self.orientation[:6])
+            ds.PixelSpacing = list(spacing[:2])
+            ds.SliceThickness = spacing[2]
+
+            position = self.compute_position(ii)
+            ds.ImagePositionPatient = [float(position[0]),
+                                       float(position[1]),
+                                       float(position[2])]
+
+            ds.SamplesPerPixel = 1
+            ds.PhotometricInterpretation = "MONOCHROME2"
+            ds.PixelRepresentation = 1
+            ds.HighBit = 15
+            ds.BitsStored = 16
+            ds.BitsAllocated = 16
+            ds.Columns = array.shape[1]
+            ds.Rows = array.shape[2]
+            ds.RescaleIntercept = 0
+            ds.RescaleSlope = 1
+
+            dicoms.append(ds)
+
+        self.image_set = dicoms
+
+    def add_image(self):
+        """Register the fabricated image into the global registry."""
+        from ..structure.image import Image
+        Data.image[self.image_name] = Image(self)
+        Data.image_list += [self.image_name]
+
+    def add_mesh_roi(self, mesh, roi_name):
+        """Attach a mesh-backed ROI to the registered image."""
+        image = Data.image[self.image_name]
+        image.create_roi(name=roi_name, color=[0, 0, 255], visible=False,
+                         filepath=None)
+        image.rois[roi_name].mesh = mesh
+        image.rois[roi_name].volume = mesh.volume
+        image.rois[roi_name].com = mesh.center
+        image.rois[roi_name].bounds = mesh.bounds
+
+    def compute_position(self, z):
+        matrix = copy.deepcopy(self.image_matrix)
+        m = geo.pixel_to_position_matrix(matrix, self.spacing, self.origin)
+        return geo.apply_homogeneous([0, 0, z], m)

@@ -1,1 +1,2 @@
-"""Image utilities: the external-contour threshold (threshold.py)."""
+"""Image utilities: the external-contour threshold (threshold.py) and the
+Euler rigid transform (transform.py)."""
