@@ -71,7 +71,17 @@ on the dose-QA folder, and after it the image-analysis path
         -> parallel.batch.demons_batch
 
 (resamples bit-equal to the plain affine twin, texture counts bit-equal
-to a numpy count, one N4 level against its float64 twin). Each phase
+to a numpy count, one N4 level against its float64 twin), then the IO
+path
+
+    Image.export_dicom / create_rtstruct / create_seg, Dose.create_rtdose,
+        an RTPLAN, Rigid / Deformable.create_reg, Image.create_nifti,
+        Rigid / Deformable.export_image, the save_* methods ->
+        read_dicoms of the whole folder -> read_nifti / read_mhd /
+        the load_* methods
+
+at full size, every object read back held on the card against what was
+written. Each phase
 prints one JSON line; any failure raises and exits non-zero. Near the end it
 prints the card's name and power limit (nvidia-smi) and a JSON line with
 every kernel's launches, error, times, bound and ms lost; the last line is
@@ -217,6 +227,8 @@ FOURD_TUMOUR_MM = 15.0
 DEMONS_BATCH_SHAPE = (64, 256, 256)
 DEMONS_BATCH_ITERATIONS = 50
 DISPLAY_DIVISION = 4
+IO_FRACTIONS = 30                # the io phase's RTPLAN: fractions and
+IO_BEAMS = (("CW Arc", 181.0, 250.0), ("CCW Arc", 179.0, 230.0))  # beams
 ROTATE_DEG = (0.0, 0.0, 10.0)
 PROJECTION_DEG = (0.0, 0.0, 15.0)
 # the card's published peaks (H100 SXM at 700 W): the bound of a kernel
@@ -1030,12 +1042,13 @@ def recording_hist_calls(calls):
         hist._dose_hist_op = run
 
 
-def hist_path_lost(calls, shapes):
-    """The kernel at every (N, n_bins) the dose-QA path launched, on the
-    tensors it launched with (``calls``; ``shapes``: launches by shape):
-    each call held bit-equal to the plain twin again, the first at each
-    shape timed. Per shape: launches, max_abs_err, ms, bound ms; ms lost,
-    sum of launches x (ms - bound ms)."""
+def hist_path_lost(calls, shapes, phase="hist_path"):
+    """The kernel at every (N, n_bins) a path launched (the dose-QA path,
+    or the ``phase`` named), on the tensors it launched with (``calls``;
+    ``shapes``: launches by shape): each call held bit-equal to the plain
+    twin again, the first at each shape timed. Per shape: launches,
+    max_abs_err, ms, bound ms; ms lost, sum of launches x (ms - bound
+    ms)."""
     from medicalimageanalysis_torch.ops.hist import _hist_plain
 
     op = torch.ops.mia_torch.dose_hist
@@ -1061,7 +1074,7 @@ def hist_path_lost(calls, shapes):
         rows.append(row)
     out = dict(ms_lost=lost, launches_timed_shapes=sum(shapes.values()),
                launches_untimed_shapes=0)
-    emit("hist_path", shapes=rows, **out)
+    emit(phase, shapes=rows, **out)
     return dict(out, path_max_abs_err=worst)
 
 
@@ -1559,6 +1572,10 @@ def loop_mm(k, cx_n, cy_n, rx_n, ry_n, n, indent=None):
     return np.stack([x, y, np.full(n, slice_z(k))], axis=1)
 
 
+STRUCTURES = ("Body", "Lung_L", "Lung_R", "Heart", "SpinalCord", "Esophagus",
+              "PTV")
+
+
 def structure_set():
     """{roi: [(contour (N, 3) mm, slice index), ...]}: the phantom's
     body (every slice, 256 vertices), two concave lungs (the left with an
@@ -1566,8 +1583,7 @@ def structure_set():
     cord, oesophagus, and a spherical PTV of radius PTV_RADIUS_MM."""
     Z = SHAPE[0]
     zn = np.linspace(-1, 1, Z)
-    rois = {name: [] for name in ("Body", "Lung_L", "Lung_R", "Heart",
-                                  "SpinalCord", "Esophagus", "PTV")}
+    rois = {name: [] for name in STRUCTURES}
 
     def ellipsoid(name, c, r, n, indent=None, hole=None):
         for k in range(Z):
@@ -2194,20 +2210,24 @@ def uncounted():
 @contextlib.contextmanager
 def recording_warp_calls(calls):
     """Within the block, keep in ``calls`` copies of the inputs of the
-    first warp_coords / warp_disp operator call at each (kernel,
-    timed_key): the path's own tensors, to check and time the kernel on
-    after it."""
+    first warp_coords / warp_affine / warp_disp operator call at each
+    (kernel, timed_key): the path's own tensors, to check and time the
+    kernel on after it."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     kernels = {"mia_torch::warp_coords": "warp_coords",
+               "mia_torch::warp_affine": "warp_affine",
                "mia_torch::warp_disp": "warp_disp"}
 
     class Record(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             name = kernels.get(func._schema.name)
-            if name is not None:
+            if name == "warp_affine":     # (vol, coef, out_shape, bg)
+                key = (name, timed_key(args[0].shape[0], False, args[2]))
+            elif name is not None:
                 key = (name, timed_key(args[0].shape[0], args[-1],
                                        args[1].shape[-3:]))
+            if name is not None:
                 if key not in calls:
                     calls[key] = tuple(a.clone() if torch.is_tensor(a)
                                        else a for a in args)
@@ -2222,11 +2242,13 @@ def warp_path_rows(calls):
     those tensors: held bit-equal to the plain twin, timed, with the bound
     of their work (warp_bound) and F.grid_sample at the same points
     (library_sample_ms). Returns {kernel: {timed_key: row}}."""
-    from medicalimageanalysis_torch.ops.warp import (MAX_B,
+    from medicalimageanalysis_torch.ops.warp import (MAX_B, affine_coords,
+                                                     warp_affine_plain,
                                                      warp_coords_plain,
                                                      warp_disp_plain)
 
-    plain = {"warp_coords": warp_coords_plain, "warp_disp": warp_disp_plain}
+    plain = {"warp_coords": warp_coords_plain, "warp_disp": warp_disp_plain,
+             "warp_affine": warp_affine_plain}
     out = {}
     for (name, key), args in sorted(calls.items()):
         B, want, shape = key
@@ -2234,6 +2256,8 @@ def warp_path_rows(calls):
         op = getattr(torch.ops.mia_torch, name)
         k, p = op(*args), plain[name](*args)
         torch.cuda.synchronize()
+        if name == "warp_affine":
+            k, p = [k], [p]
         errs = [max_abs(a, b) for a, b in zip(k, p)]
         assert errs == [0.0] * len(errs), \
             f"{name} at the path's {key}: kernel != plain {errs}"
@@ -2243,9 +2267,14 @@ def warp_path_rows(calls):
                    plain_ms=cuda_ms(lambda: plain[name](*args), reps=3,
                                     warmup=1))
         row["bound_ms"], row["bound_by"] = warp_bound(
-            args[0][0].numel(), math.prod(shape), B, 3, want)
+            args[0][0].numel(), math.prod(shape), B,
+            0 if name == "warp_affine" else 3, want)
         if name == "warp_coords":
             cz, cy, cx = args[1:4]
+        elif name == "warp_affine":
+            coef = torch.tensor(args[1], dtype=torch.float32,
+                                device=args[0].device)
+            cz, cy, cx = affine_coords(coef.reshape(3, 4), shape)
         else:
             zz, yy, xx = (torch.arange(n, device=args[1].device,
                                        dtype=torch.float32) for n in shape)
@@ -3094,10 +3123,10 @@ def ia_resample(img_name, dose_name, dev):
 def affine_at_dose_grid(img_name, dose_name, dev):
     """After the image-analysis path's launch window: the ``affine``
     launch of resample_to(dose) against its plain twin on the same
-    tensors (bit-equal), timed with its bound: the CT voxels the taps of
+    tensors (bit-equal), timed with its bound (the CT voxels the taps of
     its samples inside the volume touch read once, the samples written,
-    30 float32 operations each. Returns the kernel row and its
-    timed_key."""
+    30 float32 operations each) and beside F.grid_sample at the same
+    samples. Returns the kernel row and its timed_key."""
     from medicalimageanalysis_torch.data import Data
     from medicalimageanalysis_torch.ops.resample import compose_pixel_matrix
     from medicalimageanalysis_torch.ops.warp import affine_coords
@@ -3120,6 +3149,8 @@ def affine_at_dose_grid(img_name, dose_name, dev):
     n_out = int(np.prod(shape))
     cz, cy, cx = affine_coords(torch.as_tensor(np.asarray(A, np.float32),
                                                device=dev), shape)
+    # F.grid_sample of the CT at the same samples
+    row["library_ms"] = library_sample_ms(vol[None], cz, cy, cx)
     inside = (cz >= 0) & (cz <= SHAPE[0] - 1) & (cy >= 0) \
         & (cy <= SHAPE[1] - 1) & (cx >= 0) & (cx <= SHAPE[2] - 1)
     row["taps"] = mesh_taps(vol[None], cz[inside], cy[inside], cx[inside])
@@ -3765,6 +3796,457 @@ def phase_image_analysis(folder, names, img_name, dose_name, dev):
                 warp_calls=dict(display_frames=frames, demons_batch=batch))
 
 
+def path_bytes(*paths):
+    """Bytes of the files at ``paths`` (files, or directories walked)."""
+    total = 0
+    for p in paths:
+        if os.path.isdir(p):
+            for root, _, files in os.walk(p):
+                total += sum(os.path.getsize(os.path.join(root, f))
+                             for f in files)
+        elif os.path.exists(p):
+            total += os.path.getsize(p)
+    return total
+
+
+def io_timed(rows, name, fn, *paths):
+    """fn() with the card synchronised on both sides; rows[name] gets its
+    ms and the MB of ``paths`` (what it wrote or read) with the rate."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    mb = path_bytes(*paths) / 1e6
+    rows[name] = dict(ms=ms, mb=mb, mb_per_s=1e3 * mb / ms)
+    return out
+
+
+def io_rtplan(path, img, dose_sop):
+    """An RTPLAN in the shape of tests/test_rtplan.py's fixture, built with
+    the port's own Dataset: the prescription, one fraction group of
+    IO_FRACTIONS with two beams (IO_BEAMS: name, gantry angle, meterset),
+    one control point a beam, and the RTDOSE it references."""
+    from medicalimageanalysis_torch.dicom import (Dataset, Sequence,
+                                                  dcmwrite, generate_uid,
+                                                  uids)
+
+    ds = Dataset()
+    ds.SOPClassUID = uids.RTPlanStorage
+    ds.SOPInstanceUID = generate_uid()
+    ds.SeriesInstanceUID = generate_uid()
+    ds.StudyInstanceUID = img.get_study_uid()
+    ds.FrameOfReferenceUID = img.frame_ref
+    ds.Modality = "RTPLAN"
+    ds.PatientID = "SMOKE"
+    ds.PatientName = "Smoke^Patient"
+    ds.RTPlanLabel = "SmokeVMAT"
+    ds.RTPlanName = f"PTV {PRESCRIPTION_GY:g}/{IO_FRACTIONS}"
+    ds.ApprovalStatus = "APPROVED"
+    dr = Dataset()
+    dr.DoseReferenceNumber = 1
+    dr.DoseReferenceStructureType = "SITE"
+    dr.DoseReferenceType = "TARGET"
+    dr.DoseReferenceDescription = "PTV"
+    dr.TargetPrescriptionDose = PRESCRIPTION_GY
+    ds.DoseReferenceSequence = Sequence([dr])
+    refs, beams = [], []
+    for number, (name, gantry, mu) in enumerate(IO_BEAMS, start=1):
+        rb = Dataset()
+        rb.ReferencedBeamNumber = number
+        rb.BeamDose = PRESCRIPTION_GY / IO_FRACTIONS / len(IO_BEAMS)
+        rb.BeamMeterset = mu
+        refs.append(rb)
+        cp = Dataset()
+        cp.ControlPointIndex = 0
+        cp.NominalBeamEnergy = 6.0
+        cp.GantryAngle = gantry
+        cp.BeamLimitingDeviceAngle = 30.0
+        cp.PatientSupportAngle = 0.0
+        cp.IsocenterPosition = list(PTV_CENTER_MM)
+        b = Dataset()
+        b.BeamNumber = number
+        b.BeamName = name
+        b.BeamType = "DYNAMIC"
+        b.RadiationType = "PHOTON"
+        b.TreatmentMachineName = "TrueBeam1"
+        b.TreatmentDeliveryType = "TREATMENT"
+        b.NumberOfControlPoints = 178
+        b.FinalCumulativeMetersetWeight = 1.0
+        b.ControlPointSequence = Sequence([cp])
+        beams.append(b)
+    fg = Dataset()
+    fg.FractionGroupNumber = 1
+    fg.NumberOfFractionsPlanned = IO_FRACTIONS
+    fg.NumberOfBeams = len(IO_BEAMS)
+    fg.ReferencedBeamSequence = Sequence(refs)
+    ds.FractionGroupSequence = Sequence([fg])
+    ds.BeamSequence = Sequence(beams)
+    rd = Dataset()
+    rd.ReferencedSOPClassUID = uids.RTDoseStorage
+    rd.ReferencedSOPInstanceUID = dose_sop
+    ds.ReferencedDoseSequence = Sequence([rd])
+    dcmwrite(path, ds)
+
+
+def on_card_equal(what, a, b, dev):
+    """Assert two arrays (or tensors) bit-equal, compared on the card."""
+    ta, tb = (x.to(dev) if torch.is_tensor(x) else torch.as_tensor(
+        np.require(x, requirements="W"), device=dev) for x in (a, b))
+    assert ta.shape == tb.shape and ta.dtype == tb.dtype, \
+        (what, ta.shape, tb.shape, ta.dtype, tb.dtype)
+    assert torch.equal(ta, tb), f"{what}: not bit-equal"
+
+
+def geometry_err(a, b):
+    """Largest |difference| of origin, spacing and matrix (mm / unitless)."""
+    return max(float(np.abs(np.asarray(getattr(a, k), np.float64)
+                            - np.asarray(getattr(b, k), np.float64)).max())
+               for k in ("origin", "spacing", "matrix"))
+
+
+def phase_io(folder, names, img_name, dose_name, rigid, dev):
+    """The IO path at full size: the dose-QA CT exported as a DICOM
+    series, its structure set as RTSTRUCT and as SEG (the SEG's segments
+    under collision-suffixed names, so the read registers both), the
+    RTDOSE, an RTPLAN, the fitted rigid's and the demons field's REGs, a
+    NIfTI, both registrations' create_image as MHD, and the json + npy
+    saves; then one read_dicoms over the DICOM files (with the moving
+    series the REGs reference) into a cleared registry, every read-back
+    object held against what was written, and the NIfTI, MHD and saved
+    folders loaded back. The registry is restored after. Returns the
+    path's launches and launch shapes, the histogram's and the warp
+    kernels' rows on the path's own tensors, and the profile of the
+    deformable REG's read and upload."""
+    import medicalimageanalysis_torch as mia
+    from medicalimageanalysis_torch.data import Data
+    from medicalimageanalysis_torch.dicom import dcmread
+    from medicalimageanalysis_torch.ops import hist
+    from medicalimageanalysis_torch.read.mhd import read_mhd_volume
+    from medicalimageanalysis_torch.read.reg import decode_vector_grid
+    from medicalimageanalysis_torch.reader import check_memory
+    from medicalimageanalysis_torch.structure.common import collision_suffix
+    from medicalimageanalysis_torch.structure.deformable import Deformable
+    from medicalimageanalysis_torch.structure.dose import Dose
+    from medicalimageanalysis_torch.structure.image import Image
+    from medicalimageanalysis_torch.structure.plan import Plan
+    from medicalimageanalysis_torch.structure.rigid import Rigid
+    from medicalimageanalysis_torch.structure.roi import Roi
+
+    t_phase = time.perf_counter()
+    io = os.path.join(folder, "io")
+    saved = os.path.join(io, "saved")
+    j = lambda *p: os.path.join(io, *p)          # noqa: E731
+    ct, dose = Data.image[img_name], Data.dose[dose_name]
+    deform = Data.deformable[f"DVF_{names['ref']}_{names['deformed']}"]
+    roi_names = list(STRUCTURES)
+
+    # what the read-back is held against, made before the path; its
+    # launches count nowhere
+    with uncounted():
+        before = ct.compute_roi_masks(roi_names)
+        ptv_dose, _, _ = dose._roi_dose(img_name, "PTV", dev)
+        max_dose = float(ptv_dose.max()) * 1.05 + 1e-6
+        _, curve = dose.compute_dvh_curve(img_name, "PTV", n_bins=DVH_BINS,
+                                          max_dose=max_dose)
+    ct_array = np.asarray(ct.array)
+    field = torch.as_tensor(np.asarray(deform.dvf), device=dev)
+    dose_gy = torch.as_tensor(np.asarray(dose.array), dtype=torch.float64,
+                              device=dev)
+
+    hist_calls, writers, readers = {}, {}, {}
+    with recording_hist_calls(hist_calls):
+        io_timed(writers, "export_dicom",
+                 lambda: ct.export_dicom(j("ct")), j("ct"))
+        io_timed(writers, "create_rtstruct",
+                 lambda: ct.create_rtstruct(roi_names=roi_names,
+                                            path=j("ct", "rs.dcm")),
+                 j("ct", "rs.dcm"))
+        # the SEG's segments: the structure set under collision-suffixed
+        # names, their masks the pooled pass's, so that the read holds
+        # RTSTRUCT and SEG ROIs side by side
+        aliases = {n: collision_suffix(n, ct.rois) for n in roi_names}
+        for n, a in aliases.items():
+            ct.rois[a] = Roi(ct, name=a, color=ct.rois[n].color)
+            ct._roi_mask_cache_put(a, ct.rois[a], before[n])
+        try:
+            io_timed(writers, "create_seg",
+                     lambda: ct.create_seg(roi_names=list(aliases.values()),
+                                           path=j("ct", "seg.dcm")),
+                     j("ct", "seg.dcm"))
+        finally:
+            for a in aliases.values():
+                ct.rois.pop(a)
+                ct._roi_mask_cache.pop(a, None)
+        rd = io_timed(writers, "create_rtdose",
+                      lambda: dose.create_rtdose(path=j("ct", "rd.dcm")),
+                      j("ct", "rd.dcm"))
+        io_timed(writers, "rtplan",
+                 lambda: io_rtplan(j("rp.dcm"), ct, rd.SOPInstanceUID),
+                 j("rp.dcm"))
+        io_timed(writers, "rigid_create_reg",
+                 lambda: rigid.create_reg(path=j("reg_rigid.dcm")),
+                 j("reg_rigid.dcm"))
+        io_timed(writers, "deformable_create_reg",
+                 lambda: deform.create_reg(path=j("reg_dvf.dcm")),
+                 j("reg_dvf.dcm"))
+        io_timed(writers, "create_nifti",
+                 lambda: ct.create_nifti(j("ct.nii")), j("ct.nii"))
+        io_timed(writers, "rigid_export_image",
+                 lambda: rigid.export_image(j("rigid.mhd")),
+                 j("rigid.mhd"), j("rigid.raw"))
+        io_timed(writers, "deformable_export_image",
+                 lambda: deform.export_image(j("dvf.mhd")),
+                 j("dvf.mhd"), j("dvf.raw"))
+        io_timed(writers, "save_image", lambda: ct.save_image(saved),
+                 os.path.join(saved, img_name))
+        io_timed(writers, "save_rigid",
+                 lambda: rigid.save_rigid(os.path.join(saved, "rigid")),
+                 os.path.join(saved, "rigid"))
+        io_timed(writers, "save_deformable",
+                 lambda: deform.save_deformable(os.path.join(saved, "dvf")),
+                 os.path.join(saved, "dvf"))
+        io_timed(writers, "dose_save_image", lambda: dose.save_image(saved),
+                 os.path.join(saved, dose_name))
+
+        registry = registry_state()
+        try:
+            Data.clear()
+            files = [os.path.join(r, f)
+                     for d in (io, os.path.join(folder, "mov"),
+                               os.path.join(folder, "deformed"))
+                     for r, _, fs in os.walk(d) for f in fs
+                     if f.endswith(".dcm")]
+            report = io_timed(readers, "read_dicoms", lambda: mia.read_dicoms(
+                file_list=files, device=dev), *files).report
+            # the registry: the CT and the two series the REGs move, 7
+            # RTSTRUCT and 7 SEG ROIs on the CT, one of each other object
+            s = report.summary()
+            assert s["failed"] == 0 and s["failed_series"] == 0 \
+                and s["unmatched_rtstructs"] == 0 \
+                and s["unmatched_segs"] == 0, s
+            assert len(Data.image_list) == 3 and len(Data.dose_list) == 1 \
+                and len(Data.plan_list) == 1 and len(Data.rigid_list) == 1 \
+                and len(Data.deformable_list) == 1, s
+            ct_b = [Data.image[n] for n in Data.image_list
+                    if Data.image[n].series_uid == ct.series_uid]
+            assert len(ct_b) == 1, Data.image_list
+            ct_b = ct_b[0]
+            contoured = sorted(n for n, r in ct_b.rois.items()
+                               if r.contour_position is not None)
+            assert contoured == sorted(roi_names + list(aliases.values())), \
+                contoured
+            on_card_equal("CT read back", ct_b.array, ct_array, dev)
+            masks = io_timed(readers, "compute_roi_masks",
+                             lambda: ct_b.compute_roi_masks(contoured))
+            for n in roi_names:
+                on_card_equal(f"{n} from the RTSTRUCT", masks[n], before[n],
+                              dev)
+                on_card_equal(f"{n} from the SEG", masks[aliases[n]],
+                              before[n], dev)
+
+            # the dose: the stored integers within DoseGridScaling / 2 of
+            # the grid, the grid read back within that plus the reader's
+            # float32 roundings (uint32 -> float32 of the stored value, at
+            # most 128 below 2^32; DoseGridScaling to float32, 2^-24 of the
+            # top dose; the product, half an ulp of the top)
+            dose_b = Data.dose[Data.dose_list[0]]
+            scaling = float(rd.DoseGridScaling)
+            stored = torch.from_numpy(np.frombuffer(rd.PixelData, "<u4")
+                                      .astype(np.int64)).to(dev)
+            quant = float((stored.reshape(dose_gy.shape).double() * scaling
+                           - dose_gy).abs().max())
+            assert quant <= scaling / 2, (quant, scaling)
+            top = float(dose_gy.max())
+            dose_bound = scaling * (0.5 + 128) + 1.0001 * top * 2.0 ** -24 \
+                + float(np.spacing(np.float32(top))) / 2
+            back = torch.as_tensor(np.asarray(dose_b.array), device=dev,
+                                   dtype=torch.float64)
+            dose_err = float((back - dose_gy).abs().max())
+            assert dose_err <= dose_bound, (dose_err, dose_bound)
+            assert geometry_err(dose_b, dose) <= 1e-6
+            # the PTV's curve (affine + the histogram): a voxel moves
+            # across a bin only where its resampled dose lies within the
+            # grid's error, plus 8 float32 ulp of the top for the
+            # resample's own rounding, of the bin's threshold
+            bins, curve_b = io_timed(readers, "compute_dvh_curve",
+                                     lambda: dose_b.compute_dvh_curve(
+                                         ct_b.image_name, "PTV",
+                                         n_bins=DVH_BINS, max_dose=max_dose))
+            near_gy = dose_bound + 8 * float(np.spacing(np.float32(top)))
+            thr = torch.as_tensor(bins, dtype=torch.float32, device=dev)
+            near = ((ptv_dose[None, :] - thr[:, None]).abs() <= near_gy) \
+                .sum(1).cpu().numpy()
+            allowed = 100.0 * near / ptv_dose.numel() + 1e-4
+            curve_diff = np.abs(curve_b.astype(np.float64)
+                                - curve.astype(np.float64))
+            assert np.all(curve_diff <= allowed), \
+                (curve_diff.max(), allowed[np.argmax(curve_diff - allowed)])
+
+            # the rigid: the matrix from 16-character DS values; its
+            # create_image (the affine mode) against the original's, which
+            # export_image wrote
+            rigid_b = Data.rigid[Data.rigid_list[0]]
+            matrix_err = float(np.abs(np.asarray(rigid_b.matrix)
+                                      - np.asarray(rigid.matrix)).max())
+            assert matrix_err <= 1e-12, matrix_err
+            out_r = io_timed(readers, "rigid_create_image",
+                             rigid_b.create_image)
+            exported_r = read_mhd_volume(j("rigid.mhd"))
+            on_card_equal("rigid create_image", out_r["array"],
+                          exported_r[0], dev)
+            # the deformable: the field, and its create_image (affine,
+            # coords, disp) against the original's export
+            def_b = Data.deformable[Data.deformable_list[0]]
+            assert torch.is_tensor(def_b.dvf) \
+                and def_b.dvf.device.type == dev.type
+            on_card_equal("deformable field", def_b.dvf, field, dev)
+            assert np.array_equal(np.asarray(def_b.rigid_matrix, np.float64),
+                                  np.asarray(deform.rigid_matrix,
+                                             np.float64))
+            out_d = io_timed(readers, "deformable_create_image",
+                             def_b.create_image)
+            exported_d = read_mhd_volume(j("dvf.mhd"))
+            on_card_equal("deformable create_image", out_d["array"],
+                          exported_d[0], dev)
+            # the plan
+            plan = Data.plan[Data.plan_list[0]]
+            assert [(b["name"], b["gantry_angle"]) for b in plan.beams] \
+                == [(n, g) for n, g, _ in IO_BEAMS], plan.beams
+            assert plan.total_beam_meterset() == sum(m for *_, m in IO_BEAMS)
+            assert plan.n_fractions == IO_FRACTIONS
+            assert plan.target_prescription_dose == PRESCRIPTION_GY
+            assert plan.linked_dose_names() == [dose_b.dose_name]
+            io_timed(writers, "create_rtplan",
+                     lambda: plan.create_rtplan(path=j("rp2.dcm")),
+                     j("rp2.dcm"))
+            io_timed(writers, "save_plan", lambda: plan.save_plan(saved),
+                     os.path.join(saved, plan.plan_name))
+
+            # the rest, loaded into a cleared registry
+            read_back = registry_state()
+            Data.clear()
+            io_timed(readers, "read_nifti", lambda: mia.read_nifti(
+                j("ct.nii"), device=dev), j("ct.nii"))
+            img_n = Data.image["ct"]
+            on_card_equal("NIfTI", img_n.array, ct_array, dev)
+            # the sform holds float32: each value within half its ulp
+            nifti_err = geometry_err(img_n, ct)
+            assert nifti_err <= float(np.spacing(np.float32(
+                np.abs(np.asarray(ct.origin)).max()))), nifti_err
+            for name, out in (("rigid", out_r), ("dvf", out_d)):
+                io_timed(readers, f"read_mhd_{name}", lambda: mia.read_mhd(
+                    file=j(f"{name}.mhd"), device=dev),
+                    j(f"{name}.mhd"), j(f"{name}.raw"))
+                on_card_equal(f"MHD {name}", Data.image[name].array,
+                              out["array"], dev)
+                assert float(np.abs(np.asarray(Data.image[name].origin)
+                                    - np.asarray(out["origin"])).max()) \
+                    <= 1e-6
+            img_l = io_timed(readers, "load_image", lambda: Image.load_image(
+                os.path.join(saved, img_name), device=dev),
+                os.path.join(saved, img_name))
+            on_card_equal("load_image", img_l.array, ct_array, dev)
+            assert geometry_err(img_l, ct) == 0.0
+            loaded = img_l.compute_roi_masks(roi_names)
+            for n in roi_names:
+                on_card_equal(f"{n} loaded", loaded[n], before[n], dev)
+            rigid_l = io_timed(readers, "load_rigid", lambda: Rigid.load_rigid(
+                os.path.join(saved, "rigid"), device=dev),
+                os.path.join(saved, "rigid"))
+            assert np.array_equal(rigid_l.matrix, rigid.matrix)
+            def_l = io_timed(readers, "load_deformable",
+                             lambda: Deformable.load_deformable(
+                                 os.path.join(saved, "dvf"), device=dev),
+                             os.path.join(saved, "dvf"))
+            on_card_equal("load_deformable", def_l.dvf, field, dev)
+            dose_l = io_timed(readers, "dose_load_image",
+                              lambda: Dose.load_image(
+                                  os.path.join(saved, dose_name),
+                                  device=dev),
+                              os.path.join(saved, dose_name))
+            on_card_equal("dose load_image", dose_l.array, dose.array, dev)
+            plan_l = io_timed(readers, "load_plan", lambda: Plan.load_plan(
+                os.path.join(saved, plan.plan_name)),
+                os.path.join(saved, plan.plan_name))
+            assert plan_l.beams == plan.beams
+            assert plan_l.total_beam_meterset() == plan.total_beam_meterset()
+            assert plan_l.referenced_dose_sops == [rd.SOPInstanceUID]
+            mia.read_dicoms(file_list=[j("rp2.dcm")], clear=False,
+                            device=dev)
+            plan_2 = Data.plan[Data.plan_list[-1]]
+            assert plan_2.beams == [dict(b, n_control_points=1)
+                                    for b in plan.beams]
+            memory_gb = check_memory({"io": files})
+            assert np.isfinite(memory_gb), memory_gb
+
+            launches, shapes = launch_counts(), launch_shapes()
+            hist_shapes = dict(hist.LAUNCH_SHAPES)
+            seconds = time.perf_counter() - t_phase
+
+            # after the window: the path's warp keys (both create_image
+            # calls again, on the read-back registry) and its histogram
+            # calls held bit-equal to the plain twins on its tensors, and
+            # timed; the deformable REG's read and upload profiled
+            set_registry(read_back)
+            calls = {}
+            with uncounted():
+                with recording_warp_calls(calls):
+                    rigid_b.create_image()
+                    def_b.create_image()
+                warp_rows = warp_path_rows(calls)
+                hist_row = hist_path_lost(hist_calls, hist_shapes,
+                                          phase="io_hist_path")
+
+            def reg_read():
+                grid = dcmread(j("reg_dvf.dcm")) \
+                    .DeformableRegistrationSequence[0] \
+                    .DeformableRegistrationGridSequence[0]
+                return decode_vector_grid(grid.VectorGridData,
+                                          np.flip(grid.GridDimensions), dev)
+
+            profile = profile_device(reg_read)
+        finally:
+            set_registry(registry)
+    del field, dose_gy, ptv_dose
+    torch.cuda.empty_cache()
+    emit("io", seconds=seconds, writers=writers, readers=readers,
+         written_mb=sum(r["mb"] for r in writers.values()),
+         registry=dict(images=3, rois=len(contoured), doses=1, plans=1,
+                       rigid=1, deformable=1),
+         rtdose=dict(scaling=scaling, quantisation_gy=quant,
+                     read_back_err_gy=dose_err, bound_gy=dose_bound),
+         dvh_ptv=dict(max_abs_pct=float(curve_diff.max()),
+                      bins_that_moved=int((curve_diff > 0).sum()),
+                      bound_pct_max=float(allowed.max()), near_gy=near_gy),
+         rigid_matrix_err=matrix_err, nifti_geometry_err_mm=nifti_err,
+         check_memory_gb=memory_gb, launches=launches,
+         reg_read=dict(wall_ms=profile["profiled_wall_ms"],
+                       device_ms=profile["device_ms"],
+                       device_share=profile["device_share"],
+                       mb=path_bytes(j("reg_dvf.dcm")) / 1e6))
+    return dict(launches=launches, shapes=shapes, hist=hist_row,
+                warp_rows=warp_rows, profile=profile)
+
+
+def registry_state():
+    """The port's registry, every dict and list of it."""
+    from medicalimageanalysis_torch.data import Data
+
+    return {k: getattr(Data, k) for k in (
+        "image", "rigid", "deformable", "dose", "plan", "image_list",
+        "rigid_list", "deformable_list", "dose_list", "plan_list",
+        "roi_list", "poi_list")}
+
+
+def set_registry(state):
+    """Put back a registry_state()."""
+    from medicalimageanalysis_torch.data import Data
+
+    for k, v in state.items():
+        setattr(Data, k, v)
+
+
 def phase_preprocess(gen, dev):
     from medicalimageanalysis_torch.ops.filters import _gauss_kernel_matrix
     from medicalimageanalysis_torch.parallel.batch import make_preprocess_fn
@@ -3915,6 +4397,29 @@ def main():
             kernels[name]["timed"].update(rows)
             kernels[name]["image_analysis"] = list(rows.values())
         del calls
+        reset_counts()                     # the IO path starts here
+        io = phase_io(folder, names, img_name, dose_name, rigid, dev)
+        io_launches = io["launches"]       # ... and ends in it
+        shapes["io"] = io["shapes"]
+        # its histogram and warp launches on its own tensors, as above
+        row = io["hist"]
+        hist_k = kernels["dose_hist"]
+        hist_k["max_abs_err"] = max(hist_k["max_abs_err"],
+                                    row.pop("path_max_abs_err"))
+        for key in ("ms_lost", "launches_timed_shapes",
+                    "launches_untimed_shapes"):
+            hist_k[key] += row[key]
+        hist_k["io"] = row
+        for name, rows in io["warp_rows"].items():
+            for key, row in rows.items():
+                synthetic = kernels[name]["timed"].get(key)
+                row["synthetic_field_ms"] = None if synthetic is None \
+                    else synthetic["ms"]
+                kernels[name]["max_abs_err"] = max(
+                    kernels[name]["max_abs_err"], max(row["max_abs_err"]))
+            kernels[name]["timed"].update(rows)
+            kernels[name]["io"] = list(rows.values())
+        torch.cuda.empty_cache()
         reset_counts()                     # the view path starts here
         view = phase_view(names, rigid, dev)
         view_launches = launch_counts()    # ... and ends here
@@ -3944,6 +4449,9 @@ def main():
                ("warp_affine", "warp_coords", "warp_disp")), \
         f"a kernel of the image-analysis path never launched: " \
         f"{image_analysis_launches}"
+    assert all(io_launches[k] for k in
+               ("warp_affine", "warp_coords", "warp_disp", "dose_hist")), \
+        f"a kernel of the IO path never launched: {io_launches}"
     # three lane_interp passes per shear reslice; the exact reslices (the
     # display, its volume bundle, two Rigid nudges and two comparisons).
     # No view route reaches the oblique entry: affine_resample keeps the
@@ -3957,11 +4465,11 @@ def main():
     assert oblique_launches == dict(
         {k: 0 for k in oblique_launches}, warp_coords=1,
         warp_affine_shear=1), oblique_launches
-    # every kernel's launches on the eight paths, and the warp launches by
+    # every kernel's launches on the nine paths, and the warp launches by
     # shape over them
     paths = (rigid_launches, cohort_launches, deformable_launches,
              dose_qa_launches, plan_qa_launches, roi_mesh_launches,
-             image_analysis_launches, view_launches)
+             image_analysis_launches, io_launches, view_launches)
     launches = {k: sum(p[k] for p in paths) for k in rigid_launches}
     all_shapes = {}
     for per_path in shapes.values():
@@ -4039,7 +4547,9 @@ def main():
         # the image-analysis path: the MR's first N4 fitting level (up to
         # 50 iterations) and the PTV's texture_matrices, plain PyTorch
         **{name: profile_device(fn)
-           for name, fn in analysis["profiles"].items()}}
+           for name, fn in analysis["profiles"].items()},
+        # the IO path: the deformable REG's read and upload (403 MB)
+        "io_reg_read": io["profile"]}
     descent = profiles["rigid"]
     descent["device_events_per_step"] = \
         descent["device_events"] / sum(s for _, s, _ in RIGID_LEVELS)
@@ -4065,6 +4575,7 @@ def main():
          launches_plan_qa_path=plan_qa_launches,
          launches_roi_mesh_path=roi_mesh_launches,
          launches_image_analysis_path=image_analysis_launches,
+         launches_io_path=io_launches,
          launches_view_path=view_launches,
          launches_oblique_entry=oblique_launches,
          launch_shapes={k: shape_rows(v) for k, v in shapes.items()},

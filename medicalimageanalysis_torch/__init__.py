@@ -19,6 +19,9 @@ the JAX package's layout and names; the slices ported so far cover
     dose.compute_roi_dose_statistics("CT 01", "PTV")  # affine mode + sort
     dose.compute_dvh_curve("CT 01", "PTV")        # CUDA histogram kernel
     deform.update_dose("RTDOSE 01")               # affine, coords, disp
+    mia.read_dicoms(folder_path=...)              # + SEG, REG, RTPLAN
+    mia.Data.image["CT 01"].create_seg(path=...)  # and the other writers
+    mia.read_nifti(path); mia.read_mhd(path)      # NIfTI, MetaImage
 
 Every entry point runs on the card unless the caller passes
 ``device="cpu"`` or calls ``device.set_default_device("cpu")``; without
@@ -40,10 +43,6 @@ __all__ = ["Data", "Deformable", "Dose", "Image", "Rigid", "read_dicoms",
 # stands in as a callable that raises NotImplementedError naming its
 # ROADMAP.md queue 1 item
 _WAITING = {
-    "read_mhd": "item 2, the MHD reader",
-    "MhdReader": "item 2, the MHD reader",
-    "read_nifti": "item 2, the NIfTI reader",
-    "check_memory": "item 2, reader.check_memory",
     **dict.fromkeys(("read_stl", "read_vtk", "read_ply", "read_obj",
                      "read_3mf", "StlReader", "VtkReader", "PlyReader",
                      "ObjReader", "ThreeMfReader"),
@@ -56,9 +55,13 @@ def __getattr__(name):
     # until a compute path is touched
     import importlib
 
-    if name in ("read_dicoms", "file_parser"):
+    if name in ("read_dicoms", "file_parser", "read_mhd", "read_nifti",
+                "check_memory"):
         from . import reader
         return getattr(reader, name)
+    if name == "MhdReader":
+        from .read.mhd import MhdReader
+        return MhdReader
     if name == "DicomReader":
         from .read.dicom import DicomReader
         return DicomReader

@@ -2,10 +2,8 @@
 
 Carried over from medicalimageanalysis_tpu/data.py. The port keeps its own
 registry, so one process can load the same folder into both packages and
-compare them. The RTPLAN registries ``plan`` and ``plan_list`` stay empty
-until RTPLAN is ported (ROADMAP.md queue 1, item 8): the port's reader
-refuses an RTPLAN file today, as the JAX package's holds them before any
-RTPLAN is read.
+compare them. ``plan`` and ``plan_list`` hold the RTPLAN summaries
+(structure/plan.Plan).
 """
 
 from __future__ import annotations
@@ -22,7 +20,7 @@ class Data(object):
     rigid : dict            rigid name -> Rigid
     deformable : dict       deformable name -> Deformable
     dose : dict             dose name -> Dose
-    plan : dict             plan name -> RTPLAN summary (empty: item 8)
+    plan : dict             plan name -> RTPLAN summary (Plan)
     image_list, rigid_list, deformable_list, dose_list, plan_list,
     roi_list, poi_list : list
     """

@@ -1,4 +1,5 @@
-# Copied from medicalimageanalysis_tpu/dicom/writer.py.
+# Copied from medicalimageanalysis_tpu/dicom/writer.py; ``_fmt_number``
+# keeps up to DS's 16 characters.
 """DICOM file writer (Explicit VR Little Endian, Part 10).
 
 Own implementation replacing pydicom's ``save_as`` for the synthetic-image
@@ -21,11 +22,17 @@ IMPLEMENTATION_CLASS_UID = "2.25.435983256642431287462"
 
 
 def _fmt_number(v):
+    """A DS / IS value: the shortest string that reads back to the same
+    float when it fits DS's 16 characters, else the most significant
+    digits that fit (the JAX package's copy writes 10)."""
     if isinstance(v, (int, np.integer)):
         return str(int(v))
-    s = f"{float(v):.10g}"
-    if len(s) > 16:
-        s = f"{float(v):.8g}"
+    v = float(v)
+    s = repr(v)
+    digits = 15
+    while len(s) > 16 and digits > 1:
+        s = f"{v:.{digits}g}"
+        digits -= 1
     return s
 
 

@@ -8,9 +8,10 @@ modality. Parsing uses the port's copies of the host core: the C++ batch
 scanner (``native``) and the DICOM parser (``dicom``).
 
 Builders ported: CT, MR and PT through Read3D, RTSTRUCT through
-ReadRTStruct, RTDOSE through ReadRTDose. Every other object (enhanced
-multi-frame, NM, planar, SEG, REG, RTPLAN) raises NotImplementedError
-naming its ROADMAP item rather than being dropped.
+ReadRTStruct, SEG through ReadSEG, REG through ReadREG, RTDOSE through
+ReadRTDose and RTPLAN through ReadRTPlan, in the JAX package's order.
+Every other object (enhanced multi-frame, NM, planar) raises
+NotImplementedError naming its ROADMAP item rather than being dropped.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from ..dicom import dcmread
 from ..telemetry import IngestReport, trace
 
 __all__ = ["DicomReader", "thread_process_dicom", "sort_images_by_datetime",
-           "create_dose_name", "create_image_name"]
+           "create_dose_name", "create_image_name", "create_plan_name"]
 
 # one object per file, not grouped into series (the JAX package's
 # _2D_OR_STRUCT)
@@ -42,9 +43,6 @@ _NOT_PORTED = {
     "CR": "planar modalities — ROADMAP.md queue 1, item 2",
     "MG": "planar modalities — ROADMAP.md queue 1, item 2",
     "XA": "planar modalities — ROADMAP.md queue 1, item 2",
-    "SEG": "DICOM SEG — ROADMAP.md queue 1, item 6",
-    "REG": "REG registrations — ROADMAP.md queue 1, item 7",
-    "RTPLAN": "RTPLAN — ROADMAP.md queue 1, item 8",
 }
 
 
@@ -96,6 +94,10 @@ def create_dose_name(modality):
     return _sequential_name(modality, Data.dose_list)
 
 
+def create_plan_name(modality):
+    return _sequential_name(modality, Data.plan_list)
+
+
 class DicomReader(object):
     """Full DICOM pipeline: read -> group -> build -> sort.
 
@@ -129,6 +131,9 @@ class DicomReader(object):
         t1 = time.time()
         images_before = set(Data.image_list)
         doses_before = set(Data.dose_list)
+        plans_before = set(Data.plan_list)
+        rigid_before = set(Data.rigid_list)
+        deformable_before = set(Data.deformable_list)
 
         with trace("mia.ingest.read"):
             self.read()
@@ -145,6 +150,12 @@ class DicomReader(object):
                             if n not in images_before]
         r.doses_created = [n for n in Data.dose_list
                            if n not in doses_before]
+        r.plans_created = [n for n in Data.plan_list
+                           if n not in plans_before]
+        r.rigid_created = [n for n in Data.rigid_list
+                           if n not in rigid_before]
+        r.deformable_created = [n for n in Data.deformable_list
+                                if n not in deformable_before]
         for n in r.images_created:
             img = Data.image[n]
             if img.unverified:
@@ -534,8 +545,9 @@ class DicomReader(object):
 
     def image_creation(self):
         """Dispatch grouped datasets to per-modality builders
-        (reference read/dicom.py:384-425): images first, then RTSTRUCTs
-        onto their matching image, then RTDOSE grids."""
+        (reference read/dicom.py:384-425): images first, then RTSTRUCTs and
+        SEGs onto their matching image, then REG registrations, RTDOSE
+        grids and RTPLAN summaries."""
         from .volume3d import Read3D
 
         for modality, image_sets in self.ds_modality.items():
@@ -564,11 +576,44 @@ class DicomReader(object):
                         read_rtstruct.filepaths)
                     print("dicom: rtstruct has no matching image")
 
+        if self.ds_modality.get("SEG"):
+            from .seg import ReadSEG
+            for image_set in self.ds_modality["SEG"]:
+                read_seg = self._build_series(
+                    ReadSEG, image_set, self.only_tags,
+                    only_load_roi_names=self.only_load_roi_names,
+                    device=self.device)
+                if read_seg is None:
+                    pass
+                elif read_seg.match_image_name is not None:
+                    if not self.only_tags:
+                        Data.image[read_seg.match_image_name].input_seg(
+                            read_seg)
+                    if read_seg.skipped_frames:
+                        self.report.warn(
+                            f"dicom: SEG skipped "
+                            f"{read_seg.skipped_frames} off-grid "
+                            f"frame(s)")
+                else:
+                    self.report.unmatched_segs.append(read_seg.filepaths)
+                    print("dicom: seg has no matching image")
+
+        if self.ds_modality.get("REG"):
+            from .reg import ReadREG
+            for image_set in self.ds_modality["REG"]:
+                self._build_series(ReadREG, image_set, self.only_tags,
+                                   device=self.device)
+
         if self.ds_modality.get("RTDOSE"):
             from .rtdose import ReadRTDose
             for image_set in self.ds_modality["RTDOSE"]:
                 self._build_series(ReadRTDose, image_set, self.only_tags,
                                    device=self.device)
+
+        if self.ds_modality.get("RTPLAN"):
+            from .rtplan import ReadRTPlan
+            for image_set in self.ds_modality["RTPLAN"]:
+                self._build_series(ReadRTPlan, image_set, self.only_tags)
 
 
 def _is_enhanced_multiframe(ds):

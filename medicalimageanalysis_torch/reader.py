@@ -1,9 +1,11 @@
-"""Top-level IO orchestration: file parsing and the DICOM entry point.
+"""Top-level IO orchestration: file parsing and the reader entry points.
 
-Carried over from medicalimageanalysis_tpu/reader.py (``file_parser``,
-``read_dicoms`` with the zip and no-extension handling). ``check_memory``
-needs psutil, which the port does not import; the mesh/MHD/NIfTI readers
-wait for later slices.
+Carried over from medicalimageanalysis_tpu/reader.py (``check_memory``,
+``file_parser``, ``read_dicoms`` with the zip and no-extension handling,
+``read_mhd``, ``read_nifti``). ``check_memory`` reads ``MemAvailable``
+from /proc/meminfo, the figure psutil reports as available memory on
+Linux: the port does not import psutil. The mesh readers wait for a
+later slice.
 """
 
 from __future__ import annotations
@@ -12,7 +14,33 @@ import os
 import zipfile
 from pathlib import Path
 
-__all__ = ["file_parser", "read_dicoms"]
+__all__ = ["check_memory", "file_parser", "read_dicoms", "read_mhd",
+           "read_nifti"]
+
+
+def available_memory_bytes(meminfo="/proc/meminfo"):
+    """The kernel's estimate of the memory available to a new process
+    without swapping (``MemAvailable``), in bytes."""
+    with open(meminfo) as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                value, unit = line.split()[1:3]
+                if unit != "kB":
+                    raise ValueError(f"{meminfo}: MemAvailable in {unit!r}")
+                return int(value) * 1024
+    raise ValueError(f"{meminfo} has no MemAvailable line")
+
+
+def check_memory(files):
+    """Remaining system memory (GB) after hypothetically loading `files`
+    (reference reader.py:54-108): available memory less the files'
+    bytes."""
+    total_size = sum(
+        Path(file).stat().st_size
+        for file_list in files.values()
+        for file in file_list
+    )
+    return (available_memory_bytes() - total_size) / 1e9
 
 
 def file_parser(folder_path=None, file_list=None, exclude_files=None):
@@ -167,3 +195,29 @@ def read_dicoms(folder_path=None, file_list=None, exclude_files=None,
                                only_load_roi_names, clear, device=device)
     dicom_reader.load()
     return dicom_reader
+
+
+def read_nifti(file, modality=None, image_name=None, device=None):
+    """Load a NIfTI volume as an Image (read/nifti.py)."""
+    from .read.nifti import read_nifti as _read
+    return _read(file, modality=modality, image_name=image_name,
+                 device=device)
+
+
+def read_mhd(file=None, modality=None, image_name=None, roi_name=None,
+             roi_names=None, dose=None, dose_name=None,
+             reference_name=None, moving_name=None, dvf=False, device=None):
+    """Load a MetaImage (.mhd) file (reference reader.py:375-459): an
+    Image; with ``reference_name``, ROI mask(s) on that image
+    (``roi_name`` / ``roi_names``), a Dose grid (``dose``: True or a Gy
+    scaling factor) or, with ``dvf`` and ``moving_name``, a Deformable."""
+    from .read.mhd import MhdReader
+
+    reader = MhdReader(file=file, modality=modality,
+                       image_name=image_name, roi_name=roi_name,
+                       roi_names=roi_names, dose=dose,
+                       dose_name=dose_name,
+                       reference_name=reference_name,
+                       moving_name=moving_name, dvf=dvf, device=device)
+    reader.load()
+    return reader

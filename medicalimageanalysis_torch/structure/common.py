@@ -4,7 +4,10 @@ Carried over from medicalimageanalysis_tpu/structure/common.py
 (``MetadataMixin``, ``GeometryQueriesMixin``, ``ViewOpsMixin``). The view
 operations reslice on the device: ``update_rotation`` and
 ``retrieve_vtk_volume`` through ops/resample.reslice_rotation (the warp
-kernel's ``affine`` mode on the card).
+kernel's ``affine`` mode on the card). Also the helpers of the load and
+REG-writer paths: ``rebuild_dataset_from_meta``, ``collision_suffix``,
+``build_reg_dataset`` with ``series_item``, and ``host_array``, the one
+download a writer makes.
 """
 
 from __future__ import annotations
@@ -17,7 +20,9 @@ from scipy.spatial.transform import Rotation
 from .._waiting import waiting
 from ..ops import geometry as geo
 
-__all__ = ["GeometryQueriesMixin", "MetadataMixin", "ViewOpsMixin", "waits"]
+__all__ = ["GeometryQueriesMixin", "MetadataMixin", "ViewOpsMixin",
+           "build_reg_dataset", "collision_suffix", "host_array",
+           "rebuild_dataset_from_meta", "series_item", "waits"]
 
 
 def waits(owner, name, item):
@@ -25,6 +30,103 @@ def waits(owner, name, item):
     ports: calling it raises NotImplementedError naming its ROADMAP.md
     item."""
     return waiting(f"{owner}.{name}", item)
+
+
+def host_array(a, dtype=None):
+    """What a writer writes, on the host: a tensor (on the card or not)
+    is downloaded once, in one copy; an array is taken as it is. With
+    ``dtype`` the result is cast after the copy."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    a = np.asarray(a)
+    return a if dtype is None else a.astype(dtype, copy=False)
+
+
+def rebuild_dataset_from_meta(meta, filename, default_modality):
+    """The minimal carrier Dataset a ``load_*`` path hands its structure
+    class, so the MetadataMixin chains re-derive what ``save_*`` wrote
+    (JAX structure/common.py:24-53)."""
+    from ..dicom import Dataset
+
+    ds = Dataset()
+    ds.Modality = meta.get("modality", default_modality)
+    if meta.get("mrn") not in (None, "missing"):
+        ds.PatientID = meta["mrn"]
+    pn = meta.get("patient_name")
+    if isinstance(pn, list):
+        ds.PatientName = "^".join(str(v) for v in pn)
+    if meta.get("series_uid") not in (None, "00000.00000"):
+        ds.SeriesInstanceUID = meta["series_uid"]
+    if meta.get("frame_ref") not in (None, "", "00000.00000"):
+        ds.FrameOfReferenceUID = meta["frame_ref"]
+    # json stringifies; the getters' sentinels mean "never known"
+    if meta.get("date") not in (None, "00000", "None"):
+        ds.SeriesDate = str(meta["date"])
+    if meta.get("time") not in (None, "00000", "None"):
+        ds.SeriesTime = str(meta["time"])
+    if meta.get("birthdate") not in (None, "", "None"):
+        ds.PatientBirthDate = str(meta["birthdate"])
+    ds.filename = filename
+    return ds
+
+
+def collision_suffix(name, taken):
+    """``name`` -> ``name_N`` with the first free N when ``name`` is
+    already registered (the loaders' convention)."""
+    if name in taken:
+        n = 1
+        while f"{name}_{n}" in taken:
+            n += 1
+        name = f"{name}_{n}"
+    return name
+
+
+def series_item(img):
+    """A ReferencedSeriesSequence item naming ``img``'s series and every
+    SOP instance of it. Raises when the image has no SOP UIDs: a REG
+    reader matches registrations to images by sops[0]."""
+    from ..dicom import Dataset, Sequence, uids
+
+    if not img.sops:
+        raise ValueError(
+            "create_reg: image has no SOP instance UIDs to "
+            "reference — the REG object could not be matched "
+            "back to its images on re-ingest")
+    item = Dataset()
+    item.SeriesInstanceUID = img.series_uid
+    refs = Sequence()
+    sop_class = uids.MODALITY_SOP_CLASS.get(img.modality,
+                                            uids.CTImageStorage)
+    for sop in img.sops:
+        r = Dataset()
+        r.ReferencedSOPClassUID = sop_class
+        r.ReferencedSOPInstanceUID = sop
+        refs.append(r)
+    item.ReferencedInstanceSequence = refs
+    return item
+
+
+def build_reg_dataset(sop_class_uid, ref, mov, description):
+    """The REG writers' shared header (JAX structure/common.py:67-111):
+    identity and the two ReferencedSeriesSequence items, reference first
+    and moving second, the order ReadREG reads."""
+    from ..dicom import Dataset, Sequence, generate_uid
+
+    ds = Dataset()
+    ds.SOPClassUID = sop_class_uid
+    ds.SOPInstanceUID = generate_uid()
+    ds.Modality = "REG"
+    ds.PatientID = ref.mrn if ref.mrn != "missing" else ""
+    ds.SeriesInstanceUID = generate_uid()
+    ds.StudyInstanceUID = ref.get_study_uid()
+    ds.FrameOfReferenceUID = ref.frame_ref
+    ds.ContentLabel = "REGISTRATION"
+    ds.ContentDescription = description or ""
+    ds.ReferencedSeriesSequence = Sequence(
+        [series_item(ref), series_item(mov)])
+    return ds
 
 
 class MetadataMixin:

@@ -1,9 +1,11 @@
 """Deformable registration object + Display.
 
 Port of medicalimageanalysis_tpu/structure/deformable.py (``Display``,
-:70-240, and ``Deformable``, :240-860). DVFs are (Z, Y, X, 3) float32 numpy fields in mm, in the
-point-displacement convention (update_rois adds d(p) to moving points;
-create_image inverts to get the sampling field); ``ratio`` scales the
+:70-240, and ``Deformable``, :240-940). DVFs are (Z, Y, X, 3) float32
+fields in mm, in the point-displacement convention (update_rois adds d(p)
+to moving points; create_image inverts to get the sampling field): numpy
+arrays from the solvers, or the tensor on the card that a REG read or
+``load_deformable`` uploaded once; ``ratio`` scales the
 field for fractional-deformation display.
 
 The compute runs on ``device`` (default: the card when present): the
@@ -22,14 +24,18 @@ sample_dvf_at_points: the ``coords`` mode with B = 3). The ``Display``
 holds the frames at fractional ratios (``compute_deformation``: one
 rigid resample and one field upload for all frames, then each frame's
 inversion and warp) and the field's component planes, behind the
-``retrieve_*`` queries. The ROI-masked registrations, TPS, REG export,
-save/load, the image export and the Display's mesh cut wait for later
-slices; each raises ``NotImplementedError`` naming its ROADMAP.md item.
+``retrieve_*`` queries. ``create_reg`` writes the field as a deformable
+REG, ``export_image`` the deformed image as MHD, ``save_deformable`` /
+``load_deformable`` a json + npy folder. The ROI-masked registrations,
+TPS and the Display's mesh cut wait for later slices; each raises
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 import copy
+import json
+import os
 from functools import partial
 
 import numpy as np
@@ -43,7 +49,7 @@ from ..ops import geometry as geo
 from ..ops.registration.dvf import invert_dvf, sample_dvf_at_points
 from ..ops.resample import affine_resample, compose_pixel_matrix
 from ..ops.warp import affine_coords, field_warp, warp_disp
-from .common import waits
+from .common import host_array, waits
 
 __all__ = ["Display", "Deformable"]
 
@@ -138,7 +144,7 @@ class Display(object):
         else:
             dvf_plane = dvf[:, :, self.slice_location[2], :]
         comp = {"x": 0, "y": 1}.get(vector, 2)
-        return dvf_plane[:, :, comp].astype(np.float32)
+        return host_array(dvf_plane[:, :, comp], np.float32)
 
     def compute_matrix_pixel_to_position(self):
         return geo.pixel_to_position_matrix(self.matrix, self.spacing,
@@ -380,7 +386,8 @@ class Deformable(object):
     @staticmethod
     def correct_dvf_direction(dvf, spacing, origin, matrix):
         """Rotate field vectors to identity direction about the volume
-        center, rewriting the origin."""
+        center, rewriting the origin. A tensor field is rotated on its
+        device in float64 and stays a float32 tensor there."""
         D_new = np.identity(3)
         R = D_new @ np.linalg.inv(matrix)
 
@@ -389,7 +396,12 @@ class Deformable(object):
             center_index * np.asarray(spacing))
 
         Z, Y, X, _ = dvf.shape
-        dvf_rotated = (R @ dvf.reshape(-1, 3).T).T.reshape(Z, Y, X, 3)
+        if isinstance(dvf, torch.Tensor):
+            Rt = torch.as_tensor(R, dtype=torch.float64, device=dvf.device)
+            dvf_rotated = (dvf.reshape(-1, 3).to(torch.float64) @ Rt.T) \
+                .to(torch.float32).reshape(Z, Y, X, 3)
+        else:
+            dvf_rotated = (R @ dvf.reshape(-1, 3).T).T.reshape(Z, Y, X, 3)
 
         origin_new = center_phys - D_new @ (center_index
                                             * np.asarray(spacing))
@@ -603,12 +615,123 @@ class Deformable(object):
         return out
 
     compute_tps = _waits("compute_tps", "item 7, the rest of deformable")
-    create_reg = _waits("create_reg", "item 7, the rest of deformable")
-    save_deformable = _waits("save_deformable",
-                             "item 7, the rest of deformable")
-    load_deformable = classmethod(_waits("load_deformable",
-                                         "item 7, the rest of deformable"))
-    export_image = _waits("export_image", "item 10, remaining compute")
+
+    # -- export and persistence (JAX structure/deformable.py:749-808,
+    # 860-910) ------------------------------------------------------------
+    def create_reg(self, path=None):
+        """A DICOM Deformable Spatial Registration (REG) dataset of this
+        field: ReferencedSeriesSequence (reference, moving),
+        PreDeformationMatrixRegistrationSequence with inv(rigid_matrix) in
+        float64 (ReadREG inverts back), and the grid (axis-aligned
+        orientation, origin, GridDimensions (x, y, z), GridResolution,
+        VectorGridData: the (Z, Y, X, 3) point displacements as float32
+        little-endian, downloaded once). Returns the Dataset; writes a
+        Part-10 file when ``path`` is given."""
+        from ..dicom import Dataset, Sequence, dcmwrite, uids
+        from .common import build_reg_dataset
+
+        if self.dvf is None:
+            raise ValueError("create_reg: no DVF computed yet")
+        if self.reference_name not in Data.image \
+                or self.moving_name not in Data.image:
+            raise ValueError(
+                "create_reg: reference and moving images must both be "
+                "loaded to reference their series/SOPs")
+        ref = Data.image[self.reference_name]
+        mov = Data.image[self.moving_name]
+        ds = build_reg_dataset(
+            uids.DeformableSpatialRegistrationStorage, ref, mov,
+            self.deformable_name)
+
+        pre = Dataset()
+        pre.FrameOfReferenceTransformationMatrix = [
+            float(v) for v in np.linalg.inv(
+                np.asarray(self.rigid_matrix, np.float64)).reshape(-1)]
+        pre.FrameOfReferenceTransformationMatrixType = "RIGID"
+
+        dvf = np.ascontiguousarray(host_array(self.dvf, "<f4"))
+        grid = Dataset()
+        grid.ImageOrientationPatient = [1, 0, 0, 0, 1, 0]
+        grid.ImagePositionPatient = [float(v) for v in self.origin]
+        grid.GridDimensions = [int(dvf.shape[2]), int(dvf.shape[1]),
+                               int(dvf.shape[0])]       # (x, y, z)
+        grid.GridResolution = [float(v) for v in self.spacing]
+        grid.VectorGridData = dvf.tobytes()
+        dreg = Dataset()
+        dreg.SourceFrameOfReferenceUID = mov.frame_ref
+        dreg.PreDeformationMatrixRegistrationSequence = Sequence([pre])
+        dreg.DeformableRegistrationGridSequence = Sequence([grid])
+        ds.DeformableRegistrationSequence = Sequence([dreg])
+
+        if path is not None:
+            dcmwrite(path, ds)
+        return ds
+
+    def export_image(self, path=None):
+        """Write ``create_image`` (the ``affine``, ``coords`` and ``disp``
+        launches) as MHD."""
+        if self.moving_name is not None and path is not None:
+            out = self.create_image()
+            from ..read.mhd import write_mhd_volume
+            write_mhd_volume(path, out["array"], spacing=out["spacing"],
+                             origin=out["origin"])
+
+    def save_deformable(self, path):
+        """``{path}/deformable.json`` + ``dvf.npy`` (the field downloaded
+        once)."""
+        os.makedirs(str(path), exist_ok=True)
+        payload = {
+            "deformable_name": self.deformable_name,
+            "reference_name": self.reference_name,
+            "moving_name": self.moving_name,
+            "roi_names": list(self.roi_names or []),
+            "origin": np.asarray(self.origin, dtype=float).tolist(),
+            "spacing": np.asarray(self.spacing, dtype=float).tolist(),
+            "dimensions": np.asarray(self.dimensions).astype(int).tolist()
+            if self.dimensions is not None else None,
+            "rigid_matrix": np.asarray(self.rigid_matrix).tolist(),
+        }
+        with open(os.path.join(str(path), "deformable.json"), "w") as f:
+            json.dump(payload, f, indent=1)
+        np.save(os.path.join(str(path), "dvf.npy"),
+                None if self.dvf is None else host_array(self.dvf))
+
+    @classmethod
+    def load_deformable(cls, path, device=None):
+        """A :meth:`save_deformable` folder back into ``Data.deformable``
+        under its saved name, collision-suffixed ('Fraction2_DVF' ->
+        'Fraction2_DVF_1' when taken). The field is uploaded once to
+        ``device`` (default: the card) and kept there."""
+        from .common import collision_suffix
+
+        device = default_device() if device is None \
+            else torch.device(device)
+        with open(os.path.join(str(path), "deformable.json")) as f:
+            payload = json.load(f)
+        dvf_path = os.path.join(str(path), "dvf.npy")
+        dvf = None
+        if os.path.exists(dvf_path):
+            dvf = np.load(dvf_path, allow_pickle=True)
+            dvf = None if dvf.dtype == object else \
+                torch.from_numpy(dvf).to(device)
+        name = payload.get("deformable_name")
+        if name is not None:
+            name = collision_suffix(name, Data.deformable_list)
+        return cls(
+            dvf=dvf,
+            origin=(np.asarray(payload["origin"], np.float64)
+                    if payload.get("origin") is not None else None),
+            spacing=(tuple(payload["spacing"])
+                     if payload.get("spacing") is not None else None),
+            dimensions=(np.asarray(payload["dimensions"])
+                        if payload.get("dimensions") is not None
+                        else None),
+            roi_names=payload.get("roi_names") or [],
+            rigid_matrix=np.asarray(payload.get("rigid_matrix",
+                                                np.eye(4)), np.float64),
+            registration_name=name,
+            reference_name=payload.get("reference_name"),
+            moving_name=payload.get("moving_name"), device=device)
 
     # -- view queries (JAX structure/deformable.py:811-860) ---------------
     def retrieve_array_plane(self, slice_plane, solo=None, position=None,

@@ -9,13 +9,14 @@ the warp kernel's ``affine`` mode, background 0 Gy),
 (ops/hist, the CUDA histogram kernel on the card), the plan-QA methods
 ``evaluate_constraints`` (utils/dose), ``compute_gamma`` (the evaluated
 dose resampled onto the fine search grid by the ``affine`` mode, then
-ops/gamma) and the radiobiology (utils/radiobiology). Isodose contours,
-the RTDOSE writer and save/load raise naming their ROADMAP.md items.
+ops/gamma), the radiobiology (utils/radiobiology), the isodose contours,
+the RTDOSE writer ``create_rtdose`` and ``save_image`` / ``load_image``.
 """
 
 from __future__ import annotations
 
-from functools import partial
+import json
+import os
 
 import numpy as np
 import torch
@@ -26,13 +27,11 @@ from ..dicom import generate_uid
 from ..ops.dvh import dvh_statistics
 from ..ops.hist import dose_below_histogram
 from ..ops.resample import affine_resample, compose_pixel_matrix
-from .common import GeometryQueriesMixin, MetadataMixin, ViewOpsMixin, waits
+from .common import (GeometryQueriesMixin, MetadataMixin, ViewOpsMixin,
+                     host_array)
 from .image import Display as ImageDisplay
 
 __all__ = ["Display", "Dose"]
-
-
-_waits = partial(waits, "Dose")
 
 
 class Display(ImageDisplay):
@@ -318,6 +317,128 @@ class Dose(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
             self.compute_roi_dose_array(image_name, roi_name), tcd50,
             gamma50, a)
 
-    create_rtdose = _waits("create_rtdose", "item 8, the RTDOSE writer")
-    save_image = _waits("save_image", "item 8, dose save/load")
-    load_image = classmethod(_waits("load_image", "item 8, dose save/load"))
+    # -- DICOM export and persistence (JAX structure/dose.py:310-446) -----
+    def create_rtdose(self, path=None, dose_summation_type="PLAN"):
+        """An RTDOSE (RT Dose Storage) dataset of this grid: uint32 pixels
+        with DoseGridScaling = max / 4e9 from the grid in float64 (the
+        stored values round half to even, as numpy's), frame offsets
+        signed by the slice direction. Negative doses raise. Returns the
+        Dataset; writes a Part-10 file when ``path`` is given."""
+        from ..dicom import Dataset, dcmwrite, uids
+        from ..ops import geometry as geo
+
+        arr = host_array(self.array, np.float64)
+        if arr.size and float(arr.min()) < 0:
+            raise ValueError(
+                "create_rtdose: negative dose voxels (min "
+                f"{float(arr.min()):.4g} Gy) are not representable in "
+                "RT Dose Storage's unsigned pixels — dose differences "
+                "cannot be exported; clamp or split the grid first")
+        ds = Dataset()
+        ds.SOPClassUID = uids.RTDoseStorage
+        ds.SOPInstanceUID = generate_uid()
+        ds.Modality = "RTDOSE"
+        ds.PatientID = self.mrn if self.mrn != "missing" else ""
+        if isinstance(self.patient_name, list):
+            ds.PatientName = "^".join(self.patient_name)
+        ds.SeriesInstanceUID = generate_uid()
+        ds.StudyInstanceUID = self.get_study_uid()
+        ds.FrameOfReferenceUID = self.frame_ref
+
+        ds.ImagePositionPatient = [float(v) for v in self.origin]
+        iop, pixel_spacing = geo.grid_plane_tags(self.matrix, self.spacing)
+        ds.ImageOrientationPatient = iop
+        ds.PixelSpacing = pixel_spacing
+        ds.SliceThickness = float(self.spacing[2])
+        # offsets run along the stored-frame direction: +|sz| when the
+        # matrix z-row is the written orientation's normal, -|sz| when
+        # flipped
+        m = np.asarray(self.matrix, float)
+        normal = np.cross(m[0], m[1])
+        sign = 1.0 if float(np.dot(m[2], normal)) >= 0 else -1.0
+        ds.GridFrameOffsetVector = [
+            float(sign * i * self.spacing[2]) for i in range(arr.shape[0])]
+
+        scaling = float(arr.max()) / 4.0e9 if arr.max() > 0 else 1.0
+        ds.DoseGridScaling = scaling
+        ds.DoseUnits = "GY"
+        ds.DoseType = "PHYSICAL"
+        ds.DoseSummationType = dose_summation_type
+        ds.NumberOfFrames = int(arr.shape[0])
+        ds.Rows, ds.Columns = int(arr.shape[1]), int(arr.shape[2])
+        ds.BitsAllocated = ds.BitsStored = 32
+        ds.HighBit = 31
+        ds.PixelRepresentation = 0
+        ds.SamplesPerPixel = 1
+        ds.PhotometricInterpretation = "MONOCHROME2"
+        ds.PixelData = np.round(arr / scaling).astype("<u4").tobytes()
+
+        if path is not None:
+            dcmwrite(path, ds)
+        return ds
+
+    def save_image(self, path):
+        """``{path}/{dose_name}/meta.json`` + ``array.npy``; the SOP UIDs
+        ride along, since they carry the plan <-> dose link."""
+        base = os.path.join(str(path), self.dose_name)
+        os.makedirs(base, exist_ok=True)
+        meta = {
+            "dose_name": self.dose_name, "modality": self.modality,
+            "patient_name": self.patient_name, "mrn": self.mrn,
+            "birthdate": str(self.birthdate),
+            "date": str(self.date), "time": str(self.time),
+            "series_uid": self.series_uid, "frame_ref": self.frame_ref,
+            "sops": [str(s) for s in self.sops],
+            "plane": self.plane,
+            "spacing": np.asarray(self.spacing, dtype=float).tolist(),
+            "dimensions": np.asarray(self.dimensions).astype(int).tolist(),
+            "orientation": np.asarray(self.orientation,
+                                      dtype=float).tolist(),
+            "origin": np.asarray(self.origin, dtype=float).tolist(),
+            "matrix": np.asarray(self.matrix, dtype=float).tolist(),
+        }
+        with open(os.path.join(base, "meta.json"), "w") as f:
+            json.dump(meta, f, indent=1)
+        if self.array is not None:
+            np.save(os.path.join(base, "array.npy"), host_array(self.array))
+
+    @classmethod
+    def load_image(cls, dose_path, device=None):
+        """A :meth:`save_image` folder back into ``Data.dose`` under its
+        saved name, collision-suffixed. ``device`` (default: the card) is
+        checked first: without a card and without ``device='cpu'`` this
+        raises, as every entry point does."""
+        import types
+
+        from .common import collision_suffix, rebuild_dataset_from_meta
+
+        device = default_device() if device is None else device
+        base = str(dose_path)
+        with open(os.path.join(base, "meta.json")) as f:
+            meta = json.load(f)
+        arr_path = os.path.join(base, "array.npy")
+        array = np.load(arr_path) if os.path.exists(arr_path) else None
+
+        ds = rebuild_dataset_from_meta(
+            meta, os.path.join(base, "meta.json"), "RTDOSE")
+        name = collision_suffix(meta.get("dose_name", "RTDOSE 01"),
+                                Data.dose)
+
+        carrier = types.SimpleNamespace(
+            image_set=[ds],
+            array=array,
+            dose_name=name,
+            modality=meta.get("modality", "RTDOSE"),
+            filepaths=[ds.filename],
+            sops=meta.get("sops", []),
+            plane=meta.get("plane", "Axial"),
+            spacing=np.asarray(meta["spacing"], np.float64),
+            dimensions=np.asarray(meta["dimensions"]),
+            orientation=np.asarray(meta["orientation"], np.float64),
+            origin=np.asarray(meta["origin"], np.float64),
+            image_matrix=np.asarray(meta["matrix"], np.float64),
+        )
+        dose_obj = cls(carrier)
+        Data.dose[name] = dose_obj
+        Data.dose_list += [name]
+        return dose_obj

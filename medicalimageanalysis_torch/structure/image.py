@@ -13,16 +13,19 @@ package's. The external contour, margin and boolean ROIs are here too,
 and the image analysis: ``resample_to``, ``create_rotated_volume`` and
 ``compute_projection`` (the ``affine`` mode), ``compute_suv`` and
 ``compute_mtv_tlg``, ``correct_bias`` (ops/n4) and ``compute_radiomics``
-(ops/radiomics), on the image's device. The exports, SEG and save/load
-wait for their slices: each raises NotImplementedError naming its
-ROADMAP.md item.
+(ops/radiomics), on the image's device. The IO slice: ``input_seg`` (a
+SEG's masks into the ROIs and the mask cache) and ``input_mhd``; the
+writers ``create_rtstruct``, ``create_seg``, ``create_nifti`` and
+``export_dicom``; ``save_image`` / ``load_image`` with the ROI and POI
+folders.
 """
 
 from __future__ import annotations
 
 import copy
 import itertools
-from functools import partial
+import json
+import os
 
 import numpy as np
 
@@ -30,7 +33,8 @@ from ..config import config
 from ..data import Data
 from ..dicom import generate_uid
 from ..ops import geometry as geo
-from .common import GeometryQueriesMixin, MetadataMixin, ViewOpsMixin, waits
+from .common import (GeometryQueriesMixin, MetadataMixin, ViewOpsMixin,
+                     host_array)
 from .poi import Poi
 from .roi import Roi
 
@@ -39,8 +43,6 @@ __all__ = ["Display", "Image"]
 # Process-global monotonic ids for the ROI mask cache — never reused,
 # unlike id(), which CPython recycles after a Roi is freed.
 _ROI_CACHE_TOKENS = itertools.count(1)
-
-_waits = partial(waits, "Image")
 
 
 class Display(object):
@@ -697,19 +699,507 @@ class Image(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
         out["meta"]["ROI"] = roi_name
         return out
 
-    # -- the JAX package's API that later slices port ----------------------
-    input_seg = _waits("input_seg", "item 6, SEG")
-    create_seg = _waits("create_seg", "item 6, SEG")
-    create_rtstruct = _waits("create_rtstruct", "item 6, exports")
-    export_dicom = _waits("export_dicom", "item 6, exports")
-    create_nifti = _waits("create_nifti", "item 6, exports")
-    input_mhd = _waits("input_mhd", "item 6, exports")
-    save_image = _waits("save_image", "item 6, save/load")
-    save_rois = _waits("save_rois", "item 6, save/load")
-    save_pois = _waits("save_pois", "item 6, save/load")
-    load_rois = _waits("load_rois", "item 6, save/load")
-    load_pois = _waits("load_pois", "item 6, save/load")
-    load_image = classmethod(_waits("load_image", "item 6, save/load"))
+    # -- SEG and MHD intake ------------------------------------------------
+    def input_seg(self, seg):
+        """ROIs from a parsed DICOM SEG (read/seg.ReadSEG; JAX
+        structure/image.py:233-248): each new ROI takes its mask, one
+        download of the mask the reader built on the device, through
+        ``convert_mask`` (contours and meshes, as the JAX package's) and
+        into the bit-packed mask cache, so ``compute_mask`` and
+        ``compute_roi_masks`` serve the SEG's own voxels without
+        rasterizing. A name that already holds contours keeps them."""
+        for ii, roi_name in enumerate(seg.roi_names):
+            if not (roi_name not in self.rois
+                    or self.rois[roi_name].contour_position is None):
+                continue
+            roi = Roi(self, name=roi_name, color=seg.roi_colors[ii],
+                      visible=False, filepaths=seg.filepaths)
+            self.rois[roi_name] = roi
+            if ii < len(seg.masks):
+                mask = host_array(seg.masks[ii], np.uint8)
+                roi.convert_mask(mask)
+                self._roi_mask_cache_put(roi_name, roi, mask)
+        Data.match_rois()
+
+    def input_mhd(self, filename, roi_names, values, plane="Axial"):
+        """Label volume -> one ROI per label value (JAX
+        structure/image.py:198-210), through ``convert_mask``."""
+        from ..read.mhd import read_mhd_volume
+
+        roi_array, _, _, _ = read_mhd_volume(filename)
+        for ii, roi_name in enumerate(roi_names):
+            if roi_name not in self.rois:
+                self.rois[roi_name] = Roi(self, name=roi_name, visible=True,
+                                          filepaths=filename, plane=plane)
+            roi_mask = roi_array == values[ii]
+            self.rois[roi_name].convert_mask(roi_mask)
+
+    # -- DICOM, NIfTI exports (JAX structure/image.py:268-388, 795-1047) ----
+    def _reference_items(self, uids):
+        """(sop_class, Sequence of this series' SOP references)."""
+        from ..dicom import Dataset, Sequence
+
+        sop_class = uids.MODALITY_SOP_CLASS.get(self.modality,
+                                                uids.CTImageStorage)
+        refs = Sequence()
+        for sop in (self.sops or []):
+            r = Dataset()
+            r.ReferencedSOPClassUID = sop_class
+            r.ReferencedSOPInstanceUID = sop
+            refs.append(r)
+        return sop_class, refs
+
+    def create_rtstruct(self, roi_names=None, poi_names=None, path=None,
+                        label="medicalimageanalysis_tpu"):
+        """An RTSTRUCT dataset of this image's ROIs (their
+        ``contour_position``; a ROI made from a mask has the port's
+        tracer's contours) and POIs. Returns the Dataset; writes a
+        Part-10 file when ``path`` is given."""
+        from ..dicom import Dataset, Sequence, dcmwrite, uids
+
+        if roi_names is None:
+            roi_names = [n for n, r in self.rois.items()
+                         if r.contour_position is not None]
+        if poi_names is None:
+            poi_names = [n for n, p in self.pois.items()
+                         if p.point_position is not None]
+
+        ds = Dataset()
+        ds.SOPClassUID = uids.RTStructureSetStorage
+        ds.SOPInstanceUID = generate_uid()
+        ds.Modality = "RTSTRUCT"
+        ds.StructureSetLabel = label
+        ds.PatientID = self.mrn if self.mrn != "missing" else ""
+        if isinstance(self.patient_name, list):
+            ds.PatientName = "^".join(self.patient_name)
+        ds.SeriesInstanceUID = generate_uid()
+        ds.StudyInstanceUID = self.get_study_uid()
+        ds.FrameOfReferenceUID = self.frame_ref
+
+        # the referenced frame-of-reference chain
+        sop_class, imgs = self._reference_items(uids)
+        series_item = Dataset()
+        series_item.SeriesInstanceUID = self.series_uid
+        series_item.ContourImageSequence = imgs
+        study_item = Dataset()
+        study_item.RTReferencedSeriesSequence = Sequence([series_item])
+        for_item = Dataset()
+        for_item.ReferencedFrameOfReferenceUID = self.frame_ref
+        for_item.RTReferencedStudySequence = Sequence([study_item])
+        ds.ReferencedFrameOfReferenceSequence = Sequence([for_item])
+
+        m = self.display.compute_matrix_position_to_pixel()
+        roi_seq = Sequence()
+        contour_seq = Sequence()
+        obs_seq = Sequence()
+        number = 0
+        for name in list(roi_names) + list(poi_names):
+            number += 1
+            s = Dataset()
+            s.ROINumber = number
+            s.ROIName = name
+            s.ReferencedFrameOfReferenceUID = self.frame_ref
+            s.ROIGenerationAlgorithm = "MANUAL"
+            roi_seq.append(s)
+
+            obs = Dataset()
+            obs.ObservationNumber = number
+            obs.ReferencedROINumber = number
+            obs.RTROIInterpretedType = "ORGAN" if name in roi_names \
+                else "MARKER"
+            obs_seq.append(obs)
+
+            item = Dataset()
+            item.ReferencedROINumber = number
+            cs = Sequence()
+            if name in self.rois and name in roi_names:
+                roi = self.rois[name]
+                item.ROIDisplayColor = [int(v) for v in
+                                        (roi.color or [128, 128, 128])]
+                for contour in (roi.contour_position or []):
+                    contour = np.asarray(contour, dtype=float)
+                    c = Dataset()
+                    c.ContourGeometricType = "CLOSED_PLANAR"
+                    c.NumberOfContourPoints = contour.shape[0]
+                    c.ContourData = [float(v) for v in contour.reshape(-1)]
+                    # reference the nearest slice SOP by z pixel index
+                    pix = geo.apply_homogeneous(contour[0], m)
+                    z = int(np.clip(np.round(pix[2]), 0,
+                                    len(self.sops or [1]) - 1))
+                    if self.sops:
+                        ci = Dataset()
+                        ci.ReferencedSOPClassUID = sop_class
+                        ci.ReferencedSOPInstanceUID = self.sops[z]
+                        c.ContourImageSequence = Sequence([ci])
+                    cs.append(c)
+            else:
+                poi = self.pois[name]
+                item.ROIDisplayColor = [int(v) for v in
+                                        (poi.color or [128, 128, 128])]
+                c = Dataset()
+                c.ContourGeometricType = "POINT"
+                point = np.asarray(poi.point_position,
+                                   dtype=float).reshape(-1)
+                c.ContourData = [float(v) for v in point[:3]]
+                c.NumberOfContourPoints = 1
+                cs.append(c)
+            item.ContourSequence = cs
+            contour_seq.append(item)
+
+        ds.StructureSetROISequence = roi_seq
+        ds.ROIContourSequence = contour_seq
+        ds.RTROIObservationsSequence = obs_seq
+
+        if path is not None:
+            dcmwrite(path, ds)
+        return ds
+
+    def create_seg(self, roi_names=None, path=None, fractional=False,
+                   label="medicalimageanalysis_tpu"):
+        """A DICOM SEG (Segmentation Storage) dataset of this image's ROIs:
+        BINARY 1-bit frames packed LSB-first by default, 8-bit PROBABILITY
+        frames with ``fractional=True``; one frame per non-empty (segment,
+        slice). The masks come from one pooled pass
+        (``compute_roi_masks``). Returns the Dataset; writes a Part-10
+        file when ``path`` is given."""
+        from ..dicom import Dataset, Sequence, dcmwrite, uids
+        from ..read.seg import rgb_to_cielab_uint16
+
+        if roi_names is None:
+            roi_names = [n for n, r in self.rois.items()
+                         if r.contour_position is not None]
+        if not roi_names:
+            raise ValueError("create_seg: no ROIs with contours")
+
+        ds = Dataset()
+        ds.SOPClassUID = uids.SegmentationStorage
+        ds.SOPInstanceUID = generate_uid()
+        ds.Modality = "SEG"
+        ds.SeriesDescription = label
+        ds.ContentLabel = "SEG"
+        ds.ContentDescription = label
+        ds.ContentCreatorName = "medicalimageanalysis_tpu"
+        ds.PatientID = self.mrn if self.mrn != "missing" else ""
+        if isinstance(self.patient_name, list):
+            ds.PatientName = "^".join(self.patient_name)
+        ds.SeriesInstanceUID = generate_uid()
+        ds.StudyInstanceUID = self.get_study_uid()
+        ds.FrameOfReferenceUID = self.frame_ref
+
+        nz, ny, nx = (int(self.dimensions[0]), int(self.dimensions[1]),
+                      int(self.dimensions[2]))
+        ds.Rows, ds.Columns = ny, nx
+        ds.SamplesPerPixel = 1
+        ds.PhotometricInterpretation = "MONOCHROME2"
+        ds.PixelRepresentation = 0
+        if fractional:
+            ds.SegmentationType = "FRACTIONAL"
+            ds.SegmentationFractionalType = "PROBABILITY"
+            ds.MaximumFractionalValue = 255
+            ds.BitsAllocated = ds.BitsStored = 8
+            ds.HighBit = 7
+        else:
+            ds.SegmentationType = "BINARY"
+            ds.BitsAllocated = ds.BitsStored = 1
+            ds.HighBit = 0
+
+        # the referenced source series
+        _, insts = self._reference_items(uids)
+        ref_series = Dataset()
+        ref_series.SeriesInstanceUID = self.series_uid
+        ref_series.ReferencedInstanceSequence = insts
+        ds.ReferencedSeriesSequence = Sequence([ref_series])
+
+        # shared functional groups: the grid's pixel-axis plane tags for
+        # the canonical (z, y, x) array
+        iop, pixel_spacing = geo.grid_plane_tags(self.matrix, self.spacing)
+        measures = Dataset()
+        measures.PixelSpacing = pixel_spacing
+        measures.SliceThickness = float(self.spacing[2])
+        measures.SpacingBetweenSlices = float(self.spacing[2])
+        orient = Dataset()
+        orient.ImageOrientationPatient = iop
+        shared = Dataset()
+        shared.PixelMeasuresSequence = Sequence([measures])
+        shared.PlaneOrientationSequence = Sequence([orient])
+        ds.SharedFunctionalGroupsSequence = Sequence([shared])
+
+        # dimension organization (PS3.3 C.7.6.17): frames index by
+        # (segment, plane position)
+        dim_uid = generate_uid()
+        dim_org = Dataset()
+        dim_org.DimensionOrganizationUID = dim_uid
+        ds.DimensionOrganizationSequence = Sequence([dim_org])
+        dim_seg = Dataset()
+        dim_seg.DimensionOrganizationUID = dim_uid
+        dim_seg.DimensionIndexPointer = 0x0062000B  # ReferencedSegmentNumber
+        dim_seg.FunctionalGroupPointer = 0x0062000A
+        dim_pos = Dataset()
+        dim_pos.DimensionOrganizationUID = dim_uid
+        dim_pos.DimensionIndexPointer = 0x00200032  # ImagePositionPatient
+        dim_pos.FunctionalGroupPointer = 0x00209113
+        ds.DimensionIndexSequence = Sequence([dim_seg, dim_pos])
+
+        def _code(value, meaning):
+            c = Dataset()
+            c.CodeValue = value
+            c.CodingSchemeDesignator = "SCT"
+            c.CodeMeaning = meaning
+            return c
+
+        masks = self.compute_roi_masks(roi_names=list(roi_names))
+        m = self.display.compute_matrix_pixel_to_position()
+        seg_seq = Sequence()
+        per_frame = Sequence()
+        frame_payloads = []
+        for number, name in enumerate(roi_names, start=1):
+            roi = self.rois[name]
+            s = Dataset()
+            s.SegmentNumber = number
+            s.SegmentLabel = name
+            s.SegmentAlgorithmType = "MANUAL"
+            s.SegmentedPropertyCategoryCodeSequence = Sequence(
+                [_code("123037004", "Anatomical Structure")])
+            s.SegmentedPropertyTypeCodeSequence = Sequence(
+                [_code("85756007", "Tissue")])
+            s.RecommendedDisplayCIELabValue = rgb_to_cielab_uint16(
+                roi.color or [128, 128, 128])
+            seg_seq.append(s)
+
+            mask = np.asarray(masks[name], np.uint8)
+            if mask.shape != (nz, ny, nx):
+                raise ValueError(
+                    f"create_seg: ROI '{name}' mask shape "
+                    f"{mask.shape} != image grid {(nz, ny, nx)}")
+            zs = np.flatnonzero(mask.reshape(nz, -1).any(axis=1))
+            for z in zs:
+                item = Dataset()
+                ident = Dataset()
+                ident.ReferencedSegmentNumber = number
+                item.SegmentIdentificationSequence = Sequence([ident])
+                content = Dataset()
+                content.DimensionIndexValues = [number, int(z) + 1]
+                item.FrameContentSequence = Sequence([content])
+                plane = Dataset()
+                ipp = geo.apply_homogeneous(
+                    np.array([0.0, 0.0, float(z)]), m)
+                plane.ImagePositionPatient = [float(v) for v in ipp]
+                item.PlanePositionSequence = Sequence([plane])
+                per_frame.append(item)
+            if zs.size:
+                frame_payloads.append(mask[zs])
+
+        ds.SegmentSequence = seg_seq
+        ds.PerFrameFunctionalGroupsSequence = per_frame
+        ds.NumberOfFrames = len(per_frame)
+
+        flat = np.concatenate([f.reshape(-1) for f in frame_payloads]) \
+            if frame_payloads else np.zeros(0, dtype=np.uint8)
+        if fractional:
+            payload = (flat * 255).astype(np.uint8).tobytes()
+        else:
+            # contiguous bit packing across frames, LSB-first,
+            # end-of-data padding only (PS3.5 8.1.1)
+            payload = np.packbits(flat, bitorder="little").tobytes()
+        if len(payload) % 2:
+            payload += b"\x00"
+        ds.PixelData = payload
+
+        if path is not None:
+            dcmwrite(path, ds)
+        return ds
+
+    def create_nifti(self, path, values=None):
+        """Write this volume (or a voxel-aligned ``values`` map: SUV, a
+        mask) as NIfTI-1 .nii / .nii.gz, the reader's exact inverse: the
+        sform carries the full LPS grid, float maps keep their type."""
+        from ..read.nifti import write_nifti_volume
+
+        if self.array is None and values is None:
+            raise ValueError("no array to export (only_tags image?)")
+        arr = host_array(self.array if values is None else values)
+        if self.array is not None and values is not None \
+                and arr.shape != tuple(np.shape(self.array)):
+            raise ValueError(
+                f"create_nifti: values shape {arr.shape} != image "
+                f"grid {tuple(np.shape(self.array))}")
+        write_nifti_volume(path, arr, self.spacing, self.origin,
+                           self.matrix)
+
+    def export_dicom(self, output_dir, description=""):
+        """Write this volume as a .dcm slice series with its geometry and
+        identity (utils/creation.CreateDicomImage). A float or
+        out-of-range array is quantised to int16 in float64 as the JAX
+        package does: slope (max - min) / 64000, centred on the
+        intercept, rounded half to even. A PT series keeps its SUV tags,
+        so ``compute_suv`` works after a round trip."""
+        from ..utils.creation import CreateDicomImage
+
+        if self.array is None:
+            raise ValueError("no array to export (only_tags image?)")
+        arr = host_array(self.array)
+        slope, intercept = 1, 0
+        needs_rescale = arr.size and (
+            np.issubdtype(arr.dtype, np.floating)
+            or float(arr.min()) < -32768 or float(arr.max()) > 32767)
+        if needs_rescale:
+            amin, amax = float(arr.min()), float(arr.max())
+            if amax > amin:
+                slope = (amax - amin) / 64000.0
+                intercept = (amax + amin) / 2.0
+            else:
+                slope, intercept = 1.0, amin
+            arr = np.round((arr.astype(np.float64) - intercept)
+                           / slope).astype(np.int16)
+        extra = {}
+        src = self.tags[0] if self.tags else None
+        if src is not None and self.modality == "PT":
+            for kw in ("Units", "DecayCorrection", "SeriesTime",
+                       "AcquisitionTime", "PatientWeight",
+                       "RadiopharmaceuticalInformationSequence"):
+                v = src.get(kw) if kw != \
+                    "RadiopharmaceuticalInformationSequence" \
+                    else getattr(src, kw, None)
+                if v is not None:
+                    extra[kw] = v
+        gen = CreateDicomImage(
+            output_dir, arr,
+            series=self.series_uid if self.series_uid != "00000.00000"
+            else None,
+            frame=self.frame_ref if self.frame_ref != "00000.00000"
+            else None,
+            origin=[float(v) for v in self.origin],
+            spacing=[float(self.spacing[0]), float(self.spacing[1])],
+            thickness=float(self.spacing[2]))
+        # the array is canonical (z, y, x): slices are z-planes, so the
+        # written IOP is the pixel-axis directions (matrix rows 0 / 1)
+        gen.orientation = geo.grid_plane_tags(self.matrix, self.spacing)[0]
+        name = self.patient_name
+        gen.run(patient_name="^".join(name) if isinstance(name, list)
+                else str(name),
+                patient_id=self.mrn, modality=self.modality,
+                description=description, rescale_slope=slope,
+                rescale_intercept=intercept, extra_tags=extra)
+        return gen
+
+    # -- persistence: json + npy folders (JAX structure/image.py:1178-1295)
+    def save_image(self, path, rois=True, pois=True):
+        """``{path}/{image_name}/`` with meta.json, array.npy (one
+        download) and the ROI / POI folders."""
+        base = os.path.join(str(path), self.image_name)
+        os.makedirs(base, exist_ok=True)
+        meta = {
+            "image_name": self.image_name, "modality": self.modality,
+            "patient_name": self.patient_name, "mrn": self.mrn,
+            "birthdate": self.birthdate, "date": str(self.date),
+            "time": str(self.time), "series_uid": self.series_uid,
+            "acq_number": str(self.acq_number), "frame_ref": self.frame_ref,
+            "window": [float(w) for w in self.window], "plane": self.plane,
+            "spacing": np.asarray(self.spacing, dtype=float).tolist(),
+            "dimensions": np.asarray(self.dimensions).astype(int).tolist(),
+            "orientation": np.asarray(self.orientation,
+                                      dtype=float).tolist(),
+            "origin": np.asarray(self.origin, dtype=float).tolist(),
+            "matrix": np.asarray(self.matrix, dtype=float).tolist(),
+            "unverified": self.unverified,
+            "skipped_slice": list(self.skipped_slice or []),
+            "rgb": bool(self.rgb),
+            "sops": list(self.sops or []),
+            "filepaths": [str(f) for f in (self.filepaths or [])],
+        }
+        with open(os.path.join(base, "meta.json"), "w") as f:
+            json.dump(meta, f, indent=1)
+        if self.array is not None:
+            np.save(os.path.join(base, "array.npy"), host_array(self.array))
+        if rois:
+            self.save_rois(base)
+        if pois:
+            self.save_pois(base)
+
+    def save_rois(self, path, create_main_folder=False):
+        base = os.path.join(str(path), "rois") if not create_main_folder \
+            else os.path.join(str(path), self.image_name, "rois")
+        for name, roi in self.rois.items():
+            if roi.contour_position is None:
+                continue
+            folder = os.path.join(base, name)
+            os.makedirs(folder, exist_ok=True)
+            with open(os.path.join(folder, "roi.json"), "w") as f:
+                json.dump({"name": name, "color": list(roi.color or []),
+                           "visible": bool(roi.visible),
+                           "plane": roi.plane}, f)
+            for ii, c in enumerate(roi.contour_position):
+                np.save(os.path.join(folder, f"contour_{ii:04d}.npy"),
+                        np.asarray(c))
+
+    def save_pois(self, path, create_main_folder=False):
+        base = os.path.join(str(path), "pois") if not create_main_folder \
+            else os.path.join(str(path), self.image_name, "pois")
+        for name, poi in self.pois.items():
+            if poi.point_position is None:
+                continue
+            folder = os.path.join(base, name)
+            os.makedirs(folder, exist_ok=True)
+            with open(os.path.join(folder, "poi.json"), "w") as f:
+                json.dump({"name": name, "color": list(poi.color or []),
+                           "visible": bool(poi.visible)}, f)
+            np.save(os.path.join(folder, "point.npy"),
+                    np.asarray(poi.point_position))
+
+    def load_rois(self, roi_path):
+        """ROI folders of :meth:`save_rois`; a name that already holds
+        contours loads as ``name_2``, ``name_3``, ... (JAX's suffixes)."""
+        for entry in sorted(os.listdir(roi_path)):
+            folder = os.path.join(roi_path, entry)
+            if not os.path.isdir(folder):
+                continue
+            with open(os.path.join(folder, "roi.json")) as f:
+                meta = json.load(f)
+            name = meta["name"]
+            ii = 1
+            while name in self.rois and \
+                    self.rois[name].contour_position is not None:
+                ii += 1
+                name = f"{meta['name']}_{ii}"
+            contours = [np.load(os.path.join(folder, f))
+                        for f in sorted(os.listdir(folder))
+                        if f.startswith("contour_")]
+            self.rois[name] = Roi(self, position=contours, name=name,
+                                  color=meta.get("color"),
+                                  visible=meta.get("visible", False),
+                                  filepaths=folder,
+                                  plane=meta.get("plane"))
+        Data.match_rois()
+
+    def load_pois(self, poi_path):
+        """POI folders of :meth:`save_pois`, suffixed like ROIs."""
+        for entry in sorted(os.listdir(poi_path)):
+            folder = os.path.join(poi_path, entry)
+            if not os.path.isdir(folder):
+                continue
+            with open(os.path.join(folder, "poi.json")) as f:
+                meta = json.load(f)
+            name = meta["name"]
+            ii = 1
+            while name in self.pois and \
+                    self.pois[name].point_position is not None:
+                ii += 1
+                name = f"{meta['name']}_{ii}"
+            point = np.load(os.path.join(folder, "point.npy"))
+            self.pois[name] = Poi(self, position=point, name=name,
+                                  color=meta.get("color"),
+                                  visible=meta.get("visible", False),
+                                  filepaths=folder)
+        Data.match_pois()
+
+    @classmethod
+    def load_image(cls, image_path, rois=True, pois=True, device=None):
+        """An Image rebuilt from a :meth:`save_image` folder and
+        registered (utils/creation.image_from_saved); its compute runs on
+        ``device`` (default: the card)."""
+        from ..utils.creation import image_from_saved
+        return image_from_saved(image_path, rois=rois, pois=pois,
+                                device=device)
 
 
 def clamp_to_air(vol):

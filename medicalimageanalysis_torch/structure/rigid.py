@@ -5,19 +5,23 @@ Carried over from medicalimageanalysis_tpu/structure/rigid.py (the
 ``compute_intensity`` :321-339, ``create_image`` :548-566,
 ``pre_alignment`` :640-673, the ``retrieve_*`` queries :676-733, the
 view updates ``update_rotation`` / ``update_translation`` :771-805, the
-ROI mesh transforms ``update_rois`` / ``copy_roi`` and ``update_pois``). The
+ROI mesh transforms ``update_rois`` / ``copy_roi`` and ``update_pois``, and
+the exports: ``create_reg`` :577-637, ``export_image`` :568-575 (MHD) and
+``save_rigid`` / ``load_rigid`` :735-768). The
 matrix semantics are identical: ``matrix @ combo_matrix`` maps reference
 -> moving physical space and ``inverse`` flips the roles. The reslice
 behind the view runs on the device (``reslice_transform``: the warp
 kernel's ``affine`` mode, or with ``config.use_shear_warp`` the
-lane_interp kernel's three passes). ICP, the other registrations and the
-exports wait for later slices: each raises
-NotImplementedError naming its ROADMAP.md item.
+lane_interp kernel's three passes). ICP and the other registrations wait
+for later slices: each raises NotImplementedError naming its ROADMAP.md
+item.
 """
 
 from __future__ import annotations
 
 import copy
+import json
+import os
 from functools import partial
 
 import numpy as np
@@ -30,7 +34,7 @@ from ..ops import geometry as geo
 from ..ops.resample import reslice_transform
 from .common import waits
 
-__all__ = ["Display", "Rigid"]
+__all__ = ["Display", "Rigid", "matrix_type"]
 
 _waits = partial(waits, "Rigid")
 
@@ -171,14 +175,21 @@ class Rigid(object):
     """4x4 rigid registration between two registered images."""
 
     def __init__(self, reference_name, moving_name, rigid_name=None,
+                 roi_names=None, reference_sops=None, moving_sops=None,
                  reference_matrix=None, matrix=None, combo_matrix=None,
-                 device=None):
+                 combo_name=None, device=None):
         self.reference_name = reference_name
         self.moving_name = moving_name
+        self.combo_name = combo_name
         self.rois = dict.fromkeys(Data.roi_list)
         self.local_uid = generate_uid()
         self.device = device
 
+        self.roi_names = ["Unknown"] if roi_names is None else roi_names
+        self.slices = {"reference": ["All"], "moving": ["All"],
+                       "reference_sops": reference_sops,
+                       "moving_sops": moving_sops}
+        self.rotation_center = np.asarray([0, 0, 0])
         self.reference_matrix = np.identity(4) if reference_matrix is None \
             else reference_matrix
         self.matrix = np.identity(4) if matrix is None else matrix
@@ -458,9 +469,109 @@ class Rigid(object):
                                        "item 7, the rest of rigid")
     compute_landmarks = _waits("compute_landmarks",
                                "item 7, the rest of rigid")
-    create_reg = _waits("create_reg", "item 7, the REG builder")
     compute_icp_vtk = _waits("compute_icp_vtk", "item 9, mesh")
     compute_o3d = _waits("compute_o3d", "item 9, mesh")
-    export_image = _waits("export_image", "item 6, exports")
-    save_rigid = _waits("save_rigid", "item 6, save/load")
-    load_rigid = classmethod(_waits("load_rigid", "item 6, save/load"))
+
+    # -- export and persistence (JAX structure/rigid.py:568-637, 735-768) --
+    def export_image(self, path=None):
+        """Write ``create_image`` (the ``affine`` launch) as MHD."""
+        if self.moving_name is not None and path is not None:
+            out = self.create_image()
+            from ..read.mhd import write_mhd_volume
+            write_mhd_volume(path, out["array"], spacing=out["spacing"],
+                             origin=out["origin"])
+
+    def create_reg(self, path=None):
+        """A DICOM Spatial Registration (REG) dataset of this rigid: two
+        ReferencedSeriesSequence items (reference, moving) and a
+        RegistrationSequence of [identity, inv(matrix)] (ReadREG inverts
+        back), each typed RIGID, RIGID_SCALE or AFFINE. Returns the
+        Dataset; writes a Part-10 file when ``path`` is given."""
+        from ..dicom import Dataset, Sequence, dcmwrite, uids
+        from .common import build_reg_dataset
+
+        if self.reference_name not in Data.image \
+                or self.moving_name not in Data.image:
+            raise ValueError(
+                "create_reg: reference and moving images must both be "
+                "loaded to reference their series/SOPs")
+        ref = Data.image[self.reference_name]
+        mov = Data.image[self.moving_name]
+        ds = build_reg_dataset(uids.SpatialRegistrationStorage, ref,
+                               mov, self.rigid_name)
+
+        def reg_item(m, frame_ref):
+            mat_item = Dataset()
+            mat_item.FrameOfReferenceTransformationMatrix = [
+                float(v) for v in np.asarray(m, np.float64).reshape(-1)]
+            mat_item.FrameOfReferenceTransformationMatrixType = \
+                matrix_type(m)
+            mreg = Dataset()
+            mreg.MatrixSequence = Sequence([mat_item])
+            item = Dataset()
+            item.FrameOfReferenceUID = frame_ref
+            item.MatrixRegistrationSequence = Sequence([mreg])
+            return item
+
+        ds.RegistrationSequence = Sequence(
+            [reg_item(np.eye(4), ref.frame_ref),
+             reg_item(np.linalg.inv(np.asarray(self.matrix, np.float64)),
+                      mov.frame_ref)])
+        if path is not None:
+            dcmwrite(path, ds)
+        return ds
+
+    def save_rigid(self, path):
+        """``{path}/rigid.json``: names, matrices, inverse flag and
+        rotation center."""
+        payload = {
+            "reference_name": self.reference_name,
+            "moving_name": self.moving_name,
+            "rigid_name": self.rigid_name,
+            "combo_name": self.combo_name,
+            "roi_names": list(self.roi_names),
+            "matrix": np.asarray(self.matrix).tolist(),
+            "reference_matrix": np.asarray(self.reference_matrix).tolist(),
+            "combo_matrix": np.asarray(self.combo_matrix).tolist(),
+            "inverse": bool(self.inverse),
+            "rotation_center": np.asarray(self.rotation_center).tolist(),
+        }
+        os.makedirs(str(path), exist_ok=True)
+        with open(os.path.join(str(path), "rigid.json"), "w") as f:
+            json.dump(payload, f, indent=1)
+
+    @classmethod
+    def load_rigid(cls, path, device=None):
+        """A :meth:`save_rigid` folder back into ``Data.rigid``; its
+        reslices run on ``device`` (default: the card)."""
+        from ..device import default_device
+
+        device = default_device() if device is None else device
+        with open(os.path.join(str(path), "rigid.json")) as f:
+            payload = json.load(f)
+        rigid = cls(payload["reference_name"], payload["moving_name"],
+                    rigid_name=payload["rigid_name"],
+                    roi_names=payload["roi_names"],
+                    matrix=np.asarray(payload["matrix"]),
+                    reference_matrix=np.asarray(
+                        payload["reference_matrix"]),
+                    combo_matrix=np.asarray(payload["combo_matrix"]),
+                    combo_name=payload["combo_name"], device=device)
+        rigid.inverse = payload["inverse"]
+        rigid.rotation_center = np.asarray(payload["rotation_center"])
+        return rigid
+
+
+def matrix_type(m):
+    """PS3.3 C.20.2 typing of a 4x4 matrix: RIGID for an orthonormal
+    rotation block, RIGID_SCALE for a uniformly scaled one, else AFFINE
+    (JAX structure/rigid.py:594-608, ``_matrix_type``)."""
+    R = np.asarray(m, np.float64)[:3, :3]
+    RtR = R.T @ R
+    if np.allclose(RtR, np.eye(3), atol=1e-5):
+        return "RIGID"
+    d = np.diag(RtR)
+    if np.allclose(RtR, np.diag(d), atol=1e-5) \
+            and np.allclose(d, d[0], atol=1e-5):
+        return "RIGID_SCALE"
+    return "AFFINE"

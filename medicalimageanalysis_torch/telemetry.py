@@ -42,7 +42,11 @@ class IngestReport:
     failed_series: list = field(default_factory=list)
     images_created: list = field(default_factory=list)
     doses_created: list = field(default_factory=list)
+    plans_created: list = field(default_factory=list)
+    rigid_created: list = field(default_factory=list)
+    deformable_created: list = field(default_factory=list)
     unmatched_rtstructs: list = field(default_factory=list)
+    unmatched_segs: list = field(default_factory=list)
     unverified: dict = field(default_factory=dict)
     skipped_slices: dict = field(default_factory=dict)
     warnings: list = field(default_factory=list)
@@ -60,7 +64,11 @@ class IngestReport:
             "failed_series": len(self.failed_series),
             "images": list(self.images_created),
             "doses": list(self.doses_created),
+            "plans": list(self.plans_created),
+            "rigid": list(self.rigid_created),
+            "deformable": list(self.deformable_created),
             "unmatched_rtstructs": len(self.unmatched_rtstructs),
+            "unmatched_segs": len(self.unmatched_segs),
             "unverified": dict(self.unverified),
             "warnings": len(self.warnings),
             "elapsed_s": round(self.elapsed_s, 4),

@@ -4,13 +4,15 @@ Carried over from medicalimageanalysis_tpu/utils/creation.py
 (``CreateDicomImage``, ``CreateImageFromMask``), on top of the port's
 copy of the DICOM object model and writer (``dicom``). Writes test and
 smoke fixtures and registers computed volumes as Images;
-``image_from_saved`` waits for the save/load slice.
+``image_from_saved`` rebuilds an Image from an ``Image.save_image``
+folder.
 """
 
 from __future__ import annotations
 
 import copy
 import datetime
+import json
 import os
 
 import numpy as np
@@ -20,7 +22,7 @@ from ..dicom import Dataset, FileMetaDataset, dcmwrite, generate_uid, uids
 from ..dicom.dictionary import keyword_to_tag
 from ..ops import geometry as geo
 
-__all__ = ["CreateDicomImage", "CreateImageFromMask"]
+__all__ = ["CreateDicomImage", "CreateImageFromMask", "image_from_saved"]
 
 
 class CreateDicomImage(object):
@@ -299,3 +301,37 @@ class CreateImageFromMask(object):
         matrix = copy.deepcopy(self.image_matrix)
         m = geo.pixel_to_position_matrix(matrix, self.spacing, self.origin)
         return geo.apply_homogeneous([0, 0, z], m)
+
+
+def image_from_saved(image_path, rois=True, pois=True, device=None):
+    """Rebuild and register an Image from an ``Image.save_image`` folder
+    (JAX utils/creation.py:303-327), under its saved name. The image's
+    compute runs on ``device`` (default: the card; without one, and
+    without ``device='cpu'``, this raises first)."""
+    from ..device import default_device
+
+    device = default_device() if device is None else device
+    base = str(image_path)
+    with open(os.path.join(base, "meta.json")) as f:
+        meta = json.load(f)
+    array_path = os.path.join(base, "array.npy")
+    array = np.load(array_path) if os.path.exists(array_path) else None
+
+    builder = CreateImageFromMask(
+        array=array if array is not None else np.zeros((1, 1, 1), np.int16),
+        origin=np.asarray(meta["origin"]), spacing=np.asarray(meta["spacing"]),
+        image_name=meta["image_name"],
+        dimensions=np.asarray(meta["dimensions"]),
+        orientation=np.asarray(meta["orientation"]), plane=meta["plane"],
+        modality=meta["modality"])
+    builder.array = array
+    builder.unverified = meta.get("unverified")
+    builder.skipped_slice = meta.get("skipped_slice")
+    builder.device = device
+    builder.add_image()
+    image = Data.image[meta["image_name"]]
+    if rois and os.path.isdir(os.path.join(base, "rois")):
+        image.load_rois(os.path.join(base, "rois"))
+    if pois and os.path.isdir(os.path.join(base, "pois")):
+        image.load_pois(os.path.join(base, "pois"))
+    return image

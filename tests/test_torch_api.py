@@ -39,7 +39,7 @@ def torch_env():
 CLASSES = [("structure.image", "Image"), ("structure.rigid", "Rigid"),
            ("structure.deformable", "Deformable"), ("structure.dose", "Dose"),
            ("structure.roi", "Roi"), ("structure.poi", "Poi"),
-           ("data", "Data")]
+           ("structure.plan", "Plan"), ("data", "Data")]
 # the names the JAX package's top level serves (its __getattr__), besides
 # its utils re-exports
 TOP_LEVEL = ("read_dicoms", "read_3mf", "read_mhd", "read_stl", "read_vtk",
@@ -90,12 +90,9 @@ def test_every_public_name_exists_and_stubs_name_their_item(module, name):
             fn(None)
 
 
-# the image-analysis slice's names: real callables now, no stand-ins
+# the names of the image-analysis and IO slices: real callables now, no
+# stand-ins
 PORTED = {
-    ("structure.image", "Image"): (
-        "resample_to", "compute_suv", "compute_projection",
-        "create_rotated_volume", "create_rotated_sitk_image",
-        "correct_bias", "compute_radiomics", "compute_mtv_tlg"),
     ("structure.deformable", "Deformable"): (
         "compute_aspect", "retrieve_array_plane", "retrieve_grid",
         "retrieve_offset", "retrieve_scroll_max", "retrieve_slice_location",
@@ -104,7 +101,37 @@ PORTED = {
                       "find_phase_groups", "combine_phases", "compute_itv"),
     ("parallel.batch", None): ("demons_batch", "radiomics_batch",
                                "n4_batch"),
+    # the IO slice's names
+    ("structure.image", "Image"): (
+        "resample_to", "compute_suv", "compute_projection",
+        "create_rotated_volume", "create_rotated_sitk_image",
+        "correct_bias", "compute_radiomics", "compute_mtv_tlg",
+        "input_seg", "input_mhd", "create_rtstruct", "create_seg",
+        "create_nifti", "export_dicom", "save_image", "save_rois",
+        "save_pois", "load_rois", "load_pois", "load_image"),
+    ("structure.rigid", "Rigid"): ("create_reg", "export_image",
+                                   "save_rigid", "load_rigid"),
+    ("structure.dose", "Dose"): ("create_rtdose", "save_image",
+                                 "load_image"),
+    ("structure.plan", "Plan"): ("linked_dose_names", "total_beam_meterset",
+                                 "summary", "create_rtplan", "save_plan",
+                                 "load_plan"),
+    ("structure.plan", None): ("load_plan",),
+    ("structure.common", None): ("rebuild_dataset_from_meta",
+                                 "collision_suffix", "build_reg_dataset",
+                                 "series_item"),
+    ("read.reg", None): ("ReadREG",),
+    ("read.rtplan", None): ("ReadRTPlan",),
+    ("read.seg", None): ("ReadSEG", "cielab_uint16_to_rgb",
+                         "rgb_to_cielab_uint16"),
+    ("read.nifti", None): ("read_nifti_volume", "write_nifti_volume",
+                           "NiftiReader", "read_nifti"),
+    ("read.mhd", None): ("read_mhd_volume", "write_mhd_volume",
+                         "MhdReader"),
+    ("reader", None): ("check_memory", "read_mhd", "read_nifti"),
+    ("utils.creation", None): ("image_from_saved",),
 }
+PORTED_TOP_LEVEL = ("read_mhd", "MhdReader", "read_nifti", "check_memory")
 
 
 @pytest.mark.parametrize("module,cls", sorted(PORTED, key=str),
@@ -120,6 +147,13 @@ def test_ported_names_are_not_stand_ins(module, cls):
     if cls == "Deformable":
         d = owner(device="cpu")
         assert d.display.deformable is d
+
+
+@pytest.mark.parametrize("name", PORTED_TOP_LEVEL)
+def test_ported_top_level_names_are_not_stand_ins(name):
+    assert name not in tmia._WAITING
+    assert stub_item(getattr(tmia, name)) is None
+    assert getattr(tmia, name) is not getattr(jmia, name)
 
 
 def test_data_plan_registries_start_empty_and_clear():
