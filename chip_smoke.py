@@ -81,7 +81,21 @@ path
         the load_* methods
 
 at full size, every object read back held on the card against what was
-written. Each phase
+written, then the rest of ingest
+
+    read_dicoms of one folder: the reference CT as one enhanced
+        multi-frame file, an NM RECON TOMO, NM planar and whole-body, a US
+        cine, DX, CR, MG, RF and XA;  ops.bitpack.pack12 / unpack12_device
+
+and the rest of registration
+
+    Rigid.compute_phase_correlation / auto_register / compute_landmarks
+        / compute_icp_vtk / compute_o3d -> Deformable.compute_tps ->
+        utils.DeformableJAX.elastix (the default map and a staged
+        Euler + B-spline map) -> Deformable.compute_demons(roi_names=
+        ["Body"])
+
+at full size. Each phase
 prints one JSON line; any failure raises and exits non-zero. Near the end it
 prints the card's name and power limit (nvidia-smi) and a JSON line with
 every kernel's launches, error, times, bound and ms lost; the last line is
@@ -229,6 +243,36 @@ DEMONS_BATCH_ITERATIONS = 50
 DISPLAY_DIVISION = 4
 IO_FRACTIONS = 30                # the io phase's RTPLAN: fractions and
 IO_BEAMS = (("CW Arc", 181.0, 250.0), ("CCW Arc", 179.0, 230.0))  # beams
+# ingest_rest: the NM, US and projection objects at clinical sizes
+NM_TOMO_SHAPE = (128, 128, 128)  # one detector, SpacingBetweenSlices < 0
+NM_PITCH_MM = 4.42
+NM_DETECTOR_IPP = (-282.88, -282.88, 200.0)
+NM_STATIC_SHAPE = (256, 256)
+NM_WHOLE_BODY_SHAPE = (1024, 256)
+US_SHAPE = (60, 480, 640)        # a grayscale cine
+DX_SHAPE = (2048, 2048)
+CR_SHAPE = (2500, 2048)
+MG_SHAPE = (3328, 2560)
+RF_SHAPE = (30, 1024, 1024)
+XA_SHAPE = (30, 512, 512)
+# registration_rest: the known motions and the landmark counts
+PC_SHIFT_MM = (12.4, -20.8, 6.0)
+PC_LIMIT_MM = 0.5
+AUTO_POSE = (0.0, 0.0, 3.0, 32.0, -24.0, 0.0)   # deg about x, y, z; mm
+LANDMARKS_N = 8
+TPS_N = 30
+ICP_MAX_POINTS = 100_000
+ICP_MOTION = (2.0, 3.0)          # deg about an oblique axis, mm
+ICP_O3D_ITERATIONS = 200
+ELASTIX_RATIO_LIMIT = 0.5        # elastix: residual ratio in the body
+ELASTIX_P95_LIMIT_MM = 1.0       # ... and the field's p95 error
+ELASTIX_STAGES = [
+    {"Transform": ["EulerTransform"], "Metric": ["AdvancedMeanSquares"],
+     "NumberOfResolutions": ["3"], "MaximumNumberOfIterations": ["120"]},
+    {"Transform": ["BSplineTransform"], "Metric": ["AdvancedMeanSquares"],
+     "NumberOfResolutions": ["2"],
+     "FinalGridSpacingInPhysicalUnits": ["20"],
+     "MaximumNumberOfIterations": ["100"]}]
 ROTATE_DEG = (0.0, 0.0, 10.0)
 PROJECTION_DEG = (0.0, 0.0, 15.0)
 # the card's published peaks (H100 SXM at 700 W): the bound of a kernel
@@ -1864,8 +1908,9 @@ def device_goal(metric, unit, d, voxel_cc):
 
 def mask_roi(img, name, mask):
     """Hold ``mask`` as a mask-only ROI of ``img``, served from the
-    image's mask cache (Roi.convert_mask, which would trace contours from
-    it, waits for ROADMAP.md queue 1, item 6)."""
+    image's mask cache: the plan-QA goals read the mask as it is, without
+    the contour round trip of Roi.convert_mask (ported, and driven by the
+    ROI mesh path)."""
     img.add_roi(roi_name=name)
     img._roi_mask_cache_put(name, img.rois[name], mask)
 
@@ -4229,6 +4274,720 @@ def phase_io(folder, names, img_name, dose_name, rigid, dev):
                 warp_rows=warp_rows, profile=profile)
 
 
+# ---------------------------------------------------------------------------
+# ingest_rest: every modality the JAX package reads, in one folder
+def planar_dataset(modality, arr, bits_stored=16, frames=None, **tags):
+    """A planar (or NM) dataset of ``arr`` with the port's DICOM classes:
+    uint8 pixels as 8-bit MONOCHROME2, anything else as uint16."""
+    from medicalimageanalysis_torch.dicom import Dataset, generate_uid, uids
+
+    ds = Dataset()
+    ds.SOPClassUID = uids.MODALITY_SOP_CLASS[modality]
+    ds.SOPInstanceUID = generate_uid()
+    ds.Modality = modality
+    ds.PatientID = "SMOKE"
+    ds.SeriesInstanceUID = generate_uid()
+    ds.FrameOfReferenceUID = generate_uid()
+    if frames is not None:
+        ds.NumberOfFrames = frames
+    ds.Rows, ds.Columns = arr.shape[-2], arr.shape[-1]
+    eight = arr.dtype == np.uint8
+    ds.BitsAllocated = 8 if eight else 16
+    ds.BitsStored = 8 if eight else bits_stored
+    ds.HighBit = ds.BitsStored - 1
+    ds.PixelRepresentation = 0
+    ds.SamplesPerPixel = 1
+    ds.PhotometricInterpretation = "MONOCHROME2"
+    for key, value in tags.items():
+        setattr(ds, key, value)
+    ds.PixelData = arr.tobytes() if eight else arr.astype("<u2").tobytes()
+    return ds
+
+
+def enhanced_ct_dataset(img):
+    """The reference CT as one enhanced multi-frame file: per-frame
+    PlanePositionSequence, shared orientation, pixel measures and rescale
+    (stored = HU + 1024, 12 bits)."""
+    from medicalimageanalysis_torch.dicom import Dataset, Sequence
+    from medicalimageanalysis_torch.dicom import generate_uid, uids
+
+    arr = np.asarray(img.array)
+    ds = planar_dataset("CT", (arr.astype(np.int32) + 1024).astype(
+        np.uint16), bits_stored=12, frames=arr.shape[0])
+    ds.SOPClassUID = uids.CTImageStorage
+    ds.SeriesInstanceUID = generate_uid()
+    ds.ImageType = ["ORIGINAL", "PRIMARY", "AXIAL"]
+    ds.SliceThickness = float(img.spacing[2])
+
+    def item(**kw):
+        d = Dataset()
+        for k, v in kw.items():
+            setattr(d, k, v)
+        return Sequence([d])
+
+    shared = Dataset()
+    shared.PlaneOrientationSequence = item(ImageOrientationPatient=[
+        float(v) for v in np.concatenate([img.matrix[0], img.matrix[1]])])
+    shared.PixelMeasuresSequence = item(
+        PixelSpacing=[float(img.spacing[1]), float(img.spacing[0])],
+        SliceThickness=float(img.spacing[2]))
+    shared.PixelValueTransformationSequence = item(
+        RescaleSlope=1.0, RescaleIntercept=-1024.0)
+    ds.SharedFunctionalGroupsSequence = Sequence([shared])
+    frames = []
+    for k in range(arr.shape[0]):
+        fg = Dataset()
+        fg.PlanePositionSequence = item(ImagePositionPatient=[
+            float(v) for v in np.asarray(img.origin)
+            + k * img.spacing[2] * np.asarray(img.matrix[2])])
+        frames.append(fg)
+    ds.PerFrameFunctionalGroupsSequence = Sequence(frames)
+    return ds
+
+
+def ingest_rest_objects(gen):
+    """(file name, dataset, written pixels, reader's expected array) for
+    the NM, US and projection objects at clinical sizes; pixels from
+    ``gen`` (a CPU torch generator)."""
+    from medicalimageanalysis_torch.dicom import Dataset, Sequence
+
+    def pixels(shape, hi, dtype):
+        return torch.randint(0, hi, shape, generator=gen).numpy().astype(
+            dtype)
+
+    out = []
+    # NM RECON TOMO: one detector, negative pitch (frames walk -z)
+    tomo = pixels(NM_TOMO_SHAPE, 60000, np.uint16)
+    ds = planar_dataset("NM", tomo, frames=NM_TOMO_SHAPE[0],
+                        ImageType=["DERIVED", "SECONDARY", "RECON TOMO",
+                                   "EMISSION"],
+                        PatientPosition="HFS",
+                        PixelSpacing=[NM_PITCH_MM, NM_PITCH_MM],
+                        SliceThickness=NM_PITCH_MM,
+                        SpacingBetweenSlices=-NM_PITCH_MM,
+                        NumberOfDetectors=1,
+                        NumberOfSlices=NM_TOMO_SHAPE[0])
+    det = Dataset()
+    det.ImageOrientationPatient = [1.0, 0.0, 0.0, 0.0, 1.0, 0.0]
+    det.ImagePositionPatient = list(NM_DETECTOR_IPP)
+    ds.DetectorInformationSequence = Sequence([det])
+    out.append(("nm_tomo.dcm", ds, tomo, tomo[::-1].astype(np.float32)))
+    # NM planar static (detector spacing) and whole body
+    static = pixels((1,) + NM_STATIC_SHAPE, 60000, np.uint16)
+    ds = planar_dataset("NM", static, frames=1,
+                        ImageType=["ORIGINAL", "PRIMARY", "STATIC",
+                                   "EMISSION"])
+    det = Dataset()
+    det.PixelSpacing = [2.4, 2.4]
+    ds.DetectorInformationSequence = Sequence([det])
+    out.append(("nm_static.dcm", ds, static, static.astype(np.int32)))
+    wb = pixels((1,) + NM_WHOLE_BODY_SHAPE, 60000, np.uint16)
+    ds = planar_dataset("NM", wb, frames=1, PixelSpacing=[2.4, 2.4],
+                        ImageType=["ORIGINAL", "PRIMARY", "WHOLE BODY",
+                                   "EMISSION"])
+    out.append(("nm_whole_body.dcm", ds, wb, wb.astype(np.int32)))
+    # US grayscale cine
+    us = pixels(US_SHAPE, 256, np.uint8)
+    ds = planar_dataset("US", us, frames=US_SHAPE[0])
+    out.append(("us_cine.dcm", ds, us, us))
+    # DX (12 bits, axial), CR (sagittal: the reader flips the rows),
+    # MG (12 bits, "Inverse": pivots about 4095)
+    dx = pixels(DX_SHAPE, 4096, np.uint16)
+    ds = planar_dataset("DX", dx, bits_stored=12,
+                        ImagerPixelSpacing=[0.139, 0.139])
+    out.append(("dx.dcm", ds, dx, dx.astype(np.int16)[None]))
+    cr = pixels(CR_SHAPE, 1024, np.uint16)
+    ds = planar_dataset("CR", cr, bits_stored=10, PixelSpacing=[0.1, 0.1],
+                        PatientOrientation=["P", "F"])
+    out.append(("cr.dcm", ds, cr, np.flip(cr.astype(np.int16)[:, :, None],
+                                          axis=0)))
+    mg = pixels(MG_SHAPE, 4096, np.uint16)
+    ds = planar_dataset("MG", mg, bits_stored=12,
+                        ImagerPixelSpacing=[0.07, 0.07],
+                        PresentationLUTShape="Inverse")
+    out.append(("mg.dcm", ds, mg, (4095 - mg.astype(np.int16))[None]))
+    # RF and XA cines
+    rf = pixels(RF_SHAPE, 4096, np.uint16)
+    ds = planar_dataset("RF", rf, bits_stored=12, frames=RF_SHAPE[0],
+                        ImagerPixelSpacing=[0.3, 0.3])
+    out.append(("rf_cine.dcm", ds, rf, rf.astype(np.int16)))
+    xa = pixels(XA_SHAPE, 1024, np.uint16)
+    ds = planar_dataset("XA", xa, bits_stored=10, frames=XA_SHAPE[0],
+                        ImagerPixelSpacing=[0.2, 0.2])
+    out.append(("xa_cine.dcm", ds, xa, xa.astype(np.int16)))
+    return out
+
+
+@contextlib.contextmanager
+def timing_readers(rows):
+    """Within the block, DicomReader._build_series records the ms of each
+    reader class it calls in ``rows`` (class name -> list of ms)."""
+    from medicalimageanalysis_torch.read.dicom import DicomReader
+
+    build = DicomReader._build_series
+
+    def timed(self, reader_cls, image_set, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return build(self, reader_cls, image_set, *args, **kwargs)
+        finally:
+            rows.setdefault(reader_cls.__name__, []).append(
+                1e3 * (time.perf_counter() - t0))
+
+    DicomReader._build_series = timed
+    try:
+        yield rows
+    finally:
+        DicomReader._build_series = build
+
+
+def phase_ingest_rest(folder, names, gen, dev):
+    """The rest of ingest at clinical sizes: the reference CT written as
+    one enhanced multi-frame file, an NM RECON TOMO, an NM planar static
+    and whole-body, a US cine, DX, CR, MG, RF and XA, all written with
+    the port's DICOM writer into one folder and read by one read_dicoms
+    on the card into a cleared registry (restored after). Each object is
+    held against the pixels written, after the reader's flips, casts and
+    inverse pivot; the enhanced CT against the single-frame series the
+    ingest phase read; the tomo's geometry against its detector vectors.
+    Then pack12 on the host and unpack12_device on the card over the
+    128 x 512 x 512 CT, bit-equal."""
+    import medicalimageanalysis_torch as mia
+    from medicalimageanalysis_torch.data import Data
+    from medicalimageanalysis_torch.dicom import dcmread, dcmwrite
+    from medicalimageanalysis_torch.ops.bitpack import pack12, unpack12_device
+
+    ref = Data.image[names["ref"]]
+    ct_array = np.asarray(ref.array)
+    root = os.path.join(folder, "ingest_rest")
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    objects = ingest_rest_objects(gen)
+    enhanced = enhanced_ct_dataset(ref)
+    dcmwrite(os.path.join(root, "ct_enhanced.dcm"), enhanced)
+    for fname, ds, _, _ in objects:
+        dcmwrite(os.path.join(root, fname), ds)
+    write_s = time.perf_counter() - t0
+    written_mb = path_bytes(root) / 1e6
+    enhanced_uid = enhanced.SeriesInstanceUID
+    del enhanced
+    # the multi-frame file's decode alone (host), as the read pays it once
+    parsed = dcmread(os.path.join(root, "ct_enhanced.dcm"))
+    t0 = time.perf_counter()
+    frames = parsed.pixel_array
+    decode_ms = 1e3 * (time.perf_counter() - t0)
+    assert frames.shape == ct_array.shape, frames.shape
+    del parsed, frames
+
+    registry = registry_state()
+    readers = {}
+    try:
+        Data.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with timing_readers(readers):
+            report = mia.read_dicoms(folder_path=root, device=dev).report
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        assert not report.failed_series and not report.failed_files, \
+            report.summary()
+        images = {}
+        for n in Data.image_list:
+            fp = Data.image[n].filepaths
+            images[os.path.basename(fp if isinstance(fp, str)
+                                    else fp[0])] = n
+        # one image per object, named "{modality} {NN}" in read order
+        assert len(Data.image_list) == 1 + len(objects), Data.image_list
+        assert sorted(int(n.split()[1]) for n in Data.image_list) \
+            == list(range(1, len(objects) + 2)), Data.image_list
+        ct = Data.image[images["ct_enhanced.dcm"]]
+        assert ct.series_uid == enhanced_uid
+        assert ct.modality == "CT" and ct.array.dtype == np.int16
+        assert np.array_equal(ct.array, ct_array), \
+            "enhanced CT != single-frame series"
+        for attr in ("origin", "spacing", "matrix"):
+            assert np.array_equal(np.asarray(getattr(ct, attr), np.float64),
+                                  np.asarray(getattr(ref, attr),
+                                             np.float64)), attr
+        assert len(ct.sops) == ct_array.shape[0]
+        checked = {}
+        for fname, ds, written, expected in objects:
+            name = images[fname]
+            img = Data.image[name]
+            assert img.modality == ds.Modality, (fname, name)
+            assert img.array.dtype == expected.dtype, (fname, img.array.dtype)
+            assert np.array_equal(img.array, expected), fname
+            checked[fname] = dict(name=name, shape=list(img.array.shape),
+                                  dtype=str(img.array.dtype),
+                                  spacing=[float(v) for v in img.spacing],
+                                  plane=img.plane)
+        # the tomo's geometry: the detector's axes, |pitch| spacing, slice
+        # k at the detector walk's frame (frames reversed: pitch < 0)
+        tomo = Data.image[checked["nm_tomo.dcm"]["name"]]
+        n = NM_TOMO_SHAPE[0]
+        assert np.array_equal(np.asarray(tomo.matrix, np.float64), np.eye(3))
+        assert np.allclose(tomo.spacing, NM_PITCH_MM, rtol=1e-12)
+        walk = np.asarray(NM_DETECTOR_IPP) + np.arange(n)[:, None] \
+            * -NM_PITCH_MM * np.array([0.0, 0.0, 1.0])
+        slices = np.asarray(tomo.origin) + np.arange(n)[:, None] \
+            * tomo.spacing[2] * np.asarray(tomo.matrix[2])
+        tomo_err = float(np.abs(slices - walk[::-1]).max())
+        assert tomo_err < 1e-9, tomo_err
+        reader_ms = {k: [round(v, 3) for v in ms]
+                     for k, ms in readers.items()}
+    finally:
+        set_registry(registry)
+
+    # 12-bit packing of the CT: pack on the host, unpack on the card
+    t0 = time.perf_counter()
+    words, lo, tail = pack12(ct_array)
+    pack_ms = 1e3 * (time.perf_counter() - t0)
+    wd = torch.from_numpy(words.view(np.int32)).to(dev)
+    ct_dev = torch.as_tensor(ct_array, device=dev)
+    out = unpack12_device(wd, lo, tail, dtype=torch.int16)
+    assert out.dtype == torch.int16 and torch.equal(out, ct_dev), \
+        "unpack12_device != the CT"
+    f32 = unpack12_device(wd, lo, tail)
+    assert torch.equal(f32, ct_dev.to(torch.float32))
+    unpack_ms = cuda_ms(lambda: unpack12_device(wd, lo, tail,
+                                                dtype=torch.int16))
+    moved = words.nbytes + ct_array.nbytes
+    del wd, ct_dev, out, f32
+    emit("ingest_rest", seconds_read_dicoms=read_s, write_seconds=write_s,
+         written_mb=written_mb, objects=len(objects) + 1,
+         reader_ms=reader_ms, enhanced_ct=dict(
+             frames=int(ct_array.shape[0]), equal_to_series=True,
+             decode_ms=decode_ms),
+         checked=checked, nm_tomo_geometry_err_mm=tomo_err,
+         bitpack=dict(pack_ms=pack_ms, words_mb=words.nbytes / 1e6,
+                      unpack_device_ms=unpack_ms,
+                      unpack_gb_per_s=moved / unpack_ms / 1e6,
+                      bound_ms=bound(moved, 0)[0], bit_equal=True))
+
+
+# ---------------------------------------------------------------------------
+# registration_rest: every Rigid and Deformable registration entry point
+def bump_at(points):
+    """known_bump()'s Gaussian at (N, 3) physical points (x, y, z mm)."""
+    centre = [REF_ORIGIN[k] + (c + 1) / 2 * (n - 1) * s for k, (c, n, s)
+              in enumerate(zip((0.02, 0.05, 0.0), SHAPE[::-1], SPACING))]
+    r2 = np.sum((np.asarray(points) - np.asarray(centre)) ** 2, axis=1)
+    return np.exp(-r2 / (2 * BUMP_SIGMA_MM ** 2))
+
+
+def body_points(gen, n, ref, margin_mm=40.0):
+    """``n`` points (x, y, z mm) drawn in the phantom's body ellipsoid,
+    ``margin_mm`` inside its half-axes, from ``gen``."""
+    c = np.asarray(ref.compute_center(), np.float64)
+    half = np.array([SHAPE[2] * SPACING[0], SHAPE[1] * SPACING[1],
+                     SHAPE[0] * SPACING[2]]) / 2 * np.array([0.7, 0.6, 0.8])
+    half = np.maximum(half - margin_mm, 5.0)
+    u = torch.rand((4 * n, 3), generator=gen, dtype=torch.float64).numpy()
+    p = (2 * u - 1)
+    p = p[np.sum(p * p, axis=1) <= 1.0][:n]
+    assert len(p) == n
+    return c + p * half
+
+
+def icp_mesh(image, name, limit):
+    """``image``'s ROI ``name`` as a mesh of at most ``limit`` vertices:
+    its mesh (made by create_mesh when it has none), decimated by
+    Roi.create_decimate_mesh when larger."""
+    roi = image.rois[name]
+    if roi.mesh is None:
+        roi.create_mesh()
+    n = roi.mesh.points.shape[0]
+    if n <= limit:
+        return roi.mesh, n
+    return roi.create_decimate_mesh(percent=1.0 - 0.9 * limit / n), n
+
+
+def icp_run(rigid, entry, source, target, truth, **kw):
+    """One Rigid mesh-ICP entry point under the profiler: the vertex RMS
+    against the known motion, the iterations and the ms a step."""
+    from medicalimageanalysis_torch.utils.mesh.trimesh import TriMesh
+
+    p = profile_device(lambda: getattr(rigid, entry)(
+        TriMesh(source.points.copy(), source.faces.copy()),
+        TriMesh(target.points.copy(), target.faces.copy()), **kw))
+    check_profile(f"icp_{entry}", p)
+    M = np.asarray(rigid.matrix, np.float64)
+    pts = np.asarray(source.points, np.float64)
+    got = pts @ M[:3, :3].T + M[:3, 3]
+    want = pts @ truth[:3, :3].T + truth[:3, 3]
+    rms = float(np.sqrt(np.mean(np.sum((got - want) ** 2, axis=1))))
+    info = rigid.misc["icp_info"]
+    it = int(info["iterations"])
+    return dict(vertex_rms_mm=rms, iterations=it,
+                ms=p["profiled_wall_ms"], ms_per_iteration=(
+                    p["profiled_wall_ms"] / max(it, 1)),
+                device_ms=p["device_ms"], device_share=p["device_share"],
+                device_events=p["device_events"],
+                mean_distance=float(info["mean_distance"]),
+                landmarks=info.get("landmarks"),
+                fitness=info.get("fitness"))
+
+
+def elastix_rows(info):
+    """ms per level and per iteration of an elastix_registration info."""
+    return dict(level_shapes=info["level_shapes"],
+                control_grids=info["control_grids"], steps=info["steps"],
+                ms_per_level=[1e3 * s for s in info["level_seconds"]],
+                ms_per_iteration=[1e3 * s / info["steps"]
+                                  for s in info["level_seconds"]])
+
+
+def phase_registration_rest(names, img_name, gen, dev):
+    """The rest of registration at full size, every entry point a user
+    calls, on the rigid pair's reference and the deformed series:
+    phase correlation (Rigid.compute_phase_correlation) on a copy shifted
+    by PC_SHIFT_MM; auto_register on the reference at AUTO_POSE (40 mm
+    and 3°; compute_intensity alone runs beside it, printed);
+    compute_landmarks over 8 POIs at that pose; compute_tps over 30 POIs
+    on the bump pair, then create_image; compute_icp_vtk / compute_o3d
+    (point, plane) on the dose-QA study's left lung (decimated to
+    ICP_MAX_POINTS vertices) and heart, each moved by ICP_MOTION;
+    elastix, the default map (Mattes MI) on the bump pair and a staged
+    Euler + B-spline map on the AUTO_POSE pair; compute_demons masked by
+    an external "Body" on both images. The registry and the images' ROIs
+    and POIs are restored after. Returns the window's launches and
+    shapes, the warp kernels' rows on the path's own tensors."""
+    import medicalimageanalysis_torch as mia
+    from scipy.spatial import Delaunay
+    from scipy.spatial.transform import Rotation
+
+    from medicalimageanalysis_torch import interop
+    from medicalimageanalysis_torch.data import Data
+    from medicalimageanalysis_torch.ops.registration.bspline import (
+        elastix_registration)
+    from medicalimageanalysis_torch.ops.registration.dvf import (
+        invert_dvf, warp_volume)
+    from medicalimageanalysis_torch.ops.registration.phase_correlation \
+        import _phase_correlate_core
+    from medicalimageanalysis_torch.ops.registration.tps import (
+        tps_displacement_grid, tps_fit)
+    from medicalimageanalysis_torch.ops.resample import (
+        affine_resample, compose_pixel_matrix)
+    from medicalimageanalysis_torch.ops.volume import stored_to_float
+    from medicalimageanalysis_torch.parallel.batch import rasterize_batch
+    from medicalimageanalysis_torch.utils.deformable.torch_backend import (
+        DeformableTorch)
+
+    t_phase = time.perf_counter()
+    registry = {k: (dict(v) if isinstance(v, dict) else list(v))
+                for k, v in registry_state().items()}
+    ref, deformed = Data.image[names["ref"]], Data.image[names["deformed"]]
+    saved_pois = {n: dict(Data.image[n].pois)
+                  for n in (names["ref"], names["deformed"])}
+    saved_body = {n: Data.image[n].rois.pop("Body", None)
+                  for n in (names["ref"], names["deformed"])}
+    fixed = ref.array.astype(np.float32)
+    moving_bump = deformed.array.astype(np.float32)
+    body = fixed > -900.0
+    sp = np.asarray(ref.spacing, np.float64)
+    g = known_bump()
+
+    def timed(fn):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    def field_error(point_field):
+        """|d - u| (mm) in the body, u the known bump: median, p95."""
+        d = torch.as_tensor(point_field, device=dev)
+        gt = torch.as_tensor(g, device=dev) * BUMP_MM
+        err = torch.sqrt((d[..., 0] - gt) ** 2 + (d[..., 1] - gt) ** 2
+                         + d[..., 2] ** 2)[torch.as_tensor(body, device=dev)]
+        return [float(v) for v in np.percentile(err.cpu().numpy(),
+                                                [50, 95])]
+
+    out = {}
+    try:
+        # -- phase correlation: a copy whose origin moved by PC_SHIFT_MM
+        shift = np.asarray(PC_SHIFT_MM)
+        interop.image_from_arrays(ref.array, ref.spacing,
+                                  np.asarray(ref.origin) + shift, ref.matrix,
+                                  "CT", "PC shifted")
+        rigid_pc = mia.Rigid(names["ref"], "PC shifted", device=dev)
+        info, pc_ms = timed(rigid_pc.compute_phase_correlation)
+        pc_err = float(np.abs(rigid_pc.matrix[:3, 3] - shift).max())
+        assert pc_err <= PC_LIMIT_MM and np.allclose(
+            rigid_pc.matrix[:3, :3], np.eye(3)), (pc_err, info)
+        with uncounted():
+            vol = stored_to_float(np.asarray(ref.array), dev)
+            A = compose_pixel_matrix(ref.matrix, ref.spacing,
+                                     np.asarray(ref.origin) + shift,
+                                     ref.matrix, ref.spacing, ref.origin)
+            bg = float(vol.mean(dtype=torch.float64))
+            resliced = affine_resample(vol, A, SHAPE, background=bg)
+            reslice_ms = cuda_ms(lambda: affine_resample(
+                vol, A, SHAPE, background=bg), reps=3, warmup=1)
+            fft_ms = cuda_ms(lambda: _phase_correlate_core(
+                vol, resliced, True, 6), reps=3, warmup=1)
+            del vol, resliced
+        out["phase_correlation"] = dict(
+            shift_mm=list(shift), recovered_mm=list(info["shift_mm"]),
+            err_mm=pc_err, limit_mm=PC_LIMIT_MM, response=info["response"],
+            ms=pc_ms, reslice_ms=reslice_ms, ffts_ms=fft_ms)
+
+        # -- auto_register at a pose beyond the descent's capture range
+        ref_vol = torch.as_tensor(ref.array, device=dev).to(torch.float32)
+        with uncounted():
+            arr, known = known_pose_volume(ref_vol, ref,
+                                           np.asarray(AUTO_POSE), dev)
+        del ref_vol
+        interop.image_from_arrays(arr, ref.spacing, ref.origin, ref.matrix,
+                                  "CT", "auto pose")
+        rigid_auto = mia.Rigid(names["ref"], "auto pose", device=dev)
+        info, auto_ms = timed(rigid_auto.auto_register)
+        c_err, k_err, a_err = registration_error(rigid_auto.matrix, ref,
+                                                 known)
+        stages = rigid_auto.misc["auto_register"]
+        plain = mia.Rigid(names["ref"], "auto pose", device=dev)
+        plain.compute_intensity()
+        p_err = registration_error(plain.matrix, ref, known)
+        out["auto_register"] = dict(
+            pose=list(AUTO_POSE), ms=auto_ms,
+            stage_ms={k: 1e3 * v for k, v in stages["seconds"].items()},
+            phase_correlation=stages["phase_correlation"],
+            center_err_mm=c_err, corner_err_mm=k_err, angle_err_deg=a_err,
+            limit_mm=0.5, limit_deg=0.3,
+            compute_intensity_alone=dict(center_err_mm=p_err[0],
+                                         angle_err_deg=p_err[2]))
+        assert c_err <= 0.5 and a_err <= 0.3, out["auto_register"]
+
+        # -- compute_landmarks: 8 POIs at the known pose
+        # the known pose with its rotation made exactly orthonormal
+        # (pose_to_matrix rounds it to float32): a rigid map to 1e-16
+        U, _, Vt = np.linalg.svd(known[:3, :3])
+        exact = known.copy()
+        exact[:3, :3] = U @ Vt
+        pts = body_points(gen, LANDMARKS_N, ref)
+        moved = pts @ exact[:3, :3].T + exact[:3, 3]
+        interop.pois_from_numpy(ref, {f"F{i}": p for i, p in
+                                      enumerate(pts)})
+        interop.pois_from_numpy(Data.image["auto pose"], {
+            f"F{i}": p for i, p in enumerate(moved)})
+        rigid_lm = mia.Rigid(names["ref"], "auto pose", device=dev)
+        fre, lm_ms = timed(lambda: rigid_lm.compute_landmarks(
+            poi_names=[f"F{i}" for i in range(LANDMARKS_N)]))
+        lm_err = registration_error(rigid_lm.matrix, ref, exact)
+        out["landmarks"] = dict(n=LANDMARKS_N, fre_max_mm=max(fre.values()),
+                                limit_mm=1e-6, ms=lm_ms,
+                                center_err_mm=lm_err[0],
+                                angle_err_deg=lm_err[2])
+        assert max(fre.values()) < 1e-6, fre
+
+        # -- compute_tps: 30 POIs on the bump pair (moving points x_i,
+        # reference points x_i + u(x_i))
+        x = body_points(gen, TPS_N, ref, margin_mm=20.0)
+        u = BUMP_MM * bump_at(x)
+        t = x + np.stack([u, u, np.zeros_like(u)], axis=1)
+        interop.pois_from_numpy(ref, {f"T{i}": p for i, p in enumerate(t)})
+        interop.pois_from_numpy(deformed, {f"T{i}": p for i, p in
+                                           enumerate(x)})
+        tps = mia.Deformable(reference_name=names["ref"],
+                             moving_name=names["deformed"], roi_names=[],
+                             device=dev)
+        res, tps_ms = timed(lambda: tps.compute_tps(
+            poi_names=[f"T{i}" for i in range(TPS_N)]))
+        W, Acoef = tps_fit(x, t - x)
+        with uncounted():
+            grid_ms = cuda_ms(lambda: tps_displacement_grid(
+                x, W, Acoef, ref.origin, ref.spacing, np.eye(3), SHAPE,
+                device=dev), reps=3, warmup=1)
+        img_out, tps_image_ms = timed(tps.create_image)
+        # the field against the known bump inside the landmarks' hull,
+        # on every fourth voxel
+        zz, yy, xx = np.meshgrid(*(np.arange(0, n, 4) for n in SHAPE),
+                                 indexing="ij")
+        grid_pts = np.stack([xx * sp[0], yy * sp[1], zz * sp[2]], -1) \
+            .reshape(-1, 3) + np.asarray(ref.origin)
+        inside = Delaunay(x).find_simplex(grid_pts) >= 0
+        d = tps.dvf[::4, ::4, ::4].reshape(-1, 3).cpu().numpy()[inside]
+        ub = BUMP_MM * bump_at(grid_pts[inside])
+        err = np.sqrt((d[:, 0] - ub) ** 2 + (d[:, 1] - ub) ** 2
+                      + d[:, 2] ** 2)
+        with uncounted():
+            tps_ratio = residual_ratio(img_out["array"], moving_bump, fixed,
+                                       body)
+        out["tps"] = dict(
+            n=TPS_N, residual_max_mm=max(res.values()), limit_mm=1e-3,
+            ms=tps_ms, grid_ms=grid_ms, grid_voxels=int(np.prod(SHAPE)),
+            create_image_ms=tps_image_ms, hull_voxels_sampled=int(
+                inside.sum()), field_err_mm_median=float(np.median(err)),
+            field_err_mm_p95=float(np.percentile(err, 95)),
+            residual_ratio=tps_ratio)
+        assert max(res.values()) < 1e-3, res
+        assert isinstance(tps.dvf, torch.Tensor) \
+            and tps.dvf.device.type == torch.device(dev).type
+        del img_out
+
+        # -- ICP on the dose-QA study's ROI meshes: the largest organ at
+        # risk (the left lung, concave, with an inner hole) decimated to
+        # at most ICP_MAX_POINTS vertices, held to 0.1 mm; and the heart,
+        # a near-ellipsoid whose rotation point-to-point ICP pins only
+        # slowly (PERF.md §6): every variant reported, point-to-plane held
+        from medicalimageanalysis_torch.utils.mesh.trimesh import TriMesh
+        icp = {}
+        for roi_name, held in (("Lung_L", ("vtk", "o3d_point", "o3d_plane")),
+                               ("Heart", ("o3d_plane",))):
+            (mesh, n_full), dec_ms = timed(lambda: icp_mesh(
+                Data.image[img_name], roi_name, ICP_MAX_POINTS))
+            c = np.asarray(mesh.points, np.float64).mean(axis=0)
+            axis = np.array([1.0, -2.0, 0.5]) / np.linalg.norm(
+                [1.0, -2.0, 0.5])
+            R = Rotation.from_rotvec(np.deg2rad(ICP_MOTION[0]) * axis) \
+                .as_matrix()
+            M = np.eye(4)
+            M[:3, :3] = R
+            M[:3, 3] = c - R @ c + ICP_MOTION[1] * np.array([0.6, 0.0, 0.8])
+            target = TriMesh(np.asarray(mesh.points, np.float64) @ R.T
+                             + M[:3, 3], np.asarray(mesh.faces))
+            rows = dict(vertices=int(mesh.points.shape[0]),
+                        mesh_vertices=int(n_full), decimate_ms=dec_ms,
+                        held_to_limit=list(held))
+            for key, entry, kw in (
+                    ("vtk", "compute_icp_vtk", {}),
+                    ("o3d_point", "compute_o3d",
+                     dict(method="point", iterations=ICP_O3D_ITERATIONS)),
+                    ("o3d_plane", "compute_o3d",
+                     dict(method="plane", iterations=ICP_O3D_ITERATIONS))):
+                rigid_icp = mia.Rigid(img_name, img_name, device=dev)
+                rows[key] = icp_run(rigid_icp, entry, mesh, target, M, **kw)
+            icp[roi_name] = rows
+        out["icp"] = dict(motion_deg=ICP_MOTION[0], motion_mm=ICP_MOTION[1],
+                          limit_rms_mm=0.1, **icp)
+        for roi_name, rows in icp.items():
+            for key in rows["held_to_limit"]:
+                assert rows[key]["vertex_rms_mm"] <= 0.1, out["icp"]
+
+        # -- elastix, the default map on the bump pair: the backend's
+        # defaults (4 levels, 10 mm, 300 steps) with SimpleElastix's
+        # default metric, Mattes MI (the backend's own default, 'Intensity'
+        # mean squares, walks in the flat body in both packages: PERF.md
+        # §6). The sampling field on the reference grid, inverted to the
+        # point field for the error.
+        backend = DeformableTorch(device=dev)
+        backend.create_sitk_image(ref.array, ref.origin, ref.spacing,
+                                  ref.matrix)
+        backend.create_sitk_image(deformed.array, deformed.origin,
+                                  deformed.spacing, deformed.matrix,
+                                  reference=False)
+        backend.resample()
+        einfo = {}
+        ela, ela_ms = timed(lambda: backend.elastix(metric="MI",
+                                                    info=einfo))
+        with uncounted():
+            sampling = ela["array"]
+            warped = warp_volume(moving_bump, sampling, sp,
+                                 background=-3001.0, device=dev)
+            ela_ratio = residual_ratio(warped.cpu().numpy(), moving_bump,
+                                       fixed, body)
+            del warped
+            e_med, e_p95 = field_error(invert_dvf(sampling, sp,
+                                                  device=dev))
+        out["elastix_default"] = dict(
+            metric="mi", ms=ela_ms, residual_ratio=ela_ratio,
+            residual_limit=ELASTIX_RATIO_LIMIT, field_err_mm_median=e_med,
+            field_err_mm_p95=e_p95, field_p95_limit_mm=ELASTIX_P95_LIMIT_MM,
+            **elastix_rows(einfo))
+        del ela, sampling
+        assert ela_ratio <= ELASTIX_RATIO_LIMIT \
+            and e_p95 <= ELASTIX_P95_LIMIT_MM, out["elastix_default"]
+
+        # -- elastix, staged Euler + B-spline on the AUTO_POSE pair
+        sinfo = {}
+        (sdvf, _), st_ms = timed(lambda: elastix_registration(
+            fixed, arr, sp, parameter_map=ELASTIX_STAGES, metric="mse",
+            device=dev, info=sinfo))
+        o = np.eye(4)
+        o[:3, 3] = np.asarray(ref.origin, np.float64)
+        M_phys = o @ sinfo["matrix"] @ np.linalg.inv(o)
+        s_err = registration_error(M_phys, ref, known)
+        with uncounted():
+            warped = warp_volume(arr.astype(np.float32), sdvf, sp,
+                                 background=-3001.0, device=dev)
+            st_ratio = residual_ratio(warped.cpu().numpy(),
+                                      arr.astype(np.float32), fixed, body)
+            del warped
+        linear, spline = sinfo["stages"]
+        out["elastix_staged"] = dict(
+            ms=st_ms, center_err_mm=s_err[0], angle_err_deg=s_err[2],
+            seed_response=linear["seed_response"], seeded=linear["seeded"],
+            linear_ms_per_level=[1e3 * s for s in linear["level_seconds"]],
+            residual_ratio=st_ratio,
+            bspline=elastix_rows(spline), stage_seconds=[
+                s["seconds"] for s in sinfo["stages"]])
+        del sdvf
+        assert linear["seeded"] and s_err[0] <= 0.5 and s_err[2] <= 0.3, \
+            out["elastix_staged"]
+        assert st_ratio <= ELASTIX_RATIO_LIMIT, out["elastix_staged"]
+
+        # -- compute_demons masked by an external "Body" on both images
+        for n in (names["ref"], names["deformed"]):
+            Data.image[n].create_external(name="Body")
+        masked = mia.Deformable(reference_name=names["ref"],
+                                moving_name=names["deformed"],
+                                roi_names=["Body"], device=dev)
+        (ref_mask, mov_mask), union_ms = timed(masked.roi_mask_union)
+        host = [rasterize_batch(
+            [Data.image[n].rois["Body"].contour_pixel],
+            tuple(int(v) for v in Data.image[n].dimensions),
+            device="cpu")[0] for n in (names["ref"], names["deformed"])]
+        assert np.array_equal(ref_mask, host[0]) \
+            and np.array_equal(mov_mask, host[1]), "mask union != host"
+        dinfo, dem_ms = timed(lambda: masked.compute_demons(
+            method="fast", pyramid=DEMONS_PYRAMID))
+        dem_out, dem_image_ms = timed(masked.create_image)
+        keep = (ref_mask > 0) & (dem_out["array"] != -3001.0)
+        in_mask = float(np.abs(dem_out["array"] - fixed)[keep].mean()
+                        / np.abs(moving_bump - fixed)[keep].mean())
+        out["masked_demons"] = dict(
+            ms=dem_ms, create_image_ms=dem_image_ms, union_ms=union_ms,
+            mask_voxels=[int(ref_mask.sum()), int(mov_mask.sum())],
+            union_equal_to_host=True, dvf_shape=list(masked.dvf.shape),
+            level_shapes=dinfo["level_shapes"],
+            residual_ratio_in_mask=in_mask, limit=RESIDUAL_LIMIT)
+        del dem_out
+        assert in_mask <= RESIDUAL_LIMIT, out["masked_demons"]
+
+        launches, shapes = launch_counts(), launch_shapes()
+        seconds = time.perf_counter() - t_phase
+
+        # after the window: each warp key of the path on its own tensors
+        # (the stages again with few steps: the launch shapes are the
+        # same), held bit-equal and timed
+        calls = {}
+        with uncounted():
+            with recording_warp_calls(calls):
+                rigid_pc.compute_phase_correlation(update=False)
+                short = [dict(st, MaximumNumberOfIterations="10")
+                         for st in ELASTIX_STAGES]
+                elastix_registration(fixed, arr, sp, parameter_map=short,
+                                     metric="mse", device=dev)
+                backend.elastix(metric="MI", iterations=2)
+                tps.create_image()
+                masked.compute_demons(method="fast", pyramid=DEMONS_PYRAMID,
+                                      iterations=1)
+            warp_rows = warp_path_rows(calls)
+    finally:
+        for n, roi in saved_body.items():
+            img = Data.image[n]
+            img.rois.pop("Body", None)
+            getattr(img, "_roi_mask_cache", {}).pop("Body", None)
+            if roi is not None:
+                img.rois["Body"] = roi
+        for n, pois in saved_pois.items():
+            Data.image[n].pois = pois
+        set_registry(registry)
+    torch.cuda.empty_cache()
+    emit("registration_rest", seconds=seconds, launches=launches, **out)
+    return dict(launches=launches, shapes=shapes, warp_rows=warp_rows)
+
+
 def registry_state():
     """The port's registry, every dict and list of it."""
     from medicalimageanalysis_torch.data import Data
@@ -4420,6 +5179,25 @@ def main():
             kernels[name]["timed"].update(rows)
             kernels[name]["io"] = list(rows.values())
         torch.cuda.empty_cache()
+        reset_counts()                     # the ingest_rest path starts
+        phase_ingest_rest(folder, names, cpu_gen, dev)
+        ingest_rest_launches = launch_counts()  # ... and ends here
+        shapes["ingest_rest"] = launch_shapes()
+        reset_counts()                     # the registration_rest path
+        reg = phase_registration_rest(names, img_name, cpu_gen, dev)
+        registration_rest_launches = reg["launches"]  # ... ends in it
+        shapes["registration_rest"] = reg["shapes"]
+        # its warp launches on its own tensors, as above
+        for name, rows in reg.pop("warp_rows").items():
+            for key, row in rows.items():
+                synthetic = kernels[name]["timed"].get(key)
+                row["synthetic_field_ms"] = None if synthetic is None \
+                    else synthetic["ms"]
+                kernels[name]["max_abs_err"] = max(
+                    kernels[name]["max_abs_err"], max(row["max_abs_err"]))
+            kernels[name]["timed"].update(rows)
+            kernels[name]["registration_rest"] = list(rows.values())
+        torch.cuda.empty_cache()
         reset_counts()                     # the view path starts here
         view = phase_view(names, rigid, dev)
         view_launches = launch_counts()    # ... and ends here
@@ -4452,6 +5230,11 @@ def main():
     assert all(io_launches[k] for k in
                ("warp_affine", "warp_coords", "warp_disp", "dose_hist")), \
         f"a kernel of the IO path never launched: {io_launches}"
+    # ingest_rest assembles with plain PyTorch: no kernel of its own
+    assert all(registration_rest_launches[k] for k in
+               ("warp_affine", "warp_coords", "warp_disp")), \
+        f"a kernel of the registration_rest path never launched: " \
+        f"{registration_rest_launches}"
     # three lane_interp passes per shear reslice; the exact reslices (the
     # display, its volume bundle, two Rigid nudges and two comparisons).
     # No view route reaches the oblique entry: affine_resample keeps the
@@ -4465,11 +5248,12 @@ def main():
     assert oblique_launches == dict(
         {k: 0 for k in oblique_launches}, warp_coords=1,
         warp_affine_shear=1), oblique_launches
-    # every kernel's launches on the nine paths, and the warp launches by
-    # shape over them
+    # every kernel's launches on the eleven paths, and the warp launches
+    # by shape over them
     paths = (rigid_launches, cohort_launches, deformable_launches,
              dose_qa_launches, plan_qa_launches, roi_mesh_launches,
-             image_analysis_launches, io_launches, view_launches)
+             image_analysis_launches, io_launches, ingest_rest_launches,
+             registration_rest_launches, view_launches)
     launches = {k: sum(p[k] for p in paths) for k in rigid_launches}
     all_shapes = {}
     for per_path in shapes.values():
@@ -4576,6 +5360,8 @@ def main():
          launches_roi_mesh_path=roi_mesh_launches,
          launches_image_analysis_path=image_analysis_launches,
          launches_io_path=io_launches,
+         launches_ingest_rest_path=ingest_rest_launches,
+         launches_registration_rest_path=registration_rest_launches,
          launches_view_path=view_launches,
          launches_oblique_entry=oblique_launches,
          launch_shapes={k: shape_rows(v) for k, v in shapes.items()},

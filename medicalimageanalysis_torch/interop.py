@@ -16,7 +16,8 @@ import numpy as np
 from .data import Data
 
 __all__ = ["deformable_from_numpy", "dose_from_numpy", "image_from_arrays",
-           "import_image", "rigid_from_matrix", "rois_from_numpy"]
+           "import_image", "meshes_from_numpy", "pois_from_numpy",
+           "rigid_from_matrix", "rois_from_numpy"]
 
 
 def image_from_arrays(array, spacing, origin, matrix, modality, name,
@@ -129,3 +130,27 @@ def dose_from_numpy(array, spacing, origin, matrix, name="RTDOSE 01",
         Data.dose_list.append(name)
     Data.dose[name] = dose
     return dose
+
+
+def pois_from_numpy(image, points):
+    """Add POIs to a port ``Image``: ``points`` maps name -> (3,) mm
+    position (the landmarks of ``compute_landmarks`` and
+    ``compute_tps``)."""
+    for name, p in points.items():
+        image.add_poi(poi_name=name,
+                      point=[float(v) for v in np.asarray(p, np.float64)])
+    return image
+
+
+def meshes_from_numpy(image, meshes, visible=True):
+    """Add mesh ROIs to a port ``Image``: ``meshes`` maps name -> (points
+    (N, 3) mm, faces (M, 3) int); an existing ROI of that name keeps its
+    contours and takes the mesh."""
+    from .utils.mesh.trimesh import TriMesh
+
+    for name, (points, faces) in meshes.items():
+        if name not in image.rois:
+            image.create_roi(name=name, visible=visible)
+        image.rois[name].update_mesh(TriMesh(
+            np.asarray(points, np.float64), np.asarray(faces, np.int32)))
+    return image

@@ -338,6 +338,15 @@ def _descend(refs, movs, ref_pix2pos, mov_pos2pix, centers, poses, levels,
         yield poses, torch.stack([losses for _, losses in out])
 
 
+def _volume_on(a, device):
+    """An image's array as float32 on ``device``: a numpy volume crosses
+    in its stored type (stored_to_float), a tensor already on the device
+    stays there."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=torch.float32)
+    return stored_to_float(np.asarray(a), device)
+
+
 def register_rigid_intensity(reference_image, moving_image, pose0=None,
                              levels=((4, 60, 0.3), (2, 40, 0.1),
                                      (1, 25, 0.03)),
@@ -347,7 +356,7 @@ def register_rigid_intensity(reference_image, moving_image, pose0=None,
     similarity metric.
 
     reference_image, moving_image : objects with .array/.matrix/.spacing/
-        .origin (Image instances or equivalents)
+        .origin (Image instances or equivalents; .array numpy or a tensor)
     levels : (stride, steps, lr) coarse-to-fine schedule
     metric : 'mse' | 'ncc' | 'mi' (requires normalize=True)
     mode : 'rigid' (6-DoF) | 'similarity' | 'affine'
@@ -380,8 +389,8 @@ def register_rigid_intensity(reference_image, moving_image, pose0=None,
 
     prep_seconds = {}
     t0 = clock()
-    refd = stored_to_float(np.asarray(reference_image.array), device)
-    movd = stored_to_float(np.asarray(moving_image.array), device)
+    refd = _volume_on(reference_image.array, device)
+    movd = _volume_on(moving_image.array, device)
     prep_seconds["upload"] = synced() - t0
     intensity_scale = 1.0
     if normalize:

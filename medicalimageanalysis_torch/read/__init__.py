@@ -1,2 +1,21 @@
-"""Readers: DICOM ingest (read/dicom.py) and the 3D volume builder
-(read/volume3d.py)."""
+"""Readers: DICOM ingest (read/dicom.py), the 3D volume reader
+(read/volume3d.py), the planar and NM readers (read/planar.py,
+read/nm.py) and the RT, NIfTI and MHD readers. The class exports match
+the JAX package's read/__init__.py where the port has the class."""
+
+
+def __getattr__(name):
+    import importlib
+    table = {"DicomReader": "dicom", "MhdReader": "mhd",
+             "ReadRTStruct": "rtstruct", "ReadREG": "reg",
+             "ReadRTDose": "rtdose", "Read3D": "volume3d",
+             "ReadXRay": "planar", "ReadRF": "planar", "ReadUS": "planar",
+             "ReadNMPlanar": "nm"}
+    if name in table:
+        mod = importlib.import_module(f"{__name__}.{table[name]}")
+        return getattr(mod, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+__all__ = ["DicomReader", "MhdReader", "Read3D", "ReadXRay", "ReadRF",
+           "ReadUS", "ReadNMPlanar", "ReadRTStruct", "ReadREG", "ReadRTDose"]

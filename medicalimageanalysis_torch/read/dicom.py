@@ -7,11 +7,13 @@ sign, merge non-overlapping gap-uniform acquisitions, then dispatch per
 modality. Parsing uses the port's copies of the host core: the C++ batch
 scanner (``native``) and the DICOM parser (``dicom``).
 
-Builders ported: CT, MR and PT through Read3D, RTSTRUCT through
+Readers, in the JAX package's order: CT, MR, PT and NM RECON TOMO
+through Read3D (enhanced multi-frame files and tomo frames expanded into
+per-frame views first, read/multiframe.py and read/nm.py), planar NM
+through ReadNMPlanar, DX / CR / MG through ReadXRay, RF / XA through
+ReadRF and US through ReadUS (read/planar.py), then RTSTRUCT through
 ReadRTStruct, SEG through ReadSEG, REG through ReadREG, RTDOSE through
-ReadRTDose and RTPLAN through ReadRTPlan, in the JAX package's order.
-Every other object (enhanced multi-frame, NM, planar) raises
-NotImplementedError naming its ROADMAP item rather than being dropped.
+ReadRTDose and RTPLAN through ReadRTPlan.
 """
 
 from __future__ import annotations
@@ -33,17 +35,6 @@ __all__ = ["DicomReader", "thread_process_dicom", "sort_images_by_datetime",
 # _2D_OR_STRUCT)
 _2D_OR_STRUCT = ["US", "DX", "RF", "CR", "MG", "XA", "RTSTRUCT", "SEG",
                  "REG", "RTDOSE", "RTPLAN"]
-
-# ROADMAP.md queue 1 items that bring each builder to the port
-_NOT_PORTED = {
-    "NM": "NM (planar and SPECT tomo) — ROADMAP.md queue 1, item 2",
-    "US": "planar modalities — ROADMAP.md queue 1, item 2",
-    "DX": "planar modalities — ROADMAP.md queue 1, item 2",
-    "RF": "planar modalities — ROADMAP.md queue 1, item 2",
-    "CR": "planar modalities — ROADMAP.md queue 1, item 2",
-    "MG": "planar modalities — ROADMAP.md queue 1, item 2",
-    "XA": "planar modalities — ROADMAP.md queue 1, item 2",
-}
 
 
 def sort_images_by_datetime():
@@ -282,8 +273,28 @@ class DicomReader(object):
     # ------------------------------------------------------------------
     def separate_modalities_and_images(self):
         """Series-grouping algorithm (reference read/dicom.py:218-382).
-        Enhanced multi-frame CT/MR/PT files need the per-frame expansion,
-        which is not ported yet: they raise."""
+
+        Enhanced multi-frame CT/MR/PT files and NM RECON TOMO files are
+        first expanded into per-frame views, as in the JAX package
+        (read/dicom.py:265-283), so they flow through the same grouping
+        and Read3D assembly."""
+        from .multiframe import expand_multiframe, is_enhanced_multiframe
+        from .nm import expand_nm_tomo, is_nm_tomo
+
+        expanded = []
+        for d in self.ds:
+            if not (d and (0x0008, 0x0060) in d):
+                expanded.append(d)
+                continue
+            mod = d["Modality"].value
+            if mod in ("CT", "MR", "PT") and is_enhanced_multiframe(d):
+                expanded.extend(expand_multiframe(d))
+            elif mod == "NM" and is_nm_tomo(d):
+                expanded.extend(expand_nm_tomo(d))
+            else:
+                expanded.append(d)
+        self.ds = expanded
+
         buckets = {}
         for d in self.ds:
             if d and (0x0008, 0x0060) in d:
@@ -298,13 +309,24 @@ class DicomReader(object):
             images = buckets.get(modality, [])
             if not images or modality not in self.only_modality:
                 continue
-            if modality in _2D_OR_STRUCT or modality in _NOT_PORTED:
+            if modality in _2D_OR_STRUCT:
                 self.ds_modality[modality].extend(images)
                 continue
-            if any(_is_enhanced_multiframe(d) for d in images):
-                raise NotImplementedError(
-                    f"enhanced multi-frame {modality} is not ported yet: "
-                    "multi-frame expansion — ROADMAP.md queue 1, item 2")
+            if modality == "NM":
+                # RECON TOMO frames (expanded above) carry IOP/IPP and
+                # take the 3D grouping; planar / whole-body / gated
+                # frames stack as they are (bare datasets, which
+                # image_creation tells apart from grouped series)
+                tomo = []
+                for image in images:
+                    if "ImageOrientationPatient" in image \
+                            and "ImagePositionPatient" in image:
+                        tomo.append(image)
+                    else:
+                        self.ds_modality[modality].append(image)
+                images = tomo
+                if not images:
+                    continue
 
             entries = []
             for img in images:
@@ -545,20 +567,32 @@ class DicomReader(object):
 
     def image_creation(self):
         """Dispatch grouped datasets to per-modality builders
-        (reference read/dicom.py:384-425): images first, then RTSTRUCTs and
+        (reference read/dicom.py:384-425): images first (volumes, then
+        the planar modalities), then RTSTRUCTs and
         SEGs onto their matching image, then REG registrations, RTDOSE
         grids and RTPLAN summaries."""
+        from .nm import ReadNMPlanar
+        from .planar import ReadRF, ReadUS, ReadXRay
         from .volume3d import Read3D
 
-        for modality, image_sets in self.ds_modality.items():
-            if image_sets and modality in _NOT_PORTED:
-                raise NotImplementedError(
-                    f"{len(image_sets)} {modality} object(s) in the input: "
-                    f"not ported yet ({_NOT_PORTED[modality]})")
-        for modality in ["CT", "MR", "PT"]:
+        for modality in ["CT", "MR", "PT", "NM", "DX", "RF", "CR", "MG",
+                         "XA", "US"]:
             for image_set in self.ds_modality.get(modality, []):
-                self._build_series(Read3D, image_set, self.only_tags,
-                                   device=self.device)
+                if modality in ("CT", "MR", "PT") or (
+                        modality == "NM" and isinstance(image_set, list)):
+                    # a grouped NM RECON TOMO series is a list of frame
+                    # views, assembled on the card like CT
+                    self._build_series(Read3D, image_set, self.only_tags,
+                                       device=self.device)
+                elif modality == "NM":
+                    self._build_series(ReadNMPlanar, image_set,
+                                       self.only_tags)
+                elif modality in ("DX", "CR", "MG"):
+                    self._build_series(ReadXRay, image_set, self.only_tags)
+                elif modality in ("RF", "XA"):
+                    self._build_series(ReadRF, image_set, self.only_tags)
+                else:
+                    self._build_series(ReadUS, image_set, self.only_tags)
 
         if self.ds_modality.get("RTSTRUCT"):
             from .rtstruct import ReadRTStruct
@@ -615,10 +649,3 @@ class DicomReader(object):
             for image_set in self.ds_modality["RTPLAN"]:
                 self._build_series(ReadRTPlan, image_set, self.only_tags)
 
-
-def _is_enhanced_multiframe(ds):
-    try:
-        frames = int(ds.get("NumberOfFrames", 1) or 1)
-    except (TypeError, ValueError):
-        return False
-    return frames > 1 and "PerFrameFunctionalGroupsSequence" in ds

@@ -17,19 +17,11 @@ import copy
 import numpy as np
 from scipy.spatial.transform import Rotation
 
-from .._waiting import waiting
 from ..ops import geometry as geo
 
 __all__ = ["GeometryQueriesMixin", "MetadataMixin", "ViewOpsMixin",
            "build_reg_dataset", "collision_suffix", "host_array",
-           "rebuild_dataset_from_meta", "series_item", "waits"]
-
-
-def waits(owner, name, item):
-    """A method of the JAX package's ``owner`` class that a later slice
-    ports: calling it raises NotImplementedError naming its ROADMAP.md
-    item."""
-    return waiting(f"{owner}.{name}", item)
+           "rebuild_dataset_from_meta", "series_item"]
 
 
 def host_array(a, dtype=None):

@@ -26,9 +26,12 @@ rigid resample and one field upload for all frames, then each frame's
 inversion and warp) and the field's component planes, behind the
 ``retrieve_*`` queries. ``create_reg`` writes the field as a deformable
 REG, ``export_image`` the deformed image as MHD, ``save_deformable`` /
-``load_deformable`` a json + npy folder. The ROI-masked registrations,
-TPS and the Display's mesh cut wait for later slices; each raises
-``NotImplementedError`` naming its ROADMAP.md item.
+``load_deformable`` a json + npy folder. ``compute_tps`` fits a
+thin-plate spline through matched POIs and keeps its dense field on the
+device. With ``roi_names`` held by both images, the registrations are
+masked by the ROIs' mask unions (``roi_mask_union``). The Display's mesh
+cut waits for a later slice and raises ``NotImplementedError`` naming
+its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -36,7 +39,6 @@ from __future__ import annotations
 import copy
 import json
 import os
-from functools import partial
 
 import numpy as np
 import torch
@@ -49,12 +51,9 @@ from ..ops import geometry as geo
 from ..ops.registration.dvf import invert_dvf, sample_dvf_at_points
 from ..ops.resample import affine_resample, compose_pixel_matrix
 from ..ops.warp import affine_coords, field_warp, warp_disp
-from .common import host_array, waits
+from .common import host_array
 
 __all__ = ["Display", "Deformable"]
-
-
-_waits = partial(waits, "Deformable")
 
 
 def _jacobian_det(d, inv_spacing):
@@ -291,24 +290,17 @@ class Deformable(object):
         return np.round(self.spacing[1] / self.spacing[2], 2)
 
     def _backend(self, modality_gradient, sigma):
-        """Common setup: reference/moving volumes and the cross-modality
-        correction. The JAX package also builds blurred ROI masks from
-        ``roi_names`` where both images hold those ROIs; that masking is
-        not ported yet and raises, and without such ROIs the
-        registration runs unmasked, as the JAX package's does."""
+        """Common setup: reference/moving volumes, the cross-modality
+        correction, and the ROI mask union + blur (JAX
+        structure/deformable.py:325-365): each name of ``roi_names`` whose
+        ROI both images hold (with contours or a mesh) adds its mask to
+        the reference's and the moving image's union; the unions go in as
+        the backend's masks, blurred by ``sigma``. A mesh-only ROI's
+        ``compute_mask`` raises until voxelisation is ported."""
         from ..utils.deformable.torch_backend import DeformableTorch
 
         ref = Data.image[self.reference_name]
         mov = Data.image[self.moving_name]
-        for roi_name in (self.roi_names or []):
-            pair = (ref.rois.get(roi_name), mov.rois.get(roi_name))
-            if all(r is not None and (r.mesh is not None
-                                      or r.contour_pixel is not None)
-                   for r in pair):
-                raise NotImplementedError(
-                    "Deformable: registration masked by roi_names is not "
-                    "ported yet (ROADMAP.md queue 1, item 7, the rest of "
-                    "deformable)")
         backend = DeformableTorch(device=self.device)
         backend.create_sitk_image(ref.array, ref.origin, ref.spacing,
                                   ref.matrix)
@@ -316,7 +308,40 @@ class Deformable(object):
                                   mov.matrix, reference=False)
         if ref.modality != mov.modality and modality_gradient:
             backend.cross_modality_correction()
+
+        ref_mask, mov_mask = self.roi_mask_union()
+        if ref_mask is not None and mov_mask is not None:
+            backend.create_sitk_image(ref_mask, ref.origin, ref.spacing,
+                                      ref.matrix, mask=True)
+            backend.create_sitk_image(mov_mask, mov.origin, mov.spacing,
+                                      mov.matrix, reference=False,
+                                      mask=True)
+            if sigma is not None:
+                backend.blur_mask(sigma=sigma)
         return backend
+
+    def roi_mask_union(self):
+        """(reference, moving) sums of the masks of the ``roi_names``
+        that both images hold, as the JAX package's ``_backend`` adds
+        them (uint8 masks, so an overlap counts twice); (None, None)
+        when no name matches."""
+        ref = Data.image[self.reference_name]
+        mov = Data.image[self.moving_name]
+        ref_mask = mov_mask = None
+        for roi_name in (self.roi_names or []):
+            ref_roi = ref.rois.get(roi_name)
+            mov_roi = mov.rois.get(roi_name)
+            if ref_roi is None or mov_roi is None:
+                continue
+            if (ref_roi.mesh is not None
+                    or ref_roi.contour_pixel is not None) \
+                    and (mov_roi.mesh is not None
+                         or mov_roi.contour_pixel is not None):
+                rm = ref_roi.compute_mask()
+                mm = mov_roi.compute_mask()
+                ref_mask = rm if ref_mask is None else ref_mask + rm
+                mov_mask = mm if mov_mask is None else mov_mask + mm
+        return ref_mask, mov_mask
 
     def _store_dvf(self, dvf_volume):
         """Store in point-displacement convention: invert the sampling
@@ -614,7 +639,78 @@ class Deformable(object):
             self.pois.update(out)
         return out
 
-    compute_tps = _waits("compute_tps", "item 7, the rest of deformable")
+    def compute_tps(self, poi_names=None, points_reference=None,
+                    points_moving=None, regularization=0.0, chunk=None):
+        """Landmark-driven deformable registration: a 3-D thin-plate
+        spline through matched POIs (JAX structure/deformable.py:451-540).
+
+        Matches POI names shared by the reference and moving images (or
+        takes explicit ``points_reference`` / ``points_moving`` (N, 3) mm
+        arrays). Moving points are pre-mapped through inv(rigid_matrix),
+        the composition of update_pois, so the spline carries only the
+        residual deformation. The fit is host float64
+        (ops/registration/tps.tps_fit); the dense field over the
+        reference grid (identity orientation: the DVF samplers index
+        fields axis-aligned) is evaluated on the device and kept there
+        as the field tensor, in the point-displacement convention. Exact
+        at the landmarks when ``regularization`` is 0. Returns {name:
+        residual mm} (index keys for explicit points)."""
+        from ..ops.registration.tps import (CHUNK, tps_displacement,
+                                            tps_displacement_grid, tps_fit)
+
+        chunk = CHUNK if chunk is None else int(chunk)
+        rigid_inv = np.linalg.inv(np.asarray(self.rigid_matrix,
+                                             np.float64))
+        if points_reference is not None or points_moving is not None:
+            if points_reference is None or points_moving is None:
+                raise ValueError(
+                    "compute_tps: points_reference and points_moving "
+                    "must be given together")
+            t = np.asarray(points_reference, np.float64).reshape(-1, 3)
+            m = np.asarray(points_moving, np.float64).reshape(-1, 3)
+            if t.shape != m.shape:
+                raise ValueError("compute_tps: point array shapes differ")
+            names = [str(i) for i in range(t.shape[0])]
+        else:
+            ref_pois = Data.image[self.reference_name].pois
+            mov_pois = Data.image[self.moving_name].pois
+            names, t_list, m_list = [], [], []
+            for name, poi in ref_pois.items():
+                if poi_names is not None and name not in poi_names:
+                    continue
+                other = mov_pois.get(name)
+                if poi.point_position is None or other is None \
+                        or other.point_position is None:
+                    continue
+                names.append(name)
+                t_list.append(np.asarray(poi.point_position, np.float64))
+                m_list.append(np.asarray(other.point_position,
+                                         np.float64))
+            if not names:
+                raise ValueError(
+                    "compute_tps: no matched POIs with positions "
+                    "between reference and moving images")
+            t = np.stack(t_list)
+            m = np.stack(m_list)
+
+        p = (np.concatenate([m, np.ones((len(m), 1))], axis=1)
+             @ rigid_inv.T)[:, :3]
+        W, A = tps_fit(p, t - p, regularization=regularization)
+
+        ref = Data.image[self.reference_name]
+        self.dvf = tps_displacement_grid(
+            p, W, A, ref.origin, ref.spacing, np.eye(3), ref.array.shape,
+            chunk=chunk, device=self.device)
+        self.origin = np.asarray(ref.origin, np.float64)
+        self.spacing = tuple(np.asarray(ref.spacing, np.float64))
+        self.dimensions = np.asarray(self.dvf.shape[:3])
+        self.display.compute_scroll_max()
+        self.update_rois()
+
+        fitted = tps_displacement(p, W, A, p.astype(np.float32),
+                                  chunk=chunk, device=self.device)
+        residual = np.linalg.norm(p + fitted.cpu().numpy() - t, axis=1)
+        return {n: float(r) for n, r in zip(names, residual)}
 
     # -- export and persistence (JAX structure/deformable.py:749-808,
     # 860-910) ------------------------------------------------------------

@@ -12,9 +12,15 @@ matrix semantics are identical: ``matrix @ combo_matrix`` maps reference
 -> moving physical space and ``inverse`` flips the roles. The reslice
 behind the view runs on the device (``reslice_transform``: the warp
 kernel's ``affine`` mode, or with ``config.use_shear_warp`` the
-lane_interp kernel's three passes). ICP and the other registrations wait
-for later slices: each raises NotImplementedError naming its ROADMAP.md
-item.
+lane_interp kernel's three passes). The registration drivers of JAX
+structure/rigid.py:254-531 are here too: mesh ICP (``compute_icp_vtk``,
+``compute_o3d``; utils/rigid/icp.ICP on the device),
+``compute_phase_correlation`` (the moving image resliced onto the
+reference grid by the ``affine`` mode, then FFT phase correlation on the
+device), ``compute_landmarks`` (host float64 Umeyama over matched POIs)
+and ``auto_register`` (centre matching, phase correlation, then
+``compute_intensity`` warm-started from the recovered pose). The
+Display's mesh cut waits for a later slice.
 """
 
 from __future__ import annotations
@@ -22,9 +28,9 @@ from __future__ import annotations
 import copy
 import json
 import os
-from functools import partial
 
 import numpy as np
+import torch
 from scipy.spatial.transform import Rotation
 
 from ..config import config
@@ -32,11 +38,8 @@ from ..data import Data
 from ..dicom import generate_uid
 from ..ops import geometry as geo
 from ..ops.resample import reslice_transform
-from .common import waits
 
 __all__ = ["Display", "Rigid", "matrix_type"]
-
-_waits = partial(waits, "Rigid")
 
 
 class Display(object):
@@ -463,14 +466,269 @@ class Rigid(object):
             self.pois.update(out)
         return out
 
-    # -- the JAX package's API that later slices port ----------------------
-    auto_register = _waits("auto_register", "item 7, the rest of rigid")
-    compute_phase_correlation = _waits("compute_phase_correlation",
-                                       "item 7, the rest of rigid")
-    compute_landmarks = _waits("compute_landmarks",
-                               "item 7, the rest of rigid")
-    compute_icp_vtk = _waits("compute_icp_vtk", "item 9, mesh")
-    compute_o3d = _waits("compute_o3d", "item 9, mesh")
+    # -- registration drivers (JAX structure/rigid.py:254-531) ----------
+    def _center_image_correction(self, R_icp):
+        """`center='image'` recentering math
+        (reference structure/rigid.py:574-595)."""
+        R_icp = np.asarray(R_icp, dtype=float)
+        old_center = np.array([0, 0, 0], dtype=float)
+        new_center = np.array(
+            Data.image[self.moving_name].compute_center(), dtype=float)
+
+        T_neg = np.eye(4)
+        T_neg[:3, 3] = -new_center
+        T_pos = np.eye(4)
+        T_pos[:3, 3] = new_center
+
+        extra_rotation = np.eye(4)
+        old_h = np.hstack([old_center, 1])
+        new_h = np.hstack([new_center, 1])
+        R_total = extra_rotation @ R_icp
+        correction = (old_h - R_total @ old_h) - (new_h - R_total @ new_h)
+        T_corr = np.eye(4)
+        T_corr[:3, 3] = correction[:3]
+        return T_pos @ extra_rotation @ R_icp @ T_neg @ T_corr
+
+    def compute_icp_vtk(self, source_mesh, target_mesh, distance=1e-5,
+                        iterations=1000, landmarks=None, com_matching=True,
+                        inverse=False, center=None):
+        """Mesh ICP, VTK-variant controls
+        (reference structure/rigid.py:536-600), on the device."""
+        from ..utils.rigid.icp import ICP
+
+        self.inverse = inverse
+        if self.inverse:
+            target_mesh.transform(self.matrix @ self.combo_matrix,
+                                  inplace=True)
+        else:
+            target_mesh.transform(
+                np.linalg.inv(self.matrix @ self.combo_matrix),
+                inplace=True)
+
+        icp = ICP(source_mesh, target_mesh, device=self.device)
+        icp.compute_vtk(distance=distance, iterations=iterations,
+                        landmarks=landmarks, com_matching=com_matching,
+                        inverse=inverse)
+        self.misc["icp_info"] = icp.info
+        if center == "image":
+            self.matrix = self._center_image_correction(icp.get_matrix())
+        else:
+            self.matrix = icp.get_matrix()
+        self.update_rois()
+
+    def compute_o3d(self, source_mesh, target_mesh, distance=10,
+                    iterations=1000, rmse=1e-7, fitness=1e-7,
+                    method="point", com_matching=True, inverse=False,
+                    center=None):
+        """Mesh ICP, Open3D-variant controls
+        (reference structure/rigid.py:602-666), on the device."""
+        from ..utils.rigid.icp import ICP
+
+        target_mesh.transform(self.matrix @ self.combo_matrix,
+                              inplace=True)
+
+        icp = ICP(source_mesh, target_mesh, device=self.device)
+        icp.compute_o3d(distance=distance, iterations=iterations,
+                        rmse=rmse, fitness=fitness, method=method,
+                        com_matching=com_matching, inverse=inverse)
+        self.misc["icp_info"] = icp.info
+        if center == "image":
+            self.matrix = self._center_image_correction(icp.get_matrix())
+        else:
+            self.matrix = icp.get_matrix()
+        self.update_rois()
+
+    def auto_register(self, metric=None, mode="rigid",
+                      use_phase_correlation=True, **kwargs):
+        """One-call capture-range-robust registration ladder:
+
+        1. ``pre_alignment(center=True)`` volume-center matching (only
+           when the matrix is still identity, so a prior pose is kept),
+        2. ``compute_phase_correlation()`` FFT translation on the device,
+        3. ``compute_intensity`` multi-resolution descent warm-started
+           from the recovered pose (``pose0``; a non-rigid current
+           matrix is reduced to its nearest rotation, with a warning).
+
+        ``metric`` defaults to 'mse' for same-modality pairs and 'mi'
+        across modalities; ``mode`` / ``levels`` / ... forward to
+        compute_intensity. Assumes an identity ``combo_matrix``. Returns
+        the intensity info dict; each stage's result and seconds land in
+        ``misc['auto_register']``."""
+        import time
+        import warnings
+
+        from ..models.rigid_intensity import _MODE_NPARAMS
+
+        ref = Data.image[self.reference_name]
+        mov = Data.image[self.moving_name]
+        if metric is None:
+            metric = "mse" if ref.modality == mov.modality else "mi"
+
+        stages, seconds = {}, {}
+        t0 = time.perf_counter()
+        if np.allclose(self.matrix, np.eye(4)):
+            self.pre_alignment(center=True)
+            stages["center"] = [float(v) for v in self.matrix[:3, 3]]
+        seconds["center"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if use_phase_correlation:
+            stages["phase_correlation"] = \
+                self.compute_phase_correlation()
+        seconds["phase_correlation"] = time.perf_counter() - t0
+
+        n_params = _MODE_NPARAMS[mode]
+        pose0 = np.zeros(n_params, np.float32)
+        M = np.asarray(self.matrix, np.float64)
+        R = M[:3, :3]
+        if not np.allclose(R @ R.T, np.eye(3), atol=1e-5):
+            # a prior affine / scaled fit left a non-rigid block:
+            # warm-start from the nearest rotation (polar decomposition)
+            # instead of discarding the accumulated pose
+            U, _, Vt = np.linalg.svd(R)
+            R = U @ Vt
+            if np.linalg.det(R) < 0:
+                R = U @ np.diag([1.0, 1.0, -1.0]) @ Vt
+            warnings.warn(
+                "auto_register: current matrix is not rigid; the "
+                "scale/shear part was dropped from the descent warm "
+                "start (nearest rotation kept)", UserWarning,
+                stacklevel=2)
+        # matrix = pose_to_matrix(pose, center) inverts to
+        # angles('xyz' extrinsic = Rz@Ry@Rx) and t = m[:3,3] - c + R c
+        pose0[:3] = Rotation.from_matrix(R).as_euler("xyz")
+        center = np.asarray(ref.compute_center(), np.float64)
+        pose0[3:6] = M[:3, 3] - center + R @ center
+        t0 = time.perf_counter()
+        info = self.compute_intensity(metric=metric, mode=mode,
+                                      pose0=pose0, **kwargs)
+        seconds["intensity"] = time.perf_counter() - t0
+        stages["metric"] = metric
+        stages["seconds"] = seconds
+        self.misc["auto_register"] = stages
+        return info
+
+    def compute_landmarks(self, poi_names=None, points_reference=None,
+                          points_moving=None, scaling=False):
+        """Rigid landmark (fiducial) registration: the closed-form
+        Kabsch / Umeyama solve over matched POIs, in host float64.
+
+        Matches POI names shared by the reference and moving images (or
+        explicit (N, 3) mm arrays, N >= 3 non-collinear). Solves
+        min sum ||s R p_ref + t - p_mov||^2 (s = 1 unless ``scaling``)
+        and stores the map so that ``matrix @ combo_matrix`` takes
+        reference physical points to moving physical points. Returns
+        {name: residual mm} fiducial registration errors."""
+        if points_reference is not None or points_moving is not None:
+            if points_reference is None or points_moving is None:
+                raise ValueError(
+                    "compute_landmarks: points_reference and "
+                    "points_moving must be given together")
+            t_pts = np.asarray(points_reference, np.float64).reshape(-1, 3)
+            m_pts = np.asarray(points_moving, np.float64).reshape(-1, 3)
+            if t_pts.shape != m_pts.shape:
+                raise ValueError(
+                    "compute_landmarks: point array shapes differ")
+            names = [str(i) for i in range(t_pts.shape[0])]
+        else:
+            ref_pois = Data.image[self.reference_name].pois
+            mov_pois = Data.image[self.moving_name].pois
+            names, t_list, m_list = [], [], []
+            for name, poi in ref_pois.items():
+                if poi_names is not None and name not in poi_names:
+                    continue
+                other = mov_pois.get(name)
+                if poi.point_position is None or other is None \
+                        or other.point_position is None:
+                    continue
+                names.append(name)
+                t_list.append(np.asarray(poi.point_position, np.float64))
+                m_list.append(np.asarray(other.point_position,
+                                         np.float64))
+            if len(names) < 3:
+                raise ValueError(
+                    f"compute_landmarks: need >= 3 matched POIs, found "
+                    f"{len(names)}")
+            t_pts = np.stack(t_list)
+            m_pts = np.stack(m_list)
+
+        # Umeyama: centered cross-covariance SVD with det correction
+        mu_t = t_pts.mean(axis=0)
+        mu_m = m_pts.mean(axis=0)
+        tc = t_pts - mu_t
+        mc = m_pts - mu_m
+        cov = mc.T @ tc / t_pts.shape[0]
+        U, S, Vt = np.linalg.svd(cov)
+        d = np.sign(np.linalg.det(U @ Vt))
+        D = np.diag([1.0, 1.0, d])
+        R = U @ D @ Vt
+        if scaling:
+            var_t = (tc ** 2).sum() / t_pts.shape[0]
+            s = float((S * np.diag(D)).sum() / max(var_t, 1e-12))
+        else:
+            s = 1.0
+        F = np.eye(4)
+        F[:3, :3] = s * R
+        F[:3, 3] = mu_m - s * R @ mu_t
+        # store so matrix @ combo_matrix == F (class convention)
+        self.matrix = F @ np.linalg.inv(np.asarray(self.combo_matrix,
+                                                   np.float64))
+        self.update_rois()
+        mapped = (t_pts @ (s * R).T) + F[:3, 3]
+        residuals = {n: float(np.linalg.norm(mapped[i] - m_pts[i]))
+                     for i, n in enumerate(names)}
+        self.misc["landmark_fre"] = residuals
+        return residuals
+
+    def compute_phase_correlation(self, window=True, update=True):
+        """Global translation initialization by FFT phase correlation.
+        The moving volume is resliced onto the reference grid through
+        the CURRENT ``matrix @ combo_matrix`` (the warp kernel's
+        ``affine`` mode on the card), the residual translation comes from
+        the normalized cross-power spectrum on the device
+        (ops/registration/phase_correlation), and the matrix is
+        post-composed with it. Recovers any shift up to half the field
+        of view.
+
+        Returns {'shift_mm': (x, y, z) physical shift applied,
+        'response': normalized peak in [0, 1]}. ``update=False``
+        estimates without touching the matrix.
+        """
+        from ..device import default_device
+        from ..ops.registration.phase_correlation import phase_correlation
+        from ..ops.resample import affine_resample, compose_pixel_matrix
+        from ..ops.volume import stored_to_float
+
+        device = default_device() if self.device is None \
+            else torch.device(self.device)
+        ref = Data.image[self.reference_name]
+        mov = Data.image[self.moving_name]
+        T = np.asarray(self.matrix @ self.combo_matrix, np.float64)
+        A = compose_pixel_matrix(mov.matrix, mov.spacing, mov.origin,
+                                 ref.matrix, ref.spacing, ref.origin,
+                                 phys_transform=T)
+        mov_arr = stored_to_float(np.asarray(mov.array), device)
+        resliced = affine_resample(
+            mov_arr, A, tuple(ref.array.shape),
+            background=float(mov_arr.mean(dtype=torch.float64)))
+        shift_zyx, response = phase_correlation(
+            stored_to_float(np.asarray(ref.array), device), resliced,
+            spacing_xyz=ref.spacing, window=window)
+        # resliced(p) = ref(p - d) in ref PIXEL-axis mm; physical
+        # shift = sum_i d_i * matrix_row_i; T'q = T(q + d) composes a
+        # pre-translation in reference physical space
+        d_xyz = shift_zyx[::-1]
+        s_phys = np.asarray(ref.matrix, np.float64).T @ d_xyz
+        info = {"shift_mm": tuple(float(v) for v in s_phys),
+                "response": response}
+        if update:
+            Tr = np.eye(4)
+            Tr[:3, 3] = s_phys
+            combo = np.asarray(self.combo_matrix, np.float64)
+            self.matrix = np.asarray(self.matrix, np.float64) \
+                @ combo @ Tr @ np.linalg.inv(combo)
+            self.misc["phase_correlation"] = info
+            self.update_rois()
+        return info
 
     # -- export and persistence (JAX structure/rigid.py:568-637, 735-768) --
     def export_image(self, path=None):

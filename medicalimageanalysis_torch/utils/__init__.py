@@ -1,7 +1,7 @@
 """Utilities: the synthetic DICOM series writer and in-memory image
 builder, contour and mesh conversion, the external threshold, the Euler
 transform, metrics, dose accumulation and goals, radiobiology, ROI
-margins, the 4D phase tools and the deformable backend.
+margins, the 4D phase tools, the deformable backend and the ICP class.
 
 The exports match the JAX package's utils/__init__.py, lazily. The names
 it exports that the port has not ported yet stand in as callables that
@@ -15,6 +15,7 @@ _LAZY = {
     "DeformableITK": ("deformable.torch_backend", "DeformableITK"),
     "DeformableJAX": ("deformable.torch_backend", "DeformableJAX"),
     "TriMesh": ("mesh.trimesh", "TriMesh"),
+    "ICP": ("rigid.icp", "ICP"),
     "Refinement": ("mesh.surface", "Refinement"),
     "external": ("image.threshold", "external"),
     "contours_from_mask": ("roi.contour", "contours_from_mask"),
@@ -35,7 +36,7 @@ _LAZY = {
 
 _WAITING = {
     **dict.fromkeys(("ModelToMask", "Volume", "clean_mesh", "expansion",
-                     "surface_boundary", "only_main_component", "ICP"),
+                     "surface_boundary", "only_main_component"),
                     "item 9, mesh"),
 }
 

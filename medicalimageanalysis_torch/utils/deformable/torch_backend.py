@@ -3,11 +3,11 @@
 Port of medicalimageanalysis_tpu/utils/deformable/jax_backend.py
 (``DeformableJAX``, the reference's ``DeformableITK`` API): B-spline and
 the demons family, cross-modality gradient correction, mask blurring,
-grid resampling and joint-mask cropping. Volumes are dicts {array,
-origin, spacing, direction} of numpy values, as in the JAX package; the
-compute runs on ``device`` (default: the card when present).
-``elastix`` waits for ``phase_correlation`` (ROADMAP.md queue 1,
-item 7).
+grid resampling, joint-mask cropping and the elastix-parity B-spline
+(``elastix``: ops/registration/bspline.elastix_registration). Volumes
+are dicts {array, origin, spacing, direction} of numpy values, as in the
+JAX package; the compute runs on ``device`` (default: the card when
+present).
 """
 
 from __future__ import annotations
@@ -159,10 +159,35 @@ class DeformableTorch(object):
             moving_mask=mmask, device=self.device)
         return self._dvf_volume(dvf)
 
-    def elastix(self, *args, **kwargs):
-        raise NotImplementedError(
-            "DeformableTorch.elastix: the elastix-parity B-spline needs "
-            "phase_correlation, not ported yet (ROADMAP.md queue 1, item 7)")
+    def elastix(self, parameter=None, metric="Intensity", bins=6,
+                resolution=4, spacing=10, iterations=2000, order=3,
+                crop=5, info=None):
+        """Elastix-parity nonrigid registration (the reference needs a
+        SimpleElastix build, simpleitk.py:131-176): multi-resolution
+        B-spline with Mattes mutual information (``metric`` anything but
+        'Intensity', like the reference's switch) or mean squares, grid
+        and image halving per level; an elastix-style parameter map (or
+        a sequence of stage maps) through ``parameter``. ``order`` is
+        accepted for the reference's signature (cubic always); ``info``
+        receives the levels' shapes and seconds."""
+        from ...ops.registration.bspline import elastix_registration
+
+        if crop > 0:
+            self.mask_crop(margin=crop)
+        fmask = None if self.reference_mask is None \
+            else self.reference_mask["array"]
+        mmask = None if self.moving_mask is None \
+            else self.moving_mask["array"]
+        dvf, _ = elastix_registration(
+            self.reference_image["array"].astype(np.float32),
+            self.moving_image["array"].astype(np.float32),
+            self.reference_image["spacing"], parameter_map=parameter,
+            metric=("mse" if metric == "Intensity" else "mi"),
+            bins=max(int(bins), 8), resolutions=int(resolution),
+            final_grid_spacing=float(spacing),
+            iterations=min(int(iterations), 300), fixed_mask=fmask,
+            moving_mask=mmask, device=self.device, info=info)
+        return self._dvf_volume(dvf)
 
     demons = _demons_method("demons", "Thirion demons (ITK "
                             "DemonsRegistrationFilter).")

@@ -93,12 +93,6 @@ def test_every_public_name_exists_and_stubs_name_their_item(module, name):
 # the names of the image-analysis and IO slices: real callables now, no
 # stand-ins
 PORTED = {
-    ("structure.deformable", "Deformable"): (
-        "compute_aspect", "retrieve_array_plane", "retrieve_grid",
-        "retrieve_offset", "retrieve_scroll_max", "retrieve_slice_location",
-        "retrieve_slice_position"),
-    ("utils", None): ("CreateImageFromMask", "euler_transform",
-                      "find_phase_groups", "combine_phases", "compute_itv"),
     ("parallel.batch", None): ("demons_batch", "radiomics_batch",
                                "n4_batch"),
     # the IO slice's names
@@ -109,8 +103,6 @@ PORTED = {
         "input_seg", "input_mhd", "create_rtstruct", "create_seg",
         "create_nifti", "export_dicom", "save_image", "save_rois",
         "save_pois", "load_rois", "load_pois", "load_image"),
-    ("structure.rigid", "Rigid"): ("create_reg", "export_image",
-                                   "save_rigid", "load_rigid"),
     ("structure.dose", "Dose"): ("create_rtdose", "save_image",
                                  "load_image"),
     ("structure.plan", "Plan"): ("linked_dose_names", "total_beam_meterset",
@@ -130,6 +122,37 @@ PORTED = {
                          "MhdReader"),
     ("reader", None): ("check_memory", "read_mhd", "read_nifti"),
     ("utils.creation", None): ("image_from_saved",),
+    # the image-analysis, IO and registration slices' Rigid, Deformable
+    # and utils names, and the rest of ingest and registration
+    ("structure.rigid", "Rigid"): ("create_reg", "export_image",
+                                   "save_rigid", "load_rigid",
+                                   "auto_register",
+                                   "compute_phase_correlation",
+                                   "compute_landmarks", "compute_icp_vtk",
+                                   "compute_o3d"),
+    ("structure.deformable", "Deformable"): (
+        "compute_aspect", "retrieve_array_plane", "retrieve_grid",
+        "retrieve_offset", "retrieve_scroll_max", "retrieve_slice_location",
+        "retrieve_slice_position", "compute_tps", "roi_mask_union"),
+    ("utils", None): ("CreateImageFromMask", "euler_transform",
+                      "find_phase_groups", "combine_phases", "compute_itv",
+                      "ICP"),
+    ("read", None): ("Read3D", "ReadXRay", "ReadRF", "ReadUS",
+                     "ReadNMPlanar"),
+    ("read.multiframe", None): ("is_enhanced_multiframe",
+                                "expand_multiframe", "FrameView"),
+    ("read.nm", None): ("is_nm_tomo", "expand_nm_tomo", "NMTomoFrameView",
+                        "ReadNMPlanar"),
+    ("ops.bitpack", None): ("pack12", "unpack12_device"),
+    ("ops.registration.phase_correlation", None): ("phase_correlation",),
+    ("ops.registration.tps", None): ("tps_fit", "tps_displacement",
+                                     "tps_displacement_grid"),
+    ("ops.registration.icp", None): ("icp_rigid", "icp_rigid_batch",
+                                     "icp_point_to_plane",
+                                     "icp_point_to_plane_batch", "kabsch",
+                                     "nearest_neighbors"),
+    ("ops.registration.bspline", None): ("elastix_registration",),
+    ("utils.deformable.torch_backend", "DeformableTorch"): ("elastix",),
 }
 PORTED_TOP_LEVEL = ("read_mhd", "MhdReader", "read_nifti", "check_memory")
 

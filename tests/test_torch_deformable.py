@@ -180,10 +180,14 @@ def test_compute_biomechanical_matches_jax(tmp_path):
 
 @pytest.mark.parametrize("method,args", [("compute_tps", ())])
 def test_waiting_methods_name_their_roadmap_item(method, args):
+    """``compute_tps`` is ported (tests/test_torch_tps.py holds it against
+    the JAX package): given half a point pair it raises the JAX package's
+    ValueError. The Display's mesh cut still waits for its ROADMAP.md
+    item."""
     d = tmia.Deformable(device="cpu")
     assert d.deformable_name == "DVF_Unknown"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        getattr(d, method)(*args)
+    with pytest.raises(ValueError, match="together"):
+        getattr(d, method)(*args, points_reference=np.zeros((3, 3)))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         d.display.compute_mesh_slice("PTV")
 
@@ -223,8 +227,9 @@ def test_io_methods_now_work(tmp_path, method):
 
 
 def test_backend_masks_crop_and_blur_match_jax():
-    """The backend's mask handling (unused by Deformable until the port's
-    images carry ROIs) against DeformableJAX."""
+    """The backend's mask handling (what ``roi_names`` feeds it,
+    tests/test_torch_masked_registration.py) and its elastix against
+    DeformableJAX."""
     img = phantom().astype(np.float32)
     mask = np.zeros(SHAPE, np.float32)
     mask[4:12, 8:24, 6:20] = 1.0
@@ -249,5 +254,10 @@ def test_backend_masks_crop_and_blur_match_jax():
         assert a.shape == b.shape == (12, 20, 20)
         np.testing.assert_allclose(a, b, rtol=1e-5,
                                    atol=1e-5 * np.abs(b).max())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t.elastix()
+    # elastix is ported: on the cropped, masked pair, mean squares, the
+    # field within tests/test_torch_bspline.py's 0.05 mm
+    out_t, out_j = (b.elastix(resolution=1, spacing=12, iterations=5,
+                              crop=0) for b in (t, j))
+    assert out_t["array"].shape == (12, 20, 20, 3)
+    np.testing.assert_array_equal(out_t["origin"], out_j["origin"])
+    assert np.abs(out_t["array"] - np.asarray(out_j["array"])).max() < 0.05

@@ -135,8 +135,18 @@ def test_assemble_volume_matches_jax(dtype, out_dtype, slope, intercept):
 
 
 def test_unported_modality_raises_with_roadmap_item(tmp_path):
+    """A folder of US objects used to raise here, naming ROADMAP.md queue
+    1 item 2; the planar readers are ported now, so it reads as the JAX
+    package reads it (one image per file, tests/test_torch_planar.py
+    holds every planar modality)."""
     rng = np.random.default_rng(8)
     write(tmp_path / "us", rng.integers(0, 200, size=(2, 6, 6))
           .astype(np.int16), modality="US")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tmia.read_dicoms(folder_path=str(tmp_path), device="cpu")
+    tmia.read_dicoms(folder_path=str(tmp_path), device="cpu")
+    jmia.read_dicoms(folder_path=str(tmp_path))
+    assert TData.image_list == JData.image_list == ["US 01", "US 02"]
+    for name in TData.image_list:
+        t, j = TData.image[name], JData.image[name]
+        assert t.array.dtype == np.uint8 and t.array.shape == (1, 6, 6)
+        np.testing.assert_array_equal(t.array, np.asarray(j.array))
+        np.testing.assert_array_equal(t.spacing, j.spacing)
