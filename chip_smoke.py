@@ -60,7 +60,18 @@ runs the ROI mesh path
         Dose.compute_isodose_contours -> Rigid.update_translation and
         Deformable.update_rois with visible meshes (the coords mode)
 
-on the dose-QA folder, and after it the image-analysis path
+on the dose-QA folder, then the rest of the mesh slice on its meshes
+
+    ops.voxelize.voxelize_mesh_device / voxelize_batch (each mesh against
+        the host float64 twin) -> Roi.compute_mask of a mesh-only ROI
+        (CreateImageFromMask.add_mesh_roi) -> Dose.evaluate_constraints
+        and Deformable.compute_demons masked by mesh-only ROIs ->
+        Rigid / Deformable Display.compute_mesh_slice (the coords mode)
+        -> TriMesh.save / read_stl / read_vtk / read_ply / read_obj /
+        read_3mf (ModelToMask) -> clean_mesh, the self-intersection
+        repair, expansion, Refinement's splits, Volume.create
+
+and after it the image-analysis path
 
     Image.resample_to (the CT onto the dose grid and back) /
         create_rotated_volume / compute_projection (MIP, mean, DRR) ->
@@ -195,6 +206,15 @@ GAMMA_SCALE = 1.05
 GAMMA_BRUTE_VOXELS = 2000
 MARGIN_MM = 5.0
 EXTERNAL_HU = -250                          # create_external's default
+# the rest of the mesh slice (phase_mesh_rest): a voxel where the card's
+# voxelization differs from the float64 twin must have its center within
+# this many pixels of the mesh (on the surface); a mesh of more points
+# than TEXT_MESH_POINTS (the Body, the lungs) is written and read in the
+# binary formats only: the text formats' Python line loops run at 10-25
+# MB/s, seconds a format at these sizes
+TIE_DISTANCE_PX = 1e-3
+TEXT_MESH_POINTS = 100_000
+BINARY_MESH_FORMATS = ("stl_binary", "ply_binary_colors")
 # the image-analysis path (phase_image_analysis). PET: a whole-body PT
 # series (Z, Y, X) at [sx, sy, sz] mm, stored int16 with a rescale slope,
 # START decay over one hour, three hot spheres ((x, y, z) mm from the
@@ -472,13 +492,17 @@ def plain_program_rows(profiles, plan, mesh_work, analysis_work):
     the external's mask: the uint8 mask read, float32 points and int32
     faces written. taubin_smooth of its mesh (40 umbrella steps): float64
     points and int32 faces read, points written; per step 3 adds per
-    directed edge and 12 float64 operations per point. One N4 level of
-    the MR (shrink 4): res, total and w read, res and total written; the
-    float32 operations of the B-spline contractions it ran (counted per
-    call). texture_matrices of the PTV's crop: int32 levels and the bool
-    mask read once; per voxel 10 + 3 ceil(log2 Lmax) operations for each
-    of the 13 directions and 7 for each of the 26 neighbours, integer and
-    boolean operations counted at the float32 rate."""
+    directed edge and 12 float64 operations per point. The voxelization
+    of the external's mesh (one voxelize_mesh_device call): float32
+    vertices and int32 faces and sideband read, the uint8 mask written;
+    40 float32 and integer operations per (triangle, window pixel) pair.
+    One N4 level of the MR (shrink 4): res, total and w read, res and
+    total written; the float32 operations of the B-spline contractions it
+    ran (counted per call). texture_matrices of the PTV's crop: int32
+    levels and the bool mask read once; per voxel 10 + 3 ceil(log2 Lmax)
+    operations for each of the 13 directions and 7 for each of the 26
+    neighbours, integer and boolean operations counted at the float32
+    rate."""
     Z, Y, X = plan["edt_shape"]
     n = Z * Y * X
     w = plan["gamma_work"]
@@ -498,6 +522,10 @@ def plain_program_rows(profiles, plan, mesh_work, analysis_work):
             bound(48 * tb["points"] + 12 * tb["faces"],
                   tb["steps"] * (6 * tb["edges"] + 12 * tb["points"]),
                   F64_OPS_PER_S))}
+    vx = mesh_work["voxelize"]
+    work["voxelize"] = ("medicalimageanalysis_tpu/ops/voxelize.py:496",
+                        bound(12 * vx["points"] + 24 * vx["faces"]
+                              + vx["voxels"], 40 * vx["pairs"]))
     n4w, tex = analysis_work["n4_level"], analysis_work["texture_matrices"]
     work["n4_level"] = ("medicalimageanalysis_tpu/ops/n4.py:203",
                         bound(20 * n4w["voxels"], n4w["ops"]))
@@ -516,6 +544,7 @@ def plain_program_rows(profiles, plan, mesh_work, analysis_work):
     rows["compute_gamma"]["search_offsets"] = w["offsets"]
     rows["marching_tetrahedra"].update(mc)
     rows["taubin_smooth"].update(tb)
+    rows["voxelize"].update(vx)
     rows["n4_level"].update(n4w)
     rows["texture_matrices"].update(tex)
     return rows
@@ -2285,7 +2314,8 @@ def recording_warp_calls(calls):
 def warp_path_rows(calls):
     """The warp kernels at each key recorded by recording_warp_calls, on
     those tensors: held bit-equal to the plain twin, timed, with the bound
-    of their work (warp_bound) and F.grid_sample at the same points
+    of their work (warp_bound; for a list of points, the field voxels
+    their taps touch) and F.grid_sample at the same points
     (library_sample_ms). Returns {kernel: {timed_key: row}}."""
     from medicalimageanalysis_torch.ops.warp import (MAX_B, affine_coords,
                                                      warp_affine_plain,
@@ -2314,6 +2344,13 @@ def warp_path_rows(calls):
         row["bound_ms"], row["bound_by"] = warp_bound(
             args[0][0].numel(), math.prod(shape), B,
             0 if name == "warp_affine" else 3, want)
+        if name == "warp_coords" and tuple(shape[:2]) == (1, 1):
+            # points (a mesh warp): the field voxels their taps touch,
+            # read once, as phase_mesh_warp bounds the external's
+            n = math.prod(shape)
+            row["taps"] = mesh_taps(*args[:4])
+            row["bound_ms"], row["bound_by"] = bound(
+                4 * (B * row["taps"] + 3 * n + B * n), B * 30 * n)
         if name == "warp_coords":
             cz, cy, cx = args[1:4]
         elif name == "warp_affine":
@@ -2331,6 +2368,22 @@ def warp_path_rows(calls):
         out.setdefault(name, {})[key] = row
     torch.cuda.empty_cache()
     return out
+
+
+def merge_warp_rows(kernels, path_rows, label):
+    """A path's warp rows (warp_path_rows) into the kernel rows: timed
+    rows weigh the path's launches in ms_lost, each beside the synthetic
+    field's time at its key, and the kernel's row lists them under
+    ``label``."""
+    for name, rows in path_rows.items():
+        for key, row in rows.items():
+            synthetic = kernels[name]["timed"].get(key)
+            row["synthetic_field_ms"] = None if synthetic is None \
+                else synthetic["ms"]
+            kernels[name]["max_abs_err"] = max(
+                kernels[name]["max_abs_err"], max(row["max_abs_err"]))
+        kernels[name]["timed"].update(rows)
+        kernels[name][label] = list(rows.values())
 
 
 def carry_meshes(image, meshes, poi):
@@ -2542,7 +2595,7 @@ def phase_roi_mesh(names, img_name, dose_name, rigid, dev):
 
     return dict(deform=deform, body_mask=body_mask,
                 body_discrete=body_discrete, external=ext, work=work,
-                cleanup=cleanup)
+                meshes=meshes, cleanup=cleanup)
 
 
 def mesh_taps(planar, cz, cy, cx):
@@ -2617,6 +2670,398 @@ def phase_mesh_warp(path, dev):
     path.clear()
     torch.cuda.empty_cache()
     return dict(kernel_row=row, profiles=profiles, work=work)
+
+
+def voxel_pixels(img, mesh):
+    """A mesh's points (mm) as pixel coordinates on ``img``'s grid, as
+    Roi.compute_mask converts them."""
+    from medicalimageanalysis_torch.ops import geometry as geo
+
+    p2pix = geo.position_to_pixel_matrix(img.matrix, img.spacing, img.origin)
+    return np.asarray(mesh.points, np.float64) @ p2pix[:3, :3].T \
+        + p2pix[:3, 3]
+
+
+def surface_ties(pts, faces, got, want):
+    """The voxels where the card's mask ``got`` differs from the float64
+    twin's ``want``, each held to be on the surface: its center within
+    TIE_DISTANCE_PX pixels of the mesh (``pts`` in pixels), where the
+    float32 and float64 geometries may decide inside and outside apart.
+    Returns the count."""
+    from medicalimageanalysis_torch.utils.mesh.trimesh import TriMesh
+    from medicalimageanalysis_torch.utils.mesh.volume import (
+        _surface_closest)
+
+    at = np.argwhere(got != want)
+    if len(at):
+        dist, _ = _surface_closest(at[:, ::-1].astype(np.float64),
+                                   TriMesh(pts, faces))
+        assert dist.max() <= TIE_DISTANCE_PX, \
+            f"{int((dist > TIE_DISTANCE_PX).sum())} of {len(at)} " \
+            f"differing voxels lie off the surface (up to {dist.max()} px)"
+    return int(len(at))
+
+
+def mesh_file_rows(name, mesh, folder, only=None):
+    """``mesh`` written and read back in every mesh format (or those in
+    ``only``): rows of MB, ms and MB/s each way and the largest point
+    error against the mesh written. Points and faces must read back
+    equal: exactly (OBJ), the float32 cast of each coordinate (binary STL
+    and PLY), within the writers' decimal digits (%g: ASCII STL, VTK;
+    .9g: ASCII PLY, 3MF).
+    STL welds its vertices on reading, so it is held by its triangles'
+    corners, face by face."""
+    from medicalimageanalysis_torch.read import mf3, obj, ply, stl, vtk
+
+    def digits(b, n):
+        """Half a unit in the n-th significant digit of each value."""
+        mag = np.floor(np.log10(np.maximum(np.abs(b), 1e-30)))
+        return 0.5 * 10.0 ** (mag - n + 1) * (1 + 1e-9) + 1e-300
+
+    def triangles(m):
+        return m.points[m.faces].reshape(len(m.faces), 9)
+
+    def read_3mf_mesh(path):
+        import xml.etree.ElementTree as ET
+        import zipfile
+        ns = {"m": "http://schemas.microsoft.com/3dmanufacturing/"
+                   "core/2015/02"}
+        root = ET.parse(zipfile.ZipFile(path).open("3D/3dmodel.model"))
+        pts = np.array([[float(v.get(k)) for k in "xyz"]
+                        for v in root.iterfind(".//m:vertex", ns)])
+        tris = np.array([[int(t.get(k)) for k in ("v1", "v2", "v3")]
+                         for t in root.iterfind(".//m:triangle", ns)])
+        return type(mesh)(pts, tris)
+
+    f32 = mesh.points.astype(np.float32).astype(np.float64)
+    formats = {
+        "stl_binary": (stl.write_stl, stl.read_stl, {}, "stl", f32),
+        "stl_ascii": (stl.write_stl, stl.read_stl, {"binary": False},
+                      "stl", 6),
+        "vtk": (vtk.write_vtk_polydata, vtk.read_vtk_polydata, {}, "vtk", 6),
+        "ply_binary_colors": (ply.write_ply, ply.read_ply, {}, "ply", f32),
+        "ply_ascii": (ply.write_ply, ply.read_ply, {"binary": False}, "ply",
+                      9),
+        "obj": (obj.write_obj, obj.read_obj, {}, "obj", mesh.points),
+        "3mf": (mf3.write_3mf, read_3mf_mesh, {}, "3mf", 9)}
+    rows = {}
+    for fmt, (write, read, kw, ext, want) in formats.items():
+        if only is not None and fmt not in only:
+            continue
+        path = os.path.join(folder, f"{name}_{fmt}.{ext}")
+        t0 = time.perf_counter()
+        write(path, mesh, **kw)
+        t1 = time.perf_counter()
+        back = read(path)
+        t2 = time.perf_counter()
+        mb = os.path.getsize(path) / 1e6
+        if ext == "stl":
+            ref = triangles(type(mesh)(want if not isinstance(want, int)
+                                       else mesh.points, mesh.faces))
+            got = triangles(back)
+        else:
+            assert np.array_equal(back.faces, mesh.faces), (name, fmt)
+            ref = mesh.points if isinstance(want, int) else want
+            got = back.points
+        assert got.shape == ref.shape, (name, fmt, got.shape, ref.shape)
+        err = np.abs(got - ref)
+        if isinstance(want, int):
+            assert np.all(err <= digits(ref, want)), (name, fmt)
+        else:
+            assert np.array_equal(got, ref), (name, fmt)
+        if fmt in ("ply_binary_colors", "obj"):
+            assert np.array_equal(back.point_data["colors"],
+                                  mesh.point_data["colors"]), (name, fmt)
+        os.remove(path)
+        rows[fmt] = dict(mb=mb, write_ms=1e3 * (t1 - t0),
+                         read_ms=1e3 * (t2 - t1),
+                         write_mb_s=mb / max(t1 - t0, 1e-9),
+                         read_mb_s=mb / max(t2 - t1, 1e-9),
+                         max_err_mm=float(err.max()) if err.size else 0.0)
+    return rows
+
+
+def phase_mesh_rest(path, names, img_name, dose_name, rigid, dev):
+    """The rest of the mesh slice on the ROI mesh path's 8 meshes on the
+    reference CT (128 x 512 x 512), the fitted Rigid and the demons
+    Deformable: each mesh voxelized on the card (ops/voxelize, plain
+    PyTorch), alone and all 8 in one voxelize_batch, the heart in all
+    three planes, each held bit-equal to the host float64 twin but at
+    on-surface ties (counted); a mesh-only ROI (CreateImageFromMask +
+    add_mesh_roi of the PTV's mesh): its compute_mask, its DVH goals
+    against readings on the card, and a compute_demons masked by a
+    mesh-only ROI on both images; the Rigid and Deformable Displays'
+    mesh cuts through the heart on three planes (the Deformable's through
+    update_rois: one warp_coords launch); every ROI mesh written and
+    read back as STL, VTK, PLY, OBJ and 3MF (the Body's and the lungs'
+    in the binary formats); read_3mf of the heart; clean_mesh, the
+    self-intersection search and repair, only_main_component, expansion,
+    Refinement's four splits and Volume(...).create() on the heart. The
+    launch window is the whole phase; after it the Deformable cut's warp
+    runs again, recorded, and is held and timed on its own tensors.
+    Returns the window's launches and shapes, the warp rows, the profile
+    of one voxelization (the external) and the work sizes of its bound."""
+    import medicalimageanalysis_torch as mia
+    from medicalimageanalysis_torch.data import Data
+    from medicalimageanalysis_torch.ops.voxelize import (
+        voxelize_batch, voxelize_mesh_device)
+    from medicalimageanalysis_torch.ops.warp import LAUNCHES
+    from medicalimageanalysis_torch.utils.convert.voxelize import (
+        host_voxelize)
+    from medicalimageanalysis_torch.utils.creation import (
+        CreateImageFromMask)
+    from medicalimageanalysis_torch.utils.mesh import surface
+    from medicalimageanalysis_torch.utils.mesh.volume import Volume
+    from medicalimageanalysis_torch.utils.metrics import dice_coefficient
+
+    t_phase = time.perf_counter()
+    registry = {k: (dict(v) if isinstance(v, dict) else list(v))
+                for k, v in registry_state().items()}
+    img, dose = Data.image[img_name], Data.dose[dose_name]
+    meshes = path["meshes"]
+    dims = tuple(int(v) for v in img.dimensions)
+    out = {}
+
+    def timed(fn):
+        sync(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        sync(dev)
+        return res, 1e3 * (time.perf_counter() - t0)
+
+    # -- voxelization on the card, each mesh against the float64 twin
+    pixels = {n: voxel_pixels(img, m) for n, m in meshes.items()}
+    singles, rows = {}, {}
+    for n, m in meshes.items():
+        stats = {}
+        got, ms = timed(lambda: voxelize_mesh_device(
+            pixels[n], m.faces, dims, device=dev, stats=stats))
+        want, host_ms = timed(lambda: host_voxelize(
+            pixels[n], np.asarray(m.faces, np.int64), dims, "Axial"))
+        ties = surface_ties(pixels[n], m.faces, got, want)
+        singles[n] = got
+        rows[n] = dict(points=m.n_points, faces=m.n_cells, ms=ms,
+                       host_ms=host_ms, big_faces=stats["big_faces"],
+                       crop_bytes=stats["crop_bytes"], pairs=stats["pairs"],
+                       upload_bytes=stats["upload_bytes"],
+                       voxels=int(want.sum()), ties=ties)
+        assert want.sum() > 0 and stats["big_faces"] == 0, (n, rows[n])
+    order = list(meshes)
+    batch_stats = {}
+    batch, batch_ms = timed(lambda: voxelize_batch(
+        [(pixels[n], meshes[n].faces) for n in order], dims, device=dev,
+        stats=batch_stats))
+    for b, n in enumerate(order):
+        assert np.array_equal(batch[b], singles[n]), f"batch {n} != single"
+    del batch
+    planes = {}
+    organ = "Heart"
+    for plane in PLANES:
+        faces = np.asarray(meshes[organ].faces, np.int64)
+        got, ms = timed(lambda: voxelize_mesh_device(
+            pixels[organ], faces, dims, plane=plane, device=dev))
+        want, host_ms = timed(lambda: host_voxelize(
+            pixels[organ], faces, dims, plane))
+        planes[plane] = dict(ms=ms, host_ms=host_ms, voxels=int(want.sum()),
+                             ties=surface_ties(pixels[organ], faces, got,
+                                               want))
+    ext = meshes["External"]
+    work = dict(points=ext.n_points, faces=ext.n_cells,
+                pairs=rows["External"]["pairs"], voxels=int(np.prod(dims)),
+                crop_bytes=rows["External"]["crop_bytes"])
+    profile = profile_device(lambda: voxelize_mesh_device(
+        pixels["External"], ext.faces, dims, device=dev, as_numpy=False))
+    marks = {"voxelize": time.perf_counter()}
+    out["voxelize"] = dict(per_mesh=rows, batch_ms=batch_ms,
+                           batch_crop_bytes=batch_stats["crop_bytes"],
+                           batch_equal_to_single=True, planes=planes,
+                           organ=organ)
+
+    # -- a mesh-only ROI: CreateImageFromMask + add_mesh_roi of the PTV's
+    # mesh, its mask, its DVH goals; a demons masked by a mesh-only ROI
+    ptv = img.rois["PTV"].compute_mask()
+    fake = CreateImageFromMask(ptv.astype(np.int16), np.asarray(img.origin),
+                               list(np.asarray(img.spacing)), "PTV mesh")
+    fake.add_image()
+    fake.add_mesh_roi(meshes["PTV"], "PTV_mesh")
+    roi = Data.image["PTV mesh"].rois["PTV_mesh"]
+    assert roi.contour_pixel is None
+    mask, mask_ms = timed(roi.compute_mask)
+    assert np.array_equal(mask, singles["PTV"]), "mesh-only mask"
+    goals, goals_ms = timed(lambda: dose.evaluate_constraints(
+        {"PTV_mesh": PLAN_GOALS["PTV"]}, image_name="PTV mesh"))
+    voxel_cc = float(np.prod(img.spacing)) / 1000.0
+    with uncounted():
+        d = torch.as_tensor(dose.compute_roi_dose_array(
+            "PTV mesh", "PTV_mesh"), dtype=torch.float32, device=dev)
+    goal_err = 0.0
+    for g in goals:
+        want, tol = device_goal(g["metric"], g["unit"], d, voxel_cc)
+        err = abs(g["value"] - want)
+        assert err <= tol * max(1.0, abs(want)), (g, want, tol)
+        goal_err = max(goal_err, err)
+    del d
+    for n in (names["ref"], names["deformed"]):
+        Data.image[n].create_roi(name="PTV_shell", visible=False)
+        Data.image[n].rois["PTV_shell"].update_mesh(meshes["PTV"].copy())
+    masked = mia.Deformable(reference_name=names["ref"],
+                            moving_name=names["deformed"],
+                            roi_names=["PTV_shell"], device=dev)
+    (ref_mask, mov_mask), union_ms = timed(masked.roi_mask_union)
+    assert np.array_equal(ref_mask, singles["PTV"]) \
+        and np.array_equal(mov_mask, singles["PTV"]), "mesh-only union"
+    dinfo, dem_ms = timed(lambda: masked.compute_demons(
+        method="fast", pyramid=DEMONS_PYRAMID))
+    fixed = Data.image[names["ref"]].array.astype(np.float32)
+    moving = Data.image[names["deformed"]].array.astype(np.float32)
+    warped = masked.create_image()["array"]
+    keep = (ref_mask > 0) & (warped != -3001.0)
+    in_mask = float(np.abs(warped - fixed)[keep].mean()
+                    / np.abs(moving - fixed)[keep].mean())
+    assert in_mask < 1.0, in_mask
+    out["mesh_only_roi"] = dict(
+        mask_ms=mask_ms, voxels=int(mask.sum()),
+        dice_with_contoured=float(dice_coefficient(mask, ptv)),
+        goals_ms=goals_ms, goals=len(goals), goal_max_err=goal_err,
+        union_ms=union_ms, masked_demons_ms=dem_ms,
+        level_shapes=dinfo["level_shapes"],
+        residual_ratio_in_mask=in_mask)
+    del ptv, mask, warped, fixed, moving
+    marks["mesh_only_roi"] = time.perf_counter()
+
+    # -- the Displays' mesh cuts through the heart on three planes
+    to_ref = np.linalg.inv(np.asarray(rigid.matrix @ rigid.combo_matrix))
+    carried = meshes[organ].transform(to_ref, inplace=False)
+    rigid.rois.pop(organ, None)
+    cuts = {}
+    for plane in PLANES:
+        loops, ms = timed(lambda: rigid.display.compute_mesh_slice(
+            organ, location=carried.center, slice_plane=plane))
+        normal = np.asarray(rigid.display.matrix)[
+            :3, {"Axial": 2, "Coronal": 1}.get(plane, 0)]
+        direct = carried.slice_plane(normal, carried.center)
+        assert len(loops.loops) == len(direct) > 0, (plane, len(direct))
+        for a, b in zip(loops.loops, direct):
+            assert np.allclose(a, b, rtol=0, atol=1e-9), plane
+        cuts[f"rigid_{plane}"] = dict(ms=ms, loops=len(direct),
+                                      points=int(loops.number_of_points))
+    deform = path["deform"]
+    deform.rois[organ] = None
+    before = LAUNCHES["warp_coords"]
+    for plane in PLANES:
+        loops, ms = timed(lambda: deform.display.compute_mesh_slice(
+            organ, location=meshes[organ].center, slice_plane=plane))
+        assert len(loops.loops) > 0, plane
+        cuts[f"deformable_{plane}"] = dict(
+            ms=ms, loops=len(loops.loops),
+            points=int(loops.number_of_points))
+    cut_launches = LAUNCHES["warp_coords"] - before
+    # one warp of the heart's mesh for the three cuts (a CPU rehearsal
+    # runs the plain twin)
+    assert cut_launches == 1 or torch.device(dev).type == "cpu", \
+        cut_launches
+    out["mesh_cuts"] = dict(organ=organ, coords_launches=cut_launches,
+                            **cuts)
+    marks["mesh_cuts"] = time.perf_counter()
+
+    # -- mesh IO: every ROI mesh in every format, those of more than
+    # TEXT_MESH_POINTS points in the binary ones
+    rng = np.random.default_rng(SEED)
+    io_rows = {}
+    with tempfile.TemporaryDirectory(prefix="mia_mesh_") as tmp:
+        for n in [k for k in meshes if k != "External"]:
+            m = meshes[n].copy()
+            m["colors"] = rng.integers(0, 256, (m.n_points, 3)).astype(
+                np.uint8)
+            io_rows[n] = mesh_file_rows(
+                n, m, tmp, only=BINARY_MESH_FORMATS
+                if m.n_points > TEXT_MESH_POINTS else None)
+        path_3mf = os.path.join(tmp, "heart.3mf")
+        meshes[organ].save(path_3mf)
+        reader, read_ms = timed(lambda: mia.read_3mf(path_3mf,
+                                                     roi_name="Heart_3mf"))
+    fake3 = Data.image[reader.image_name]
+    assert reader.image_name in Data.image_list
+    roi3 = fake3.rois["Heart_3mf"]
+    mask3, mask3_ms = timed(roi3.compute_mask)
+    px3 = voxel_pixels(fake3, roi3.mesh)
+    want3 = host_voxelize(px3, np.asarray(roi3.mesh.faces, np.int64),
+                          fake3.dimensions, "Axial")
+    ties3 = surface_ties(px3, roi3.mesh.faces, mask3, want3)
+    assert mask3.sum() > 0
+    out["mesh_io"] = dict(per_mesh=io_rows, read_3mf=dict(
+        ms=read_ms, image=reader.image_name,
+        dims=[int(v) for v in fake3.dimensions],
+        spacing=[float(v) for v in fake3.spacing], mask_ms=mask3_ms,
+        voxels=int(mask3.sum()), ties=ties3,
+        points=roi3.mesh.n_points))
+    marks["mesh_io"] = time.perf_counter()
+
+    # -- repair and tets on the heart
+    heart = meshes[organ]
+    rep = {}
+    cleaned, rep["clean_mesh_ms"] = timed(lambda: surface.clean_mesh(heart))
+    bad, rep["find_self_intersections_ms"] = timed(
+        lambda: surface.find_self_intersections(heart))
+    fixed_mesh, rep["remove_self_intersections_ms"] = timed(
+        lambda: surface.remove_self_intersections(heart, device=dev))
+    main, rep["only_main_component_ms"] = timed(
+        lambda: surface.only_main_component(heart))
+    # the normal offset alone: on a marching-tetrahedra surface its
+    # self-intersections' repair erodes the shell (the JAX package's
+    # expansion docstring), so fix_intersections stays off
+    grown, rep["expansion_ms"] = timed(lambda: surface.expansion(
+        heart, 2.0, device=dev))
+    assert bad.size == 0 and fixed_mesh.n_cells == cleaned.n_cells
+    assert grown.volume > heart.volume and main.n_points == heart.n_points
+    ref = surface.Refinement(heart)
+    split, rep["tri_split_ms"] = timed(ref.tri_split)
+    adv, rep["advanced_split_ms"] = timed(
+        lambda: surface.Refinement(heart).advanced_split(area_factor=1.5))
+    _, rep["find_face_correction_ms"] = timed(ref.find_face_correction)
+    (mids, edges), rep["compute_midpoints_ms"] = timed(ref.compute_midpoints)
+    assert split.n_points == heart.n_points + len(ref.correct_faces)
+    assert np.allclose(mids, (heart.points[edges[:, 0]]
+                              + heart.points[edges[:, 1]]) / 2)
+    tets, rep["volume_create_ms"] = timed(lambda: Volume(heart).create())
+    ratio = tets.volume / heart.volume
+    min_dihedral = float(tets.dihedral_angles().min())
+    assert 0.94 <= ratio <= 1.03 and min_dihedral >= 8.0, \
+        (ratio, min_dihedral)
+    out["repair"] = dict(
+        points=heart.n_points, faces=heart.n_cells,
+        cleaned_faces=cleaned.n_cells, self_intersections=int(bad.size),
+        repaired_faces=fixed_mesh.n_cells, main_points=main.n_points,
+        expanded_cc=grown.volume / 1e3, tri_split_faces=split.n_cells,
+        advanced_split_faces=adv.n_cells, midpoints=len(mids),
+        tets=tets.n_cells, tet_over_surface_volume=ratio,
+        min_dihedral_deg=min_dihedral, **rep)
+
+    launches, shapes = launch_counts(), launch_shapes()
+    marks["repair"] = time.perf_counter()
+    seconds = marks["repair"] - t_phase
+    out["section_s"] = {k: v - p for (k, v), p in zip(
+        marks.items(), [t_phase] + list(marks.values())[:-1])}
+
+    # after the window: the Deformable cut's warp again, recorded, held
+    # bit-equal to the plain twin and timed on its own tensors
+    calls = {}
+    with uncounted():
+        with recording_warp_calls(calls):
+            deform.rois[organ] = None
+            deform.display.compute_mesh_slice(
+                organ, location=meshes[organ].center, slice_plane="Axial")
+        warp_rows = warp_path_rows(calls) \
+            if torch.device(dev).type == "cuda" else {}
+    drop_structures(["PTV_mesh", "PTV_shell", "Heart_3mf"])
+    set_registry(registry)
+    for n in (names["ref"], names["deformed"]):
+        getattr(Data.image[n], "_roi_mask_cache", {}).pop("PTV_shell", None)
+    torch.cuda.empty_cache()
+    emit("mesh_rest", seconds=seconds, shape=list(SHAPE), meshes=len(meshes),
+         launches=launches, **out)
+    return dict(launches=launches, shapes=shapes, warp_rows=warp_rows,
+                profile=profile, work=work)
 
 
 def shear_against_exact(shear, exact, dev):
@@ -5122,7 +5567,15 @@ def main():
         mesh_path = phase_roi_mesh(names, img_name, dose_name, rigid, dev)
         roi_mesh_launches = launch_counts()  # ... and ends here
         shapes["roi_mesh"] = launch_shapes()
+        reset_counts()                     # the rest of the mesh slice
+        mesh_rest = phase_mesh_rest(mesh_path, names, img_name, dose_name,
+                                    rigid, dev)
+        mesh_rest_launches = mesh_rest["launches"]  # ... ends in it
+        shapes["mesh_rest"] = mesh_rest["shapes"]
+        # the Deformable cut's warp on its own tensors, as below
+        merge_warp_rows(kernels, mesh_rest.pop("warp_rows"), "mesh_rest")
         mesh = phase_mesh_warp(mesh_path, dev)
+        mesh["work"]["voxelize"] = mesh_rest.pop("work")
         del mesh_path
         # the mesh warp's launch at the external's points, timed
         row = mesh["kernel_row"]
@@ -5146,15 +5599,7 @@ def main():
         with recording_warp_calls(calls):
             for rerun in analysis.pop("warp_calls").values():
                 rerun()
-        for name, rows in warp_path_rows(calls).items():
-            for key, row in rows.items():
-                synthetic = kernels[name]["timed"].get(key)
-                row["synthetic_field_ms"] = None if synthetic is None \
-                    else synthetic["ms"]
-                kernels[name]["max_abs_err"] = max(
-                    kernels[name]["max_abs_err"], max(row["max_abs_err"]))
-            kernels[name]["timed"].update(rows)
-            kernels[name]["image_analysis"] = list(rows.values())
+        merge_warp_rows(kernels, warp_path_rows(calls), "image_analysis")
         del calls
         reset_counts()                     # the IO path starts here
         io = phase_io(folder, names, img_name, dose_name, rigid, dev)
@@ -5169,15 +5614,7 @@ def main():
                     "launches_untimed_shapes"):
             hist_k[key] += row[key]
         hist_k["io"] = row
-        for name, rows in io["warp_rows"].items():
-            for key, row in rows.items():
-                synthetic = kernels[name]["timed"].get(key)
-                row["synthetic_field_ms"] = None if synthetic is None \
-                    else synthetic["ms"]
-                kernels[name]["max_abs_err"] = max(
-                    kernels[name]["max_abs_err"], max(row["max_abs_err"]))
-            kernels[name]["timed"].update(rows)
-            kernels[name]["io"] = list(rows.values())
+        merge_warp_rows(kernels, io["warp_rows"], "io")
         torch.cuda.empty_cache()
         reset_counts()                     # the ingest_rest path starts
         phase_ingest_rest(folder, names, cpu_gen, dev)
@@ -5188,15 +5625,7 @@ def main():
         registration_rest_launches = reg["launches"]  # ... ends in it
         shapes["registration_rest"] = reg["shapes"]
         # its warp launches on its own tensors, as above
-        for name, rows in reg.pop("warp_rows").items():
-            for key, row in rows.items():
-                synthetic = kernels[name]["timed"].get(key)
-                row["synthetic_field_ms"] = None if synthetic is None \
-                    else synthetic["ms"]
-                kernels[name]["max_abs_err"] = max(
-                    kernels[name]["max_abs_err"], max(row["max_abs_err"]))
-            kernels[name]["timed"].update(rows)
-            kernels[name]["registration_rest"] = list(rows.values())
+        merge_warp_rows(kernels, reg.pop("warp_rows"), "registration_rest")
         torch.cuda.empty_cache()
         reset_counts()                     # the view path starts here
         view = phase_view(names, rigid, dev)
@@ -5223,6 +5652,10 @@ def main():
         f"a kernel of the plan-QA path never launched: {plan_qa_launches}"
     assert roi_mesh_launches["warp_coords"], \
         f"the ROI mesh path never launched warp_coords: {roi_mesh_launches}"
+    assert all(mesh_rest_launches[k] for k in
+               ("warp_affine", "warp_coords", "warp_disp")), \
+        f"a kernel of the mesh_rest path never launched: " \
+        f"{mesh_rest_launches}"
     assert all(image_analysis_launches[k] for k in
                ("warp_affine", "warp_coords", "warp_disp")), \
         f"a kernel of the image-analysis path never launched: " \
@@ -5248,12 +5681,12 @@ def main():
     assert oblique_launches == dict(
         {k: 0 for k in oblique_launches}, warp_coords=1,
         warp_affine_shear=1), oblique_launches
-    # every kernel's launches on the eleven paths, and the warp launches
+    # every kernel's launches on the twelve paths, and the warp launches
     # by shape over them
     paths = (rigid_launches, cohort_launches, deformable_launches,
              dose_qa_launches, plan_qa_launches, roi_mesh_launches,
-             image_analysis_launches, io_launches, ingest_rest_launches,
-             registration_rest_launches, view_launches)
+             mesh_rest_launches, image_analysis_launches, io_launches,
+             ingest_rest_launches, registration_rest_launches, view_launches)
     launches = {k: sum(p[k] for p in paths) for k in rigid_launches}
     all_shapes = {}
     for per_path in shapes.values():
@@ -5326,8 +5759,9 @@ def main():
                      RIGID_LEVELS[0][2]),),
             intensity_scale=1.0 / 65535.0), ["warp_coords"]),
         # the ROI mesh path: a mesh build (the external), the
-        # marching-tetrahedra pass, the Taubin smoothing, the mesh warp
-        **mesh["profiles"],
+        # marching-tetrahedra pass, the Taubin smoothing, the mesh warp;
+        # the external's voxelization (mesh_rest)
+        **mesh["profiles"], "voxelize": mesh_rest["profile"],
         # the image-analysis path: the MR's first N4 fitting level (up to
         # 50 iterations) and the PTV's texture_matrices, plain PyTorch
         **{name: profile_device(fn)
@@ -5358,6 +5792,7 @@ def main():
          launches_dose_qa_path=dose_qa_launches,
          launches_plan_qa_path=plan_qa_launches,
          launches_roi_mesh_path=roi_mesh_launches,
+         launches_mesh_rest_path=mesh_rest_launches,
          launches_image_analysis_path=image_analysis_launches,
          launches_io_path=io_launches,
          launches_ingest_rest_path=ingest_rest_launches,

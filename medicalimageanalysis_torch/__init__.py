@@ -22,6 +22,8 @@ the JAX package's layout and names; the slices ported so far cover
     mia.read_dicoms(folder_path=...)              # + SEG, REG, RTPLAN
     mia.Data.image["CT 01"].create_seg(path=...)  # and the other writers
     mia.read_nifti(path); mia.read_mhd(path)      # NIfTI, MetaImage
+    mia.read_stl(path); mia.read_3mf(path)        # and VTK, PLY, OBJ meshes
+    roi.compute_mask()                            # a mesh-only ROI: voxelized
 
 Every entry point runs on the card unless the caller passes
 ``device="cpu"`` or calls ``device.set_default_device("cpu")``; without
@@ -39,32 +41,23 @@ from .data import Data
 __all__ = ["Data", "Deformable", "Dose", "Image", "Rigid", "read_dicoms",
            "__version__"]
 
-# the JAX package's top-level readers that wait for a later slice; each
-# stands in as a callable that raises NotImplementedError naming its
-# ROADMAP.md queue 1 item
-_WAITING = {
-    **dict.fromkeys(("read_stl", "read_vtk", "read_ply", "read_obj",
-                     "read_3mf", "StlReader", "VtkReader", "PlyReader",
-                     "ObjReader", "ThreeMfReader"),
-                    "item 9, the mesh readers"),
-}
-
 
 def __getattr__(name):
     # lazy exports keep `import medicalimageanalysis_torch` free of torch
     # until a compute path is touched
     import importlib
 
-    if name in ("read_dicoms", "file_parser", "read_mhd", "read_nifti",
-                "check_memory"):
+    if name in ("read_dicoms", "read_3mf", "read_mhd", "read_stl",
+                "read_vtk", "read_ply", "read_obj", "file_parser",
+                "read_nifti", "check_memory"):
         from . import reader
         return getattr(reader, name)
     if name == "MhdReader":
         from .read.mhd import MhdReader
         return MhdReader
-    if name == "DicomReader":
-        from .read.dicom import DicomReader
-        return DicomReader
+    if name in ("DicomReader", "ThreeMfReader", "StlReader", "VtkReader",
+                "PlyReader", "ObjReader"):
+        return getattr(importlib.import_module(".read", __name__), name)
     if name == "Image":
         from .structure.image import Image
         return Image
@@ -77,9 +70,6 @@ def __getattr__(name):
     if name == "Deformable":
         from .structure.deformable import Deformable
         return Deformable
-    if name in _WAITING:
-        from ._waiting import waiting
-        return waiting(name, _WAITING[name])
     if name in ("utils", "ops", "parallel", "structure", "read", "dicom",
                 "models", "native", "config", "reader", "telemetry"):
         # not `from . import utils`: that re-enters this __getattr__

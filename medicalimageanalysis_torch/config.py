@@ -1,8 +1,8 @@
 """Central numeric-policy configuration.
 
 Carried over from medicalimageanalysis_tpu/config.py with identical
-defaults, for the constants the ported slices read; the others (mesh,
-ICP, B-spline) arrive with their slices. ``use_shear_warp`` keeps the JAX
+defaults, for the constants the ported slices read (the 3MF reader's
+50k-point decimation target among them). ``use_shear_warp`` keeps the JAX
 package's meaning: ``reslice_transform`` (``Rigid.create_image`` and the
 Rigid view updates) takes the three-pass shear-warp lane
 (ops/resample.affine_resample_shear, the lane_interp kernel on the card)
@@ -18,6 +18,7 @@ class MiaConfig:
     background_fill: float = -3001.0
     contour_decimals: int = 3
     spacing_tolerance_mm: float = 0.01
+    mesh_decimate_target_points: int = 50_000
     use_shear_warp: bool = False
 
 

@@ -33,8 +33,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["rasterize_polygons", "rasterize_polygons_grouped",
-           "stage_polygons"]
+__all__ = ["fill_polygons_2d", "polygon_bitmaps", "rasterize_polygons",
+           "rasterize_polygons_grouped", "stage_polygons"]
 
 _TILE_LADDER = (16, 32, 64, 128, 256)
 # bound on polygons x edges x rows per chunk of the per-edge tensors
@@ -187,6 +187,36 @@ def _resolve(device):
     from ..device import default_device
 
     return default_device() if device is None else torch.device(device)
+
+
+def polygon_bitmaps(polygons, H, W, device=None):
+    """List of (N, 2) float vertex arrays -> (K, H, W) uint8 numpy
+    bitmaps (interior | boundary), each on the full frame as the JAX
+    package's ``polygon_bitmaps`` stages them (no tile anchors), on
+    ``device`` (default: ``default_device()``)."""
+    K = len(polygons)
+    if K == 0:
+        return np.zeros((0, H, W), dtype=np.uint8)
+    device = _resolve(device)
+    E = max(np.asarray(p).shape[0] for p in polygons)
+    step = max(1, _CHUNK_ELEMENTS // (E * H))
+    out = []
+    for c in range(0, K, step):
+        chunk = polygons[c:c + step]
+        verts, valid = stage_polygons(chunk, E, len(chunk))
+        out.append(_polygon_bitmaps(torch.from_numpy(verts).to(device),
+                                    torch.from_numpy(valid).to(device),
+                                    H, W).cpu().numpy())
+    return np.concatenate(out)
+
+
+def fill_polygons_2d(polygons, H, W, device=None):
+    """XOR-combine polygons into one (H, W) uint8 mask (the cv2.fillPoly
+    + XOR loop of one plane), on ``device``."""
+    bitmaps = polygon_bitmaps(polygons, H, W, device=device)
+    if bitmaps.shape[0] == 0:
+        return np.zeros((H, W), dtype=np.uint8)
+    return (bitmaps.sum(axis=0) % 2).astype(np.uint8)
 
 
 def rasterize_polygons(polygons, slice_indices, n_slices, H, W,

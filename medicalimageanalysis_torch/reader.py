@@ -4,8 +4,9 @@ Carried over from medicalimageanalysis_tpu/reader.py (``check_memory``,
 ``file_parser``, ``read_dicoms`` with the zip and no-extension handling,
 ``read_mhd``, ``read_nifti``). ``check_memory`` reads ``MemAvailable``
 from /proc/meminfo, the figure psutil reports as available memory on
-Linux: the port does not import psutil. The mesh readers wait for a
-later slice.
+Linux: the port does not import psutil. ``read_3mf``, ``read_stl``,
+``read_vtk``, ``read_ply`` and ``read_obj`` are the mesh readers
+(read/mf3.py, stl.py, vtk.py, ply.py, obj.py), host Python.
 """
 
 from __future__ import annotations
@@ -14,8 +15,9 @@ import os
 import zipfile
 from pathlib import Path
 
-__all__ = ["check_memory", "file_parser", "read_dicoms", "read_mhd",
-           "read_nifti"]
+__all__ = ["check_memory", "file_parser", "read_3mf", "read_dicoms",
+           "read_mhd", "read_nifti", "read_obj", "read_ply", "read_stl",
+           "read_vtk"]
 
 
 def available_memory_bytes(meminfo="/proc/meminfo"):
@@ -195,6 +197,47 @@ def read_dicoms(folder_path=None, file_list=None, exclude_files=None,
                                only_load_roi_names, clear, device=device)
     dicom_reader.load()
     return dicom_reader
+
+
+def read_3mf(file, roi_name=None):
+    """Load a 3MF mesh file as a fake image with a mesh-only ROI
+    (reference reader.py:332-372)."""
+    from .read.mf3 import ThreeMfReader
+
+    reader = ThreeMfReader(file, roi_name)
+    reader.load()
+    return reader
+
+
+def _read_meshes(read, file_list):
+    if isinstance(file_list, (str, bytes, os.PathLike)):
+        file_list = [file_list]
+    return [read(f) for f in file_list]
+
+
+def read_stl(file_list):
+    """Load STL meshes -> list of TriMesh (the reference's wrapper is
+    commented out at reference reader.py:462-473)."""
+    from .read.stl import read_stl as read
+    return _read_meshes(read, file_list)
+
+
+def read_vtk(file_list):
+    """Load legacy .vtk polydata -> list of TriMesh."""
+    from .read.vtk import read_vtk_polydata
+    return _read_meshes(read_vtk_polydata, file_list)
+
+
+def read_ply(file_list):
+    """Load .ply meshes -> list of TriMesh."""
+    from .read.ply import read_ply as read
+    return _read_meshes(read, file_list)
+
+
+def read_obj(file_list):
+    """Load Wavefront .obj meshes -> list of TriMesh."""
+    from .read.obj import read_obj as read
+    return _read_meshes(read, file_list)
 
 
 def read_nifti(file, modality=None, image_name=None, device=None):

@@ -6,8 +6,9 @@ operations reslice on the device: ``update_rotation`` and
 ``retrieve_vtk_volume`` through ops/resample.reslice_rotation (the warp
 kernel's ``affine`` mode on the card). Also the helpers of the load and
 REG-writer paths: ``rebuild_dataset_from_meta``, ``collision_suffix``,
-``build_reg_dataset`` with ``series_item``, and ``host_array``, the one
-download a writer makes.
+``build_reg_dataset`` with ``series_item``, ``host_array``, the one
+download a writer makes, and ``mesh_cut_pixels``, the Displays' mesh cuts
+as in-plane pixel paths.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from ..ops import geometry as geo
 
 __all__ = ["GeometryQueriesMixin", "MetadataMixin", "ViewOpsMixin",
            "build_reg_dataset", "collision_suffix", "host_array",
-           "rebuild_dataset_from_meta", "series_item"]
+           "mesh_cut_pixels", "rebuild_dataset_from_meta", "series_item"]
 
 
 def host_array(a, dtype=None):
@@ -34,6 +35,17 @@ def host_array(a, dtype=None):
         a = a.detach().cpu().numpy()
     a = np.asarray(a)
     return a if dtype is None else a.astype(dtype, copy=False)
+
+
+def mesh_cut_pixels(display, loops, slice_plane):
+    """A Display's mesh-cut loops (mm) as the in-plane pixel paths of
+    ``slice_plane`` on the display's grid ([] without loops), as the
+    Rigid and Deformable Displays' ``compute_mesh_slice`` return them."""
+    if not loops:
+        return []
+    cols = {"Axial": [0, 1], "Coronal": [0, 2]}.get(slice_plane, [1, 2])
+    return [pixel[:, cols]
+            for pixel in display.convert_position_to_pixel(position=loops)]
 
 
 def rebuild_dataset_from_meta(meta, filename, default_modality):

@@ -29,9 +29,9 @@ REG, ``export_image`` the deformed image as MHD, ``save_deformable`` /
 ``load_deformable`` a json + npy folder. ``compute_tps`` fits a
 thin-plate spline through matched POIs and keeps its dense field on the
 device. With ``roi_names`` held by both images, the registrations are
-masked by the ROIs' mask unions (``roi_mask_union``). The Display's mesh
-cut waits for a later slice and raises ``NotImplementedError`` naming
-its ROADMAP.md item.
+masked by the ROIs' mask unions (``roi_mask_union``; a mesh-only ROI
+adds its voxelized mesh). The Display's ``compute_mesh_slice`` cuts the
+deformed ROI mesh, warping it first through ``update_rois``.
 """
 
 from __future__ import annotations
@@ -51,7 +51,8 @@ from ..ops import geometry as geo
 from ..ops.registration.dvf import invert_dvf, sample_dvf_at_points
 from ..ops.resample import affine_resample, compose_pixel_matrix
 from ..ops.warp import affine_coords, field_warp, warp_disp
-from .common import host_array
+from ..utils.mesh.trimesh import _SliceResult
+from .common import host_array, mesh_cut_pixels
 
 __all__ = ["Display", "Deformable"]
 
@@ -155,9 +156,23 @@ class Display(object):
 
     def compute_mesh_slice(self, roi_name=None, location=None,
                            slice_plane=None, return_pixel=False):
-        raise NotImplementedError(
-            "Deformable Display.compute_mesh_slice is not ported yet: ROI "
-            "meshes (ROADMAP.md queue 1, item 9, mesh)")
+        """Deformed-ROI-mesh plane cut (JAX structure/deformable.py:140):
+        a ROI not warped yet goes through ``Deformable.update_rois`` (one
+        ``coords`` launch on the card) first. Returns the loops as a
+        ``_SliceResult``, or with ``return_pixel`` their in-plane pixel
+        paths; [] without the mesh."""
+        if self.deformable.rois.get(roi_name) is None:
+            self.deformable.update_rois(roi_name=roi_name)
+        mesh = self.deformable.rois.get(roi_name)
+        if mesh is None:
+            return []
+
+        normal = np.identity(3)[:3, {"Axial": 2, "Coronal": 1}.get(
+            slice_plane, 0)]
+        loops = mesh.slice_plane(normal=normal, origin=location)
+        if not return_pixel:
+            return _SliceResult(loops)
+        return mesh_cut_pixels(self, loops, slice_plane)
 
     def compute_offset(self):
         if self.deformable.reference_name is not None:
@@ -295,8 +310,8 @@ class Deformable(object):
         structure/deformable.py:325-365): each name of ``roi_names`` whose
         ROI both images hold (with contours or a mesh) adds its mask to
         the reference's and the moving image's union; the unions go in as
-        the backend's masks, blurred by ``sigma``. A mesh-only ROI's
-        ``compute_mask`` raises until voxelisation is ported."""
+        the backend's masks, blurred by ``sigma``. A mesh-only ROI's mask
+        is its mesh voxelized on the card."""
         from ..utils.deformable.torch_backend import DeformableTorch
 
         ref = Data.image[self.reference_name]

@@ -20,7 +20,8 @@ reference grid by the ``affine`` mode, then FFT phase correlation on the
 device), ``compute_landmarks`` (host float64 Umeyama over matched POIs)
 and ``auto_register`` (centre matching, phase correlation, then
 ``compute_intensity`` warm-started from the recovered pose). The
-Display's mesh cut waits for a later slice.
+Display's ``compute_mesh_slice`` cuts the ROI mesh carried onto the
+reference (``update_rois``) on the display's planes.
 """
 
 from __future__ import annotations
@@ -38,6 +39,8 @@ from ..data import Data
 from ..dicom import generate_uid
 from ..ops import geometry as geo
 from ..ops.resample import reslice_transform
+from ..utils.mesh.trimesh import _SliceResult
+from .common import mesh_cut_pixels
 
 __all__ = ["Display", "Rigid", "matrix_type"]
 
@@ -108,9 +111,23 @@ class Display(object):
 
     def compute_mesh_slice(self, roi_name=None, location=None,
                            slice_plane=None, return_pixel=False):
-        raise NotImplementedError(
-            "Rigid Display.compute_mesh_slice is not ported yet: ROI meshes "
-            "(ROADMAP.md queue 1, item 9, mesh)")
+        """Transformed-ROI-mesh plane cut (JAX structure/rigid.py:91): a
+        ROI not carried yet goes through ``Rigid.update_rois`` first; the
+        plane's normal is the display matrix's column. Returns the loops
+        as a ``_SliceResult``, or with ``return_pixel`` their in-plane
+        pixel paths; [] without the mesh."""
+        if self.rigid.rois.get(roi_name) is None:
+            self.rigid.update_rois(roi_name=roi_name)
+        if self.rigid.rois.get(roi_name) is None:
+            return []
+
+        normal = np.asarray(self.matrix)[:3, {"Axial": 2, "Coronal": 1}.get(
+            slice_plane, 0)]
+        loops = self.rigid.rois[roi_name].slice_plane(normal=normal,
+                                                      origin=location)
+        if not return_pixel:
+            return _SliceResult(loops)
+        return mesh_cut_pixels(self, loops, slice_plane)
 
     def compute_reslice(self):
         """Pull the transformed moving volume (reference

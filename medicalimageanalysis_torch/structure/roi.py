@@ -5,8 +5,8 @@ device through utils/convert/contour -> ops/rasterize and are cached,
 bit-packed, on the owning Image. Meshes come from the device's marching
 tetrahedra and smoothing (ops/marching_cubes, utils/mesh/surface) into a
 host TriMesh; mask -> contour conversion runs the port's border tracer.
-The mask of a mesh-only ROI (voxelisation) raises naming its ROADMAP.md
-item.
+A mesh-only ROI's mask is the mesh voxelized on the card by ray parity
+(ops/voxelize) and goes into the mask cache like any other.
 """
 
 from __future__ import annotations
@@ -214,16 +214,30 @@ class Roi(object):
 
     def _compute_mask_impl(self):
         """The raw single-ROI rasterization, no cache interaction: from
-        the contours, or all zeros without any. A mesh-only ROI (no
-        contours) raises: voxelizing a mesh waits for the mesh slice."""
+        the contours, else from the mesh (:meth:`_mask_from_mesh`), else
+        all zeros."""
         if self._has_contours():
             return self._mesher().mask
         if self.mesh is not None:
-            raise NotImplementedError(
-                "Roi.compute_mask of a mesh-only ROI is not ported yet: "
-                "mesh voxelization — ROADMAP.md queue 1, item 9 (mesh)")
+            return self._mask_from_mesh()
         return np.zeros(tuple(int(v) for v in self.image.dimensions),
                         dtype=np.uint8)
+
+    def _mask_from_mesh(self):
+        """Voxelize ``self.mesh`` on the image grid by exact ray-casting
+        parity over the faces (utils/convert/voxelize, on the image's
+        device): plane slicing and rasterization would shatter a
+        non-welded surface, where face-level parity is immune."""
+        from ..utils.convert.voxelize import voxelize_mesh
+
+        img = self.image
+        p2pix = geo.position_to_pixel_matrix(img.matrix, img.spacing,
+                                             img.origin)
+        pts = np.asarray(self.mesh.points, np.float64)
+        pts_pixel = pts @ p2pix[:3, :3].T + p2pix[:3, 3]
+        return voxelize_mesh(pts_pixel, self.mesh.faces, img.dimensions,
+                             plane=self.plane,
+                             device=img._compute_device())
 
     def create_mask_volume(self):
         """Mask + grid geometry bundle (replaces create_sitk_mask,

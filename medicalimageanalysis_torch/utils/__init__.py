@@ -3,15 +3,18 @@ builder, contour and mesh conversion, the external threshold, the Euler
 transform, metrics, dose accumulation and goals, radiobiology, ROI
 margins, the 4D phase tools, the deformable backend and the ICP class.
 
-The exports match the JAX package's utils/__init__.py, lazily. The names
-it exports that the port has not ported yet stand in as callables that
-raise NotImplementedError naming their ROADMAP.md queue 1 item.
+The exports match the JAX package's utils/__init__.py, lazily.
 """
 
 _LAZY = {
     "ContourToDiscreteMesh": ("convert.contour", "ContourToDiscreteMesh"),
     "ContourToMask": ("convert.contour", "ContourToMask"),
     "MaskToContour": ("convert.contour", "MaskToContour"),
+    "ModelToMask": ("convert.contour", "ModelToMask"),
+    "Volume": ("mesh.volume", "Volume"),
+    **{n: ("mesh.surface", n) for n in ("clean_mesh", "expansion",
+                                        "surface_boundary",
+                                        "only_main_component")},
     "DeformableITK": ("deformable.torch_backend", "DeformableITK"),
     "DeformableJAX": ("deformable.torch_backend", "DeformableJAX"),
     "TriMesh": ("mesh.trimesh", "TriMesh"),
@@ -34,13 +37,7 @@ _LAZY = {
                                    "compare_rois")},
 }
 
-_WAITING = {
-    **dict.fromkeys(("ModelToMask", "Volume", "clean_mesh", "expansion",
-                     "surface_boundary", "only_main_component"),
-                    "item 9, mesh"),
-}
-
-__all__ = list(_LAZY) + list(_WAITING)
+__all__ = list(_LAZY)
 
 
 def __getattr__(name):
@@ -48,7 +45,4 @@ def __getattr__(name):
         import importlib
         module, attr = _LAZY[name]
         return getattr(importlib.import_module(f"{__name__}.{module}"), attr)
-    if name in _WAITING:
-        from .._waiting import waiting
-        return waiting(name, _WAITING[name])
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -7,8 +7,7 @@ warp kernel's ``affine`` mode, deformable entries through
 ``Deformable.update_dose``, summed on the device) and
 ``evaluate_constraints`` (DVH goals from the sorted ROI doses in host
 float64, as the JAX package computes them). A goal on a mesh-only ROI
-raises in ``Roi.compute_mask``: voxelising a mesh waits for ROADMAP.md
-queue 1, item 9.
+reads the mesh voxelized on the card (``Roi.compute_mask``).
 """
 
 from __future__ import annotations

@@ -1,37 +1,45 @@
-"""Surface-mesh smoothing and decimation.
+"""Surface-mesh smoothing, decimation, repair and refinement.
 
-Port of the smoothing part of medicalimageanalysis_tpu/utils/mesh/
-surface.py (``_edge_keys``, ``_adjacency``, ``_laplacian_step``,
-``taubin_smooth``, ``constrained_smooth``, ``vertex_normals``,
-``Refinement``) and of ``acvd_cluster``, which ``TriMesh.decimate``
-runs:
+Port of medicalimageanalysis_tpu/utils/mesh/surface.py:
 
-- the umbrella steps run on the device in float64: the unique edges are
-  found once (``torch.unique`` over packed keys), then each step is one
-  ``index_add_`` over both directions of the edge list. ``np.add.at``
-  sums in edge order; CUDA's atomic adds do not fix an order, so the
-  results agree with the JAX package's to rounding (about 1e-12 mm), not
-  to the bit;
-- ``acvd_cluster`` (centroidal-Voronoi clustering) stays on the host, a
-  copy of the JAX package's numpy and scipy ``cKDTree`` code.
+- the array programs over edges and points run on the device in float64:
+  the umbrella steps of the smoothing and of the self-intersection
+  repair's patch relaxation (the unique edges found once with
+  ``torch.unique`` over packed keys, then one ``index_add_`` a step over
+  both directions of the edge list) and the vertex normals of
+  ``expansion``. ``np.add.at`` sums in edge order; CUDA's atomic adds do
+  not fix an order, so these agree with the JAX package's to rounding
+  (about 1e-12 mm), not to the bit;
+- the ragged and scipy parts stay on the host as numpy, copies of the
+  JAX package's code: ``acvd_cluster`` (centroidal-Voronoi clustering),
+  ``clean_mesh`` (weld, then fill boundary holes by a centroid fan or
+  minimal-area ear clipping), the self-intersection search (``cKDTree``
+  candidate pairs, Moller-Trumbore tests), ``surface_boundary``,
+  ``only_main_component`` and ``Refinement``'s face splits
+  (``tri_split``, ``advanced_split``, ``find_face_correction``,
+  ``compute_midpoints``).
 
-The mesh repair (``clean_mesh``, the self-intersection removal),
-``expansion``, ``surface_boundary``, ``only_main_component`` and
-``Refinement``'s face splitting wait for the mesh slice (ROADMAP.md
-queue 1, item 9).
+Reference ``Refinement.decimate`` discards its result (surface.py:96-115
+calls mesh.decimate without assignment); here it applies.
+``advanced_split`` / ``compute_midpoints`` are broken WIP in the
+reference (undefined names, surface.py:169-251) and are implemented as
+the JAX package implements them.
 """
 
 from __future__ import annotations
 
+from functools import cached_property
+
 import numpy as np
 import torch
 
-from ..._waiting import waiting
 from ...device import default_device
-from .trimesh import TriMesh, box_mesh
+from .trimesh import TriMesh, box_mesh, unique_inverse
 
-__all__ = ["Refinement", "acvd_cluster", "box_mesh", "constrained_smooth",
-           "taubin_smooth", "vertex_normals"]
+__all__ = ["Refinement", "acvd_cluster", "box_mesh", "clean_mesh",
+           "constrained_smooth", "expansion", "find_self_intersections",
+           "only_main_component", "remove_self_intersections",
+           "surface_boundary", "taubin_smooth", "vertex_normals"]
 
 
 def _edge_keys(edges_sorted):
@@ -39,6 +47,16 @@ def _edge_keys(edges_sorted):
     are < 2^31)."""
     return (edges_sorted[:, 0].to(torch.int64) << 32) \
         | edges_sorted[:, 1].to(torch.int64)
+
+
+def _unpack_edges(keys):
+    return np.stack([keys >> 32, keys & 0xFFFFFFFF], axis=1).astype(np.int64)
+
+
+def _host_edge_keys(edges_sorted):
+    """_edge_keys on numpy (E, 2) sorted edges."""
+    return (edges_sorted[:, 0].astype(np.int64) << 32) \
+        | edges_sorted[:, 1].astype(np.int64)
 
 
 def _adjacency(faces):
@@ -127,16 +145,40 @@ def vertex_normals(mesh, device=None):
     return (vn / torch.clamp(norm, min=1e-12)).cpu().numpy()
 
 
-_MESH_ITEM = "item 9, mesh"
-
-
 class Refinement(object):
     """Mesh refinement toolkit (reference utils/mesh/surface.py:25-251):
-    smoothing, clustering and decimation."""
+    smoothing on ``device`` (default: ``default_device()``), clustering,
+    decimation and the face splits on the host."""
 
     def __init__(self, mesh, device=None):
         self.mesh = mesh
         self.device = device
+        self.correct_faces = None
+        self.points = np.asarray(mesh.points)
+        self.face = np.asarray(mesh.faces)
+
+    # the face tables of the mesh given, built at first use (the JAX
+    # package builds them in __init__; smoothing a display mesh reads
+    # none of them)
+    @cached_property
+    def face_centers(self):
+        return self.points[self.face].mean(axis=1) if self.face.size \
+            else np.zeros((0, 3))
+
+    @cached_property
+    def face_lines_sort(self):
+        if not self.face.size:
+            return np.zeros((0, 2), np.int64)
+        lines = np.vstack([self.face[:, [0, 1]], self.face[:, [0, 2]],
+                           self.face[:, [1, 2]]])
+        return np.sort(lines, axis=1)
+
+    @cached_property
+    def face_lines(self):
+        if not self.face.size:
+            return self.face_lines_sort
+        return _unpack_edges(
+            unique_inverse(_host_edge_keys(self.face_lines_sort))[0])
 
     def smooth(self, iterations=20, angle=60, passband=0.001):
         self.mesh = taubin_smooth(self.mesh, iterations=iterations,
@@ -164,11 +206,101 @@ class Refinement(object):
         points = self.compute_points()
         return 1 - (points / self.mesh.number_of_points)
 
-    tri_split = waiting("Refinement.tri_split", _MESH_ITEM)
-    advanced_split = waiting("Refinement.advanced_split", _MESH_ITEM)
-    find_face_correction = waiting("Refinement.find_face_correction",
-                                   _MESH_ITEM)
-    compute_midpoints = waiting("Refinement.compute_midpoints", _MESH_ITEM)
+    def tri_split(self):
+        """Centroid subdivision of the most crowded faces
+        (reference utils/mesh/surface.py:141-167)."""
+        self.find_face_correction()
+        correct = set(int(i) for i in self.correct_faces)
+        base_faces = [f for ii, f in enumerate(self.face)
+                      if ii not in correct]
+        base_length = len(self.points)
+        new_points = [self.face_centers[ii] for ii in self.correct_faces]
+        total_points = np.concatenate((self.points, new_points)) \
+            if new_points else self.points
+
+        new_faces = []
+        for ii, fidx in enumerate(self.correct_faces):
+            hf = self.face[fidx]
+            c = base_length + ii
+            new_faces += [[hf[0], hf[1], c], [hf[1], hf[2], c],
+                          [hf[0], hf[2], c]]
+        total_faces = np.concatenate(
+            (np.asarray(base_faces).reshape(-1, 3),
+             np.asarray(new_faces).reshape(-1, 3)))
+        return TriMesh(total_points, total_faces)
+
+    def advanced_split(self, area_factor=2.0, max_rounds=5):
+        """Adaptive refinement: repeatedly centroid-split every face
+        whose area exceeds ``area_factor`` times the mean face area,
+        until none do (or ``max_rounds``). Centroid (1->3) splits never
+        touch shared edges, so the mesh stays watertight with no
+        T-junctions."""
+        mesh = TriMesh(np.asarray(self.mesh.points, float).copy(),
+                       np.asarray(self.mesh.faces, np.int64).copy())
+        for _ in range(max_rounds):
+            pts = mesh.points
+            f = mesh.faces
+            a = pts[f[:, 0]]
+            b = pts[f[:, 1]]
+            c = pts[f[:, 2]]
+            areas = 0.5 * np.linalg.norm(np.cross(b - a, c - a), axis=1)
+            big = areas > area_factor * areas.mean()
+            if not big.any():
+                break
+            centers = (a[big] + b[big] + c[big]) / 3.0
+            base_n = pts.shape[0]
+            cidx = base_n + np.arange(centers.shape[0])
+            fb = f[big]
+            new_faces = np.concatenate([
+                np.stack([fb[:, 0], fb[:, 1], cidx], axis=1),
+                np.stack([fb[:, 1], fb[:, 2], cidx], axis=1),
+                np.stack([fb[:, 2], fb[:, 0], cidx], axis=1)])
+            mesh = TriMesh(np.concatenate([pts, centers]),
+                           np.concatenate([f[~big], new_faces]))
+        return mesh
+
+    def find_face_correction(self):
+        """Most-crowded faces by summed 6-NN center distance
+        (reference utils/mesh/surface.py:197-205)."""
+        from scipy.spatial import cKDTree
+        tree = cKDTree(self.face_centers)
+        k = min(6, len(self.face_centers))
+        dist, _ = tree.query(self.face_centers, k=k)
+        dist_sum = dist.sum(axis=1)
+        order = np.argsort(dist_sum)
+        self.correct_faces = order[:int(len(self.points) / 4)]
+
+    def compute_midpoints(self):
+        """Midpoints of the edges selected for advanced splitting.
+
+        For each crowded face (``find_face_correction``), selects the
+        edge whose midpoint lies closest to the face's opposite vertex
+        and returns ``(midpoint_unique, midline_unique)``: the
+        deduplicated midpoint coordinates and their sorted
+        vertex-index edge pairs.
+        """
+        if self.correct_faces is None:
+            self.find_face_correction()
+        if self.face.size == 0 or len(self.correct_faces) == 0:
+            return (np.zeros((0, 3), float), np.zeros((0, 2), np.int64))
+        pts = self.points
+        f = self.face[np.asarray(self.correct_faces, np.int64)]
+        # edge k = (v_k, v_{k+1}); its midpoint vs opposite vertex
+        mids = np.stack([(pts[f[:, 0]] + pts[f[:, 1]]) / 2,
+                         (pts[f[:, 1]] + pts[f[:, 2]]) / 2,
+                         (pts[f[:, 2]] + pts[f[:, 0]]) / 2], axis=1)
+        opp = np.stack([pts[f[:, 2]], pts[f[:, 0]], pts[f[:, 1]]],
+                       axis=1)
+        pick = np.argmin(np.linalg.norm(mids - opp, axis=2), axis=1)
+        edges = np.stack([np.stack([f[:, 0], f[:, 1]], axis=1),
+                          np.stack([f[:, 1], f[:, 2]], axis=1),
+                          np.stack([f[:, 2], f[:, 0]], axis=1)], axis=1)
+        rows = np.arange(len(f))
+        chosen_mid = mids[rows, pick]
+        chosen_edge = np.sort(edges[rows, pick], axis=1)
+        # two faces sharing a shortest edge produce ONE midpoint
+        _, idx = np.unique(chosen_edge, axis=0, return_index=True)
+        return chosen_mid[idx], chosen_edge[idx].astype(np.int64)
 
 
 def acvd_cluster(mesh, n_points, iterations=24, seed=0):
@@ -252,3 +384,292 @@ def acvd_cluster(mesh, n_points, iterations=24, seed=0):
     key = np.sort(nf, axis=1)
     _, first = np.unique(key, axis=0, return_index=True)
     return TriMesh(new_points, nf[np.sort(first)])
+
+
+def _boundary_loops(mesh):
+    """Open boundary loops (edges referenced by exactly one face)."""
+    f = mesh.faces
+    edges = np.concatenate([f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]]])
+    edges_sorted = np.sort(edges, axis=1)
+    ukeys, inverse = unique_inverse(_host_edge_keys(edges_sorted))
+    counts = np.bincount(inverse, minlength=ukeys.size)
+    boundary = _unpack_edges(ukeys[counts == 1])
+    if boundary.size == 0:
+        return []
+    from collections import defaultdict
+    adj = defaultdict(list)
+    for a, b in boundary:
+        adj[a].append(b)
+        adj[b].append(a)
+    visited = set()
+    loops = []
+    for start in adj:
+        if start in visited:
+            continue
+        loop = [start]
+        visited.add(start)
+        current = start
+        while True:
+            nxt = [v for v in adj[current] if v not in visited]
+            if not nxt:
+                break
+            current = nxt[0]
+            visited.add(current)
+            loop.append(current)
+        if len(loop) >= 3:
+            loops.append(loop)
+    return loops
+
+
+def _ear_clip_loop(pts, loop):
+    """Fill one boundary loop with minimal-area ear clipping: each step
+    clips the vertex whose ear triangle has the smallest area, so the
+    patch hugs jagged (non-planar) loops instead of slicing through
+    nearby surface the way a centroid fan does."""
+    idx = list(int(v) for v in loop)
+    faces = []
+    while len(idx) > 3:
+        p = pts[idx]
+        prv = np.roll(p, 1, axis=0)
+        nxt = np.roll(p, -1, axis=0)
+        areas = 0.5 * np.linalg.norm(np.cross(prv - p, nxt - p), axis=1)
+        k = int(np.argmin(areas))
+        faces.append([idx[k - 1], idx[k], idx[(k + 1) % len(idx)]])
+        idx.pop(k)
+    faces.append([idx[0], idx[1], idx[2]])
+    return faces
+
+
+def clean_mesh(mesh):
+    """Repair: weld duplicates, drop degenerates, fill boundary holes
+    (pymeshfix-equivalent for this pipeline, reference
+    surface.py:254-278). Small holes take a centroid fan; larger ones
+    minimal-area ear clipping (see :func:`_ear_clip_loop`)."""
+    out = mesh.clean()
+    loops = _boundary_loops(out)
+    if loops:
+        pts = out.points
+        new_points = list(pts)
+        new_faces = list(out.faces)
+        for loop in loops:
+            if len(loop) > 8:
+                new_faces.extend(_ear_clip_loop(pts, loop))
+                continue
+            center = pts[loop].mean(axis=0)
+            ci = len(new_points)
+            new_points.append(center)
+            for i in range(len(loop)):
+                new_faces.append([loop[i], loop[(i + 1) % len(loop)], ci])
+        out = TriMesh(np.asarray(new_points), np.asarray(new_faces))
+    return out
+
+
+def expansion(mesh, dist, fix_intersections=False, device=None):
+    """Offset along vertex normals then repair
+    (reference utils/mesh/surface.py:281-308). Normal offsets CREATE
+    self-intersections in concave regions — the reference runs
+    pymeshfix here; ``fix_intersections=True`` removes them the same
+    way (delete + fill, :func:`remove_self_intersections`). It is
+    opt-in because on RAW lattice (marching-cubes) surfaces the
+    zigzag vertex normals make offset faces cross everywhere and the
+    repair rightfully erodes the shell — smooth first
+    (:func:`taubin_smooth`), as the reference pipeline does before its
+    pymeshfix call. The normals and the repair's relaxation run on
+    ``device`` (default: ``default_device()``)."""
+    out = mesh.copy()
+    out.points = out.points + vertex_normals(out, device=device) * dist
+    out = clean_mesh(out)
+    if fix_intersections:
+        out = remove_self_intersections(out, device=device)
+    return out
+
+
+def surface_boundary(source_meshes, target_meshes, points, matrix=None):
+    """Co-cluster source/target meshes until point counts match
+    (reference utils/mesh/surface.py:311-354)."""
+    if matrix is None:
+        matrix = np.identity(4)
+
+    new_sources = []
+    new_targets = []
+    for ii, s in enumerate(source_meshes):
+        for n in range(200):
+            hold_s = s.cluster_decimate(int(points[ii] + n))
+            hold_t = target_meshes[ii].cluster_decimate(int(points[ii] + n))
+            if hold_s.number_of_points == hold_t.number_of_points:
+                new_sources.append(hold_s)
+                new_targets.append(hold_t.transform(matrix, inplace=True))
+                break
+    return new_sources, new_targets
+
+
+def only_main_component(mesh):
+    """Largest connected component (reference surface.py:357-381)."""
+    bodies = mesh.split_bodies()
+    if len(bodies) <= 1:
+        return mesh
+    total_points = [m.number_of_points for m in bodies]
+    return bodies[int(np.argmax(total_points))]
+
+
+def _face_candidate_pairs(pts, f):
+    """Candidate intersecting face pairs (two triangles can only
+    intersect when their centroid distance is below the sum of their
+    bounding radii). Typical faces use one cKDTree pair query with a
+    radius capped at 4x the median bounding radius; outsized faces
+    (hole-fill fans) are handled by per-face ball queries so one big
+    triangle cannot explode the global query radius into O(F^2) pairs
+    (a death spiral after fan fills)."""
+    from scipy.spatial import cKDTree
+
+    tri = pts[f]                          # (F, 3, 3)
+    cent = tri.mean(axis=1)
+    rad = np.linalg.norm(tri - cent[:, None, :], axis=2).max(axis=1)
+    big_thr = 4.0 * float(np.median(rad)) + 1e-12
+    small = rad <= big_thr
+    idx_small = np.nonzero(small)[0]
+    idx_big = np.nonzero(~small)[0]
+    out = []
+    tree = cKDTree(cent[idx_small]) if idx_small.size else None
+    if tree is not None and idx_small.size > 1:
+        p = tree.query_pairs(2.0 * big_thr, output_type="ndarray")
+        if p.size:
+            out.append(np.stack([idx_small[p[:, 0]],
+                                 idx_small[p[:, 1]]], axis=1))
+    for i in idx_big:
+        if tree is not None:
+            hits = tree.query_ball_point(cent[i], rad[i] + big_thr)
+            if hits:
+                js = idx_small[np.asarray(hits)]
+                out.append(np.stack(
+                    [np.full(js.size, i, np.int64), js], axis=1))
+    if idx_big.size > 1:
+        d = np.linalg.norm(cent[idx_big][:, None] - cent[idx_big][None],
+                           axis=2)
+        rr = rad[idx_big][:, None] + rad[idx_big][None]
+        bi, bj = np.nonzero(np.triu(d <= rr, 1))
+        if bi.size:
+            out.append(np.stack([idx_big[bi], idx_big[bj]], axis=1))
+    if not out:
+        return np.zeros((0, 2), np.int64)
+    pairs = np.concatenate(out).astype(np.int64)
+    # tighten with the actual per-pair radii
+    d = np.linalg.norm(cent[pairs[:, 0]] - cent[pairs[:, 1]], axis=1)
+    return pairs[d <= rad[pairs[:, 0]] + rad[pairs[:, 1]]]
+
+
+def _segments_hit_triangles(p0, p1, ta, tb, tc, eps=1e-12):
+    """Vectorized Moller-Trumbore: does segment i intersect triangle i
+    (properly, within the open segment/triangle)?"""
+    d = p1 - p0
+    e1 = tb - ta
+    e2 = tc - ta
+    h = np.cross(d, e2)
+    det = np.einsum("ij,ij->i", e1, h)
+    ok = np.abs(det) > eps
+    inv = np.where(ok, 1.0 / np.where(ok, det, 1.0), 0.0)
+    s = p0 - ta
+    u = np.einsum("ij,ij->i", s, h) * inv
+    q = np.cross(s, e1)
+    v = np.einsum("ij,ij->i", d, q) * inv
+    t = np.einsum("ij,ij->i", e2, q) * inv
+    tol = 1e-9
+    return (ok & (u > tol) & (v > tol) & (u + v < 1 - tol)
+            & (t > tol) & (t < 1 - tol))
+
+
+def find_self_intersections(mesh):
+    """Indices of faces participating in a (proper) self-intersection.
+
+    Non-adjacent face pairs from a centroid-radius query are tested with
+    six vectorized segment-triangle Moller-Trumbore queries (each edge
+    of one face vs the other face). Coplanar overlaps — which the
+    tests never generate and pymeshfix also special-cases — are not
+    reported."""
+    pts = np.asarray(mesh.points, np.float64)
+    f = np.asarray(mesh.faces, np.int64)
+    if f.shape[0] < 2:
+        return np.zeros(0, np.int64)
+    pairs = _face_candidate_pairs(pts, f)
+    if pairs.size == 0:
+        return np.zeros(0, np.int64)
+    # exclude pairs sharing any vertex (always touch numerically)
+    fa = f[pairs[:, 0]]
+    fb = f[pairs[:, 1]]
+    share = np.zeros(len(pairs), bool)
+    for i in range(3):
+        for j in range(3):
+            share |= fa[:, i] == fb[:, j]
+    pairs = pairs[~share]
+    if pairs.size == 0:
+        return np.zeros(0, np.int64)
+    fa = f[pairs[:, 0]]
+    fb = f[pairs[:, 1]]
+    hit = np.zeros(len(pairs), bool)
+    for (i0, i1) in ((0, 1), (1, 2), (2, 0)):
+        hit |= _segments_hit_triangles(
+            pts[fa[:, i0]], pts[fa[:, i1]],
+            pts[fb[:, 0]], pts[fb[:, 1]], pts[fb[:, 2]])
+        hit |= _segments_hit_triangles(
+            pts[fb[:, i0]], pts[fb[:, i1]],
+            pts[fa[:, 0]], pts[fa[:, 1]], pts[fa[:, 2]])
+    bad = pairs[hit]
+    return np.unique(bad.ravel())
+
+
+def remove_self_intersections(mesh, rounds=5, device=None):
+    """pymeshfix-grade repair: delete intersecting faces, fill the
+    resulting holes, repeat until clean (reference gets this from
+    pymeshfix, surface.py:254-308).
+
+    Local pinches (the expansion use case) resolve by delete+fill.
+    Interpenetrating CLOSED shells cannot be untangled that way — like
+    pymeshfix's component cleaning, the fallback keeps the largest
+    connected component and repairs it alone. The patches' relaxation
+    (umbrella steps) runs on ``device`` (default: ``default_device()``);
+    the search and the fills on the host."""
+    out = mesh
+    for stage in range(2):
+        for rnd in range(int(rounds)):
+            bad = find_self_intersections(out)
+            if bad.size == 0:
+                return clean_mesh(out)
+            f = out.faces
+            # grow the deletion by one vertex ring: patches over jagged
+            # boundaries graze adjacent faces at sliver scale, so
+            # bare-minimum deletion never converges (meshfix grows its
+            # selection the same way)
+            drop = np.zeros(f.shape[0], bool)
+            drop[bad] = True
+            bad_verts = np.zeros(out.number_of_points, bool)
+            bad_verts[f[drop].ravel()] = True
+            drop |= bad_verts[f].any(axis=1)
+            out = TriMesh(out.points.copy(),
+                          out.faces[~drop].copy()).clean()
+            # fill + RELAX the patch region: the hole boundary inherits
+            # the crumpled fold geometry, so an unrelaxed patch
+            # re-crosses and the loop oscillates. Smooth only the
+            # loop/patch vertices, everything else pinned.
+            n_before = out.number_of_points
+            loops = _boundary_loops(out)
+            out = clean_mesh(out)
+            if loops:
+                full = np.zeros(out.number_of_points, bool)
+                for loop in loops:
+                    full[np.asarray(loop, np.int64)] = True
+                full[n_before:] = True     # appended fill centroids
+                pts = _points(out, device)
+                umbrella = _Umbrella(out, pts.device)
+                full = torch.as_tensor(full, device=pts.device)
+                for _ in range(8):
+                    pts = torch.where(full[:, None],
+                                      umbrella.step(pts, 0.6), pts)
+                out = TriMesh(pts.cpu().numpy(), out.faces.copy())
+        if stage == 0:
+            bodies = out.split_bodies()
+            if len(bodies) > 1:
+                sizes = [m.number_of_points for m in bodies]
+                out = bodies[int(np.argmax(sizes))]
+            else:
+                break
+    return clean_mesh(out)

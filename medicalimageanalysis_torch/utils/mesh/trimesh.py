@@ -8,8 +8,8 @@ attribute surface the JAX package's callers use (``volume``, ``center``,
 themselves are built and smoothed on the device (ops/marching_cubes,
 utils/mesh/surface). ``unique_inverse`` / ``unique_rows`` keep the
 JAX package's contract on ``np.unique`` alone (the card's machine has no
-pandas). ``save`` writes the ``.npz`` layout; the mesh file writers wait
-for the mesh readers (ROADMAP.md queue 1, item 9).
+pandas). ``save`` dispatches on the extension to the STL / 3MF / VTK /
+PLY / OBJ writers of read/, else writes the ``.npz`` layout.
 """
 
 from __future__ import annotations
@@ -309,14 +309,24 @@ class TriMesh:
 
     # -- IO ------------------------------------------------------------------
     def save(self, path):
-        """``np.savez`` of points and faces; the STL / 3MF / VTK / PLY /
-        OBJ writers are not ported yet."""
+        """Write the mesh in the format its extension names (.stl, .3mf,
+        .vtk, .ply, .obj; the 3MF, PLY and OBJ writers carry
+        ``point_data['colors']``), else ``np.savez`` of points and
+        faces."""
+        import importlib
+
         path = str(path)
-        if path.lower().endswith((".stl", ".3mf", ".vtk", ".ply", ".obj")):
-            raise NotImplementedError(
-                "TriMesh.save to a mesh file format is not ported yet "
-                "(ROADMAP.md queue 1, item 9, the mesh readers and writers)")
-        np.savez(path, points=self.points, faces=self.faces)
+        writers = {".stl": ("stl", "write_stl"), ".3mf": ("mf3", "write_3mf"),
+                   ".vtk": ("vtk", "write_vtk_polydata"),
+                   ".ply": ("ply", "write_ply"), ".obj": ("obj", "write_obj")}
+        ext = path[path.rfind("."):].lower() if "." in path else ""
+        if ext in writers:
+            module, name = writers[ext]
+            write = getattr(importlib.import_module(
+                f"...read.{module}", __package__), name)
+            write(path, self)
+        else:
+            np.savez(path, points=self.points, faces=self.faces)
 
 
 class _SliceResult:

@@ -1,7 +1,7 @@
 """The port's public API against the JAX package's: every public name of
-the JAX package's classes and top level exists in the port, and each name
-the port has not ported yet raises NotImplementedError naming its
-ROADMAP.md queue 1 item; ``Rigid.compute_aspect``; and the ``only_tags``
+the JAX package's classes and top level exists in the port, none stands
+in for an unported one (only multi-device, ROADMAP.md queue 1 item 11,
+is left, and raises naming it); ``Rigid.compute_aspect``; and the ``only_tags``
 read finished by ``Image.load_array``, bit-equal to a normal read and to
 the JAX package's ``load_array``."""
 
@@ -120,7 +120,9 @@ PORTED = {
                            "NiftiReader", "read_nifti"),
     ("read.mhd", None): ("read_mhd_volume", "write_mhd_volume",
                          "MhdReader"),
-    ("reader", None): ("check_memory", "read_mhd", "read_nifti"),
+    ("reader", None): ("check_memory", "read_mhd", "read_nifti",
+                       "read_3mf", "read_stl", "read_vtk", "read_ply",
+                       "read_obj"),
     ("utils.creation", None): ("image_from_saved",),
     # the image-analysis, IO and registration slices' Rigid, Deformable
     # and utils names, and the rest of ingest and registration
@@ -136,9 +138,11 @@ PORTED = {
         "retrieve_slice_position", "compute_tps", "roi_mask_union"),
     ("utils", None): ("CreateImageFromMask", "euler_transform",
                       "find_phase_groups", "combine_phases", "compute_itv",
-                      "ICP"),
+                      "ICP", "ModelToMask", "Volume", "clean_mesh",
+                      "expansion", "surface_boundary", "only_main_component"),
     ("read", None): ("Read3D", "ReadXRay", "ReadRF", "ReadUS",
-                     "ReadNMPlanar"),
+                     "ReadNMPlanar", "ThreeMfReader", "StlReader",
+                     "VtkReader", "PlyReader", "ObjReader"),
     ("read.multiframe", None): ("is_enhanced_multiframe",
                                 "expand_multiframe", "FrameView"),
     ("read.nm", None): ("is_nm_tomo", "expand_nm_tomo", "NMTomoFrameView",
@@ -153,8 +157,28 @@ PORTED = {
                                      "nearest_neighbors"),
     ("ops.registration.bspline", None): ("elastix_registration",),
     ("utils.deformable.torch_backend", "DeformableTorch"): ("elastix",),
+    # the mesh slice
+    ("utils.mesh.surface", "Refinement"): ("tri_split", "advanced_split",
+                                           "find_face_correction",
+                                           "compute_midpoints"),
+    ("utils.convert.contour", None): ("ModelToMask",),
+    ("utils.mesh.surface", None): ("clean_mesh", "expansion",
+                                   "surface_boundary",
+                                   "only_main_component"),
+    ("utils.mesh.volume", None): ("Volume", "TetMesh"),
+    ("read.mf3", None): ("ThreeMfReader", "write_3mf"),
+    ("read.stl", None): ("StlReader", "read_stl", "write_stl"),
+    ("read.vtk", None): ("VtkReader", "read_vtk_polydata",
+                         "write_vtk_polydata"),
+    ("read.ply", None): ("PlyReader", "read_ply", "write_ply"),
+    ("read.obj", None): ("ObjReader", "read_obj", "write_obj"),
+    ("ops.voxelize", None): ("voxelize_mesh_device", "voxelize_batch"),
+    ("ops.rasterize", None): ("polygon_bitmaps", "fill_polygons_2d"),
 }
-PORTED_TOP_LEVEL = ("read_mhd", "MhdReader", "read_nifti", "check_memory")
+PORTED_TOP_LEVEL = ("read_mhd", "MhdReader", "read_nifti", "check_memory",
+                    "read_3mf", "read_stl", "read_vtk", "read_ply",
+                    "read_obj", "ThreeMfReader", "StlReader", "VtkReader",
+                    "PlyReader", "ObjReader")
 
 
 @pytest.mark.parametrize("module,cls", sorted(PORTED, key=str),
@@ -174,9 +198,32 @@ def test_ported_names_are_not_stand_ins(module, cls):
 
 @pytest.mark.parametrize("name", PORTED_TOP_LEVEL)
 def test_ported_top_level_names_are_not_stand_ins(name):
-    assert name not in tmia._WAITING
     assert stub_item(getattr(tmia, name)) is None
     assert getattr(tmia, name) is not getattr(jmia, name)
+
+
+def test_no_stand_in_is_left_but_multi_device():
+    """After the mesh slice no public name of the port stands in for an
+    unported one: the top level and utils serve real objects, and what
+    is left unported is multi-device (ROADMAP.md queue 1, item 11), whose
+    ``mesh=`` arguments raise naming that item."""
+    from medicalimageanalysis_torch.parallel import batch
+    from medicalimageanalysis_tpu import utils as jutils
+
+    names = list(TOP_LEVEL) + list(jutils.__all__)
+    assert [n for n in names if stub_item(getattr(tmia, n)) is not None] \
+        == []
+    for module, cls in CLASSES:
+        port = getattr(importlib.import_module(
+            f"medicalimageanalysis_torch.{module}"), cls)
+        assert [n for n in public(port) if stub_item(
+            inspect.getattr_static(port, n)) is not None] == []
+    assert not os.path.exists(os.path.join(
+        os.path.dirname(tmia.__file__), "_waiting.py"))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        batch.compare_masks_batch(np.zeros((1, 2, 2, 2), np.uint8),
+                                  np.zeros((1, 2, 2, 2), np.uint8),
+                                  (1.0, 1.0, 1.0), mesh=object())
 
 
 def test_data_plan_registries_start_empty_and_clear():

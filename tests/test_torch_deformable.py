@@ -182,14 +182,15 @@ def test_compute_biomechanical_matches_jax(tmp_path):
 def test_waiting_methods_name_their_roadmap_item(method, args):
     """``compute_tps`` is ported (tests/test_torch_tps.py holds it against
     the JAX package): given half a point pair it raises the JAX package's
-    ValueError. The Display's mesh cut still waits for its ROADMAP.md
-    item."""
+    ValueError. The Display's mesh cut is ported too
+    (tests/test_torch_mesh_slice.py): with no moving image it has no mesh
+    to cut and returns [], as the JAX package's does."""
     d = tmia.Deformable(device="cpu")
     assert d.deformable_name == "DVF_Unknown"
     with pytest.raises(ValueError, match="together"):
         getattr(d, method)(*args, points_reference=np.zeros((3, 3)))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        d.display.compute_mesh_slice("PTV")
+    assert d.display.compute_mesh_slice("PTV") == \
+        JDeformable().display.compute_mesh_slice("PTV") == []
 
 
 @pytest.mark.parametrize("method", ["load_deformable", "create_reg",

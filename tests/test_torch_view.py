@@ -535,8 +535,30 @@ def test_pre_alignment_matches_jax(two_images, mode):
 
 
 def test_rigid_mesh_slice_waits_for_item_9(two_images):
+    """The Rigid Display's mesh cut, ported with the mesh slice: a box
+    ROI on the moving image, carried onto the reference by update_rois
+    and cut through its centre on each plane, equal to the JAX
+    package's loops to 1e-6 mm (the name is the test's from before the
+    cut was ported, when it raised). No shear-lane launch on the way."""
+    from medicalimageanalysis_torch import interop
+    from medicalimageanalysis_tpu.utils.mesh.trimesh import TriMesh, box_mesh
     ct, mr = two_images
-    rigid = tmia.Rigid(ct, mr)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        rigid.display.compute_mesh_slice("Body", slice_plane="Axial")
+    box = box_mesh([-90.0, -115.0, -45.0], [-75.0, -100.0, -35.0])
+    interop.meshes_from_numpy(TData.image[mr],
+                              {"Body": (box.points, box.faces)})
+    JData.image[mr].create_roi(name="Body", visible=True)
+    JData.image[mr].rois["Body"].update_mesh(
+        TriMesh(box.points.copy(), box.faces.copy()))
+    t, j = tmia.Rigid(ct, mr), JRigid(ct, mr)
+    for rigid in (t, j):
+        rigid.update_translation(t_x=1.5)
+    center = j.rois["Body"].center
+    for plane in PLANES:
+        got = t.display.compute_mesh_slice("Body", location=center,
+                                           slice_plane=plane)
+        want = j.display.compute_mesh_slice("Body", location=center,
+                                            slice_plane=plane)
+        assert len(got.loops) == len(want.loops) == 1
+        np.testing.assert_allclose(got.loops[0], want.loops[0], rtol=0,
+                                   atol=1e-6)
     assert twarp.LAUNCHES["warp_affine_shear"] == 0
