@@ -106,7 +106,17 @@ and the rest of registration
         Euler + B-spline map) -> Deformable.compute_demons(roi_names=
         ["Body"])
 
-at full size. Each phase
+at full size, then the multi-device path on four logical shards of the
+card
+
+    parallel.mesh.make_mesh -> parallel.halo.gaussian_z_sharded /
+        demons_z_sharded (SSD and LNCC) / warp_z_sharded /
+        demons_batch_z_sharded -> the mesh= paths of parallel.batch and
+        register_rigid_intensity_batch -> parallel.cohort.ingest_cohort
+        -> initialize_distributed (one NCCL rank) and
+        distributed_cohort_batch
+
+each held against its single-device (mesh=None) result. Each phase
 prints one JSON line; any failure raises and exits non-zero. Near the end it
 prints the card's name and power limit (nvidia-smi) and a JSON line with
 every kernel's launches, error, times, bound and ms lost; the last line is
@@ -2315,7 +2325,8 @@ def warp_path_rows(calls):
     """The warp kernels at each key recorded by recording_warp_calls, on
     those tensors: held bit-equal to the plain twin, timed, with the bound
     of their work (warp_bound; for a list of points, the field voxels
-    their taps touch) and F.grid_sample at the same points
+    their taps touch; for a halo slab deeper than the output, the slab
+    rows the taps reach, slab_rows) and F.grid_sample at the same points
     (library_sample_ms). Returns {kernel: {timed_key: row}}."""
     from medicalimageanalysis_torch.ops.warp import (MAX_B, affine_coords,
                                                      warp_affine_plain,
@@ -2344,6 +2355,12 @@ def warp_path_rows(calls):
         row["bound_ms"], row["bound_by"] = warp_bound(
             args[0][0].numel(), math.prod(shape), B,
             0 if name == "warp_affine" else 3, want)
+        if name == "warp_disp" and args[0].shape[1] != shape[0]:
+            # a halo slab (parallel/halo.py): the rows the field reaches
+            row["slab_rows"] = slab_rows(args[0].shape[1], args[1][2])
+            row["bound_ms"], row["bound_by"] = warp_bound(
+                row["slab_rows"] * math.prod(args[0].shape[2:]),
+                math.prod(shape), B, 3, want)
         if name == "warp_coords" and tuple(shape[:2]) == (1, 1):
             # points (a mesh warp): the field voxels their taps touch,
             # read once, as phase_mesh_warp bounds the external's
@@ -2596,6 +2613,19 @@ def phase_roi_mesh(names, img_name, dose_name, rigid, dev):
     return dict(deform=deform, body_mask=body_mask,
                 body_discrete=body_discrete, external=ext, work=work,
                 meshes=meshes, cleanup=cleanup)
+
+
+def slab_rows(depth, dz):
+    """The rows of a ``depth``-row volume that a ``disp`` launch's taps
+    read for the z displacements ``dz`` (Zo, Yo, Xo) at the base rows
+    0..Zo-1: from the lowest floor(z + dz) to the highest floor + 1,
+    clamped to the volume as the kernel clamps its taps."""
+    zz = torch.arange(dz.shape[0], device=dz.device,
+                      dtype=torch.float32)[:, None, None]
+    f = torch.floor(zz + dz)
+    lo = int(f.min().clamp(0, depth - 1))
+    hi = int((f.max() + 1).clamp(0, depth - 1))
+    return hi - lo + 1
 
 
 def mesh_taps(planar, cz, cy, cx):
@@ -3376,7 +3406,8 @@ def phase_cohort_rigid(names, truth, rigid, dev):
     register_rigid_intensity_batch (each pair within the phase_rigid
     limits of its truth and equal to its single-pair descent), then 10
     make_registration_step steps at B = 4, stride 2. Returns the batch
-    inputs for a profile of one level."""
+    inputs (for a profile of one level) and the batch's poses, losses and
+    ms (for the multi-device path's mesh= call)."""
     from types import SimpleNamespace
 
     from medicalimageanalysis_torch.data import Data
@@ -3501,7 +3532,8 @@ def phase_cohort_rigid(names, truth, rigid, dev):
             f"cohort pair {p} missed: {r}"
     assert worst_single <= 1e-4, f"batch != single-pair descent: {rows}"
     assert step_losses[-1] < step_losses[0], step_losses
-    return refs, movs, geo_in
+    return refs, movs, geo_in, dict(poses=poses, losses=losses,
+                                    batch_ms=batch_ms)
 
 
 def ia_timed(fn, dev):
@@ -3904,16 +3936,16 @@ def ia_pet(folder, img_name, dev):
     return row, tex_inputs
 
 
-def mr_phantom(seed):
-    """(volume, truth, bias) on MR_SHAPE: tests/test_n4.py's biased volume
+def mr_phantom(seed, shape=MR_SHAPE):
+    """(volume, truth, bias) on ``shape``: tests/test_n4.py's biased volume
     (two tissue classes, 15 of noise, a smooth polynomial log-bias)."""
     rng = np.random.default_rng(seed)
-    zz, yy, xx = np.meshgrid(*[np.linspace(-1, 1, n) for n in MR_SHAPE],
+    zz, yy, xx = np.meshgrid(*[np.linspace(-1, 1, n) for n in shape],
                              indexing="ij")
     logb = 0.25 * zz + 0.18 * yy * xx - 0.15 * xx ** 2
     truth = np.where(zz ** 2 + yy ** 2 + xx ** 2 < 0.6, 800.0, 300.0)
     del zz, yy
-    truth = np.clip(truth + rng.normal(0, 15, MR_SHAPE), 1, None)
+    truth = np.clip(truth + rng.normal(0, 15, shape), 1, None)
     bias = np.exp(logb)
     return truth * bias, truth, bias
 
@@ -5433,6 +5465,505 @@ def phase_registration_rest(names, img_name, gen, dev):
     return dict(launches=launches, shapes=shapes, warp_rows=warp_rows)
 
 
+# ---------------------------------------------------------------------------
+# multi-device: the (data, space) mesh on one card, as logical shards
+MD_SHARDS = 4                    # logical shards on the one card
+MD_HALO = 16                     # demons_z_sharded's halo rows
+MD_ITERATIONS = 50               # demons_registration's default level
+MD_ROIS = 4                      # dose-QA ROIs in the data-axis calls
+MD_N4_SHAPE = (88, 128, 128)     # n4_batch's cut: MR_SHAPE / 2, ...
+MD_N4 = dict(shrink=4, levels=1, max_iterations=10)  # ... one short level
+MD_PREPROCESS = (8, (40, 256, 256), (40, 128, 128))  # B, in, out
+MD_SEAM_ROWS = 4    # rows each side of a shard boundary: the LNCC box
+#                     (radius 3) and smoothing (radius 4) halos' reach
+# the LNCC sharded field's mean |diff| from the single level, overall and
+# over the seam rows: 2.5x the 0.008 mm the card gave (the sums' order,
+# amplified by the peak normalisation), 1/160 of the grid's 3.2 mm; a
+# halo or box-sum fault moves the seam rows by tenths of a mm
+MD_LNCC_MEAN_MM = 0.02
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def coordinate_bound(vol, coord_max):
+    """The largest |difference| two float32 computations of the same z
+    sample coordinate can leave in a trilinear warp of ``vol``: the
+    coordinates (global row + u_z against local row + (u_z + halo)) each
+    round once or twice below ``coord_max``, so they differ by under
+    2 ulp(coord_max), times the largest step between z neighbours, plus
+    8 ulp of the largest value for the weights' products."""
+    ulp = float(np.spacing(np.float32(coord_max)))
+    step = float(np.abs(np.diff(vol, axis=0)).max())
+    top = float(np.spacing(np.float32(np.abs(vol).max())))
+    return 2 * ulp * step + 8 * top
+
+
+def phase_multi_device(folder, names, img_name, dose_name, cohort, dev):
+    """The multi-device path on one card, with its shards as logical
+    shards (the mesh's entries repeat the card): the space axis (a
+    Gaussian z pass, demons and LNCC demons and a warp, z-sharded with
+    halo exchange, against their single-device twins), both axes
+    (demons_batch_z_sharded, the pair and its reverse), the data axis
+    (the cohort rigid, dvh / rasterize / compare_masks / gamma over
+    dose-QA ROIs, radiomics of the PTV crop, demons_batch, n4_batch,
+    preprocess_batch and ingest_cohort, each against its mesh=None
+    result), then distributed_cohort_batch over a one-rank NCCL group.
+    The twins run inside uncounted(): the launch counts are the sharded
+    calls'. Returns the launches, shapes, recorded histogram calls, the
+    warp rows of the path's keys and the profile's closure."""
+    from medicalimageanalysis_torch.data import Data
+    from medicalimageanalysis_torch.device import full_float32
+    from medicalimageanalysis_torch.models import rigid_intensity as ri
+    from medicalimageanalysis_torch.ops import hist, radiomics
+    from medicalimageanalysis_torch.ops.filters import _gauss_kernel_matrix
+    from medicalimageanalysis_torch.ops.registration.demons import (
+        demons_registration)
+    from medicalimageanalysis_torch.ops.registration.dvf import warp_volume
+    from medicalimageanalysis_torch.ops.resample import (affine_resample,
+                                                         compose_pixel_matrix,
+                                                         separable_resample)
+    from medicalimageanalysis_torch.parallel import batch, cohort as pcohort
+    from medicalimageanalysis_torch.parallel import halo
+    from medicalimageanalysis_torch.parallel.mesh import (
+        initialize_distributed, make_mesh)
+    from medicalimageanalysis_torch.utils.creation import CreateDicomImage
+    from medicalimageanalysis_torch.utils.metrics import voxel_volume_cc
+
+    def timed(fn):
+        sync(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        sync(dev)
+        return res, 1e3 * (time.perf_counter() - t0)
+
+    def same(a, b):
+        """Bit-equal, through dicts, tuples and lists (NaN equal NaN)."""
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+        if isinstance(a, (tuple, list)):
+            return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+        if isinstance(a, torch.Tensor):
+            return torch.equal(a, b)
+        if isinstance(a, np.ndarray):
+            return np.array_equal(a, b, equal_nan=a.dtype.kind == "f")
+        return a == b or (a != a and b != b)
+
+    t_phase = time.perf_counter()
+    rows, hist_calls = {}, {}
+    space4 = make_mesh(MD_SHARDS, space=MD_SHARDS, devices=[dev] * MD_SHARDS)
+    both = make_mesh(MD_SHARDS, space=2, devices=[dev] * MD_SHARDS)
+    data4 = make_mesh(MD_SHARDS, space=1, devices=[dev] * MD_SHARDS)
+    # the reference registered onto the deformed series: one fast level
+    # reaches a residual ratio of 0.37 that way at 64 x 256 x 256, 0.61
+    # the other way (ROADMAP.md queue 3, observations)
+    ref_arr = Data.image[names["ref"]].array.astype(np.float32)
+    fixed = Data.image[names["deformed"]].array.astype(np.float32)
+    moving = ref_arr
+    body = fixed > -900.0
+    body_rev = moving > -900.0
+    demons_kw = dict(method="fast", iterations=MD_ITERATIONS, std=1,
+                     step=2.0)
+
+    def in_turns(sharded, single):
+        """The sharded call and its single-device twin in turns (sharded,
+        twin, twin, sharded: the first call of a shape pays the caching
+        allocator's growth); returns both results and both mean ms, the
+        twin's calls uncounted."""
+        res_sh, ms_a = timed(sharded)
+        with uncounted():
+            res_1, ms_b = timed(single)
+            res_1, ms_c = timed(single)
+        res_sh, ms_d = timed(sharded)
+        return res_sh, res_1, (ms_a + ms_d) / 2, (ms_b + ms_c) / 2
+
+    def ratio(field, mov, fix, mask):
+        with uncounted():
+            warped = warp_volume(mov, field, SPACING, background=-3001.0,
+                                 device=dev).cpu().numpy()
+        return residual_ratio(warped, mov, fix, mask)
+
+    # --- the space axis: z-sharded over 4 logical shards of 32 slices
+    mz = torch.as_tensor(_gauss_kernel_matrix(SHAPE[0], 1.5), device=dev)
+    with full_float32():
+        g_sh, g_1, ms_sh, ms_1 = in_turns(
+            lambda: halo.gaussian_z_sharded(fixed, 1.5, space4),
+            lambda: torch.einsum("ij,jyx->iyx", mz,
+                                 torch.as_tensor(fixed, device=dev)))
+    g_err = float(np.abs(np.asarray(g_sh) - g_1.cpu().numpy()).max())
+    g_lim = 1e-5 * float(np.abs(fixed).max())
+    rows["gaussian_z_sharded"] = dict(ms=ms_sh, mesh_none_ms=ms_1,
+                                      max_abs_err=g_err, limit=g_lim)
+    assert g_err <= g_lim, rows["gaussian_z_sharded"]
+    del g_sh, g_1
+
+    d_sh, d_1, ms_sh, ms_1 = in_turns(
+        lambda: halo.demons_z_sharded(fixed, moving, space4, SPACING,
+                                      halo=MD_HALO, **demons_kw),
+        lambda: demons_registration(fixed, moving, SPACING, device=dev,
+                                    **demons_kw))
+    r_sh, r_1 = ratio(d_sh, moving, fixed, body), \
+        ratio(d_1, moving, fixed, body)
+    diff = np.abs(d_sh - d_1)
+    rows["demons_z_sharded"] = dict(
+        ms=ms_sh, mesh_none_ms=ms_1, iterations=MD_ITERATIONS, halo=MD_HALO,
+        shards=MD_SHARDS, residual_ratio=r_sh, mesh_none_residual_ratio=r_1,
+        residual_limit=RESIDUAL_LIMIT, field_max_abs_diff_mm=float(diff.max()),
+        field_p99_abs_diff_mm=float(np.percentile(diff, 99)),
+        max_abs_uz_mm=float(np.abs(d_sh[..., 2]).max()))
+    assert r_sh <= RESIDUAL_LIMIT, rows["demons_z_sharded"]
+    assert abs(r_sh - r_1) <= 0.02 * r_1, rows["demons_z_sharded"]
+    del diff
+
+    # warp_z_sharded: the deformed series by the sharded field
+    w_sh, w_1, ms_sh, ms_1 = in_turns(
+        lambda: np.asarray(halo.warp_z_sharded(
+            moving, d_sh, space4, SPACING, background=-3001.0,
+            halo=MD_HALO)),
+        lambda: warp_volume(moving, d_sh, SPACING, background=-3001.0,
+                            device=dev).cpu().numpy())
+    w_err = float(np.abs(w_sh - w_1).max())
+    w_lim = coordinate_bound(moving, SHAPE[0])
+    rows["warp_z_sharded"] = dict(
+        ms=ms_sh, mesh_none_ms=ms_1, max_abs_err=w_err, bound=w_lim,
+        background_voxels=int((w_sh == -3001.0).sum()),
+        mesh_none_background_voxels=int((w_1 == -3001.0).sum()))
+    assert np.array_equal(w_sh == -3001.0, w_1 == -3001.0), \
+        rows["warp_z_sharded"]
+    assert w_err <= w_lim, rows["warp_z_sharded"]
+    del w_sh, w_1
+
+    # LNCC demons at the variants' grid, 16-slice shards
+    small = (SHAPE[0] // 2, SHAPE[1] // 4, SHAPE[2] // 4)
+    sp_small = [SPACING[0] * SHAPE[2] / small[2],
+                SPACING[1] * SHAPE[1] / small[1],
+                SPACING[2] * SHAPE[0] / small[0]]
+    with uncounted():
+        f_s, m_s = (separable_resample(torch.as_tensor(a, device=dev),
+                                       small).cpu().numpy()
+                    for a in (fixed, moving))
+    lncc_kw = dict(demons_kw, forces="lncc")
+    l_sh, l_1, ms_sh, ms_1 = in_turns(
+        lambda: halo.demons_z_sharded(f_s, m_s, space4, sp_small,
+                                      halo=MD_HALO, **lncc_kw),
+        lambda: demons_registration(f_s, m_s, sp_small, device=dev,
+                                    **lncc_kw))
+
+    def ratio_small(field):
+        with uncounted():
+            warped = warp_volume(m_s, field, sp_small, background=-3001.0,
+                                 device=dev).cpu().numpy()
+        return residual_ratio(warped, m_s, f_s, f_s > -900.0)
+
+    rl_sh, rl_1 = ratio_small(l_sh), ratio_small(l_1)
+    diff = np.abs(l_sh - l_1)
+    # where the fields differ: the rows within MD_SEAM_ROWS of a shard
+    # boundary (the halo exchanges' reach) against the interior rows
+    zl = small[0] // MD_SHARDS
+    seam = np.abs((np.arange(small[0]) + 0.5) % zl - zl / 2) \
+        >= zl / 2 - MD_SEAM_ROWS
+    seam[:MD_SEAM_ROWS] = seam[-MD_SEAM_ROWS:] = False   # global edges
+    by_row = diff.reshape(small[0], -1)
+    worst = int(by_row.max(axis=1).argmax())
+    rows["demons_z_sharded_lncc"] = dict(
+        shape=list(small), ms=ms_sh, mesh_none_ms=ms_1,
+        residual_ratio=rl_sh, mesh_none_residual_ratio=rl_1,
+        field_mean_abs_diff_mm=float(diff.mean()),
+        field_max_abs_diff_mm=float(diff.max()),
+        seam_rows=int(seam.sum()),
+        seam_mean_abs_diff_mm=float(by_row[seam].mean()),
+        interior_mean_abs_diff_mm=float(by_row[~seam].mean()),
+        seam_max_abs_diff_mm=float(by_row[seam].max()),
+        interior_max_abs_diff_mm=float(by_row[~seam].max()),
+        worst_row=worst,
+        worst_row_to_seam=int(min(abs(worst + 0.5 - b * zl) - 0.5
+                                  for b in range(1, MD_SHARDS))),
+        mean_limit_mm=MD_LNCC_MEAN_MM)
+    assert np.isfinite(l_sh).all()
+    assert abs(rl_sh - rl_1) <= 0.02 * rl_1, rows["demons_z_sharded_lncc"]
+    assert diff.mean() <= MD_LNCC_MEAN_MM, rows["demons_z_sharded_lncc"]
+    assert by_row[seam].mean() <= MD_LNCC_MEAN_MM, \
+        rows["demons_z_sharded_lncc"]
+    del l_sh, l_1, diff
+
+    # --- both axes: the pair and its reverse, 2 data rows x 2 shards
+    pairs_f, pairs_m = np.stack([fixed, moving]), np.stack([moving, fixed])
+    b_sh, ms_sh = timed(lambda: halo.demons_batch_z_sharded(
+        pairs_f, pairs_m, both, SPACING, halo=MD_HALO, **demons_kw))
+    with uncounted():
+        rev_1, ms_rev = timed(lambda: demons_registration(
+            moving, fixed, SPACING, device=dev, **demons_kw))
+    rb = [ratio(b_sh[0], moving, fixed, body),
+          ratio(b_sh[1], fixed, moving, body_rev)]
+    rb_1 = [r_1, ratio(rev_1, fixed, moving, body_rev)]
+    rows["demons_batch_z_sharded"] = dict(
+        pairs=2, mesh=both.shape, ms=ms_sh,
+        mesh_none_ms=rows["demons_z_sharded"]["mesh_none_ms"] + ms_rev,
+        residual_ratio=rb, mesh_none_residual_ratio=rb_1)
+    # each pair as its single-device level; the reverse (deformed onto
+    # the reference) is the orientation one level leaves above the limit
+    assert rb[0] <= RESIDUAL_LIMIT, rows["demons_batch_z_sharded"]
+    for a, b in zip(rb, rb_1):
+        assert abs(a - b) <= 0.02 * b, rows["demons_batch_z_sharded"]
+    del pairs_f, pairs_m, b_sh, rev_1, d_1
+    torch.cuda.empty_cache()
+
+    # --- the data axis: each function against its mesh=None result
+    refs, movs, geo_in, plain = cohort
+    scale = 1.0 / 65535.0
+    (poses, losses), ms_sh = timed(lambda: ri.register_rigid_intensity_batch(
+        refs, movs, *geo_in, levels=RIGID_LEVELS, intensity_scale=scale,
+        mesh=data4))
+    rows["register_rigid_intensity_batch"] = dict(
+        pairs=len(refs), ms=ms_sh, mesh_none_ms=plain["batch_ms"],
+        pose_max_abs_diff=float(np.abs(poses - plain["poses"]).max()))
+    assert np.array_equal(poses, plain["poses"]) \
+        and np.array_equal(losses, plain["losses"]), \
+        rows["register_rigid_intensity_batch"]
+
+    img, dose = Data.image[img_name], Data.dose[dose_name]
+    roi_names = [n for n in img.rois
+                 if img.rois[n].contour_pixel is not None][:MD_ROIS]
+    masks = img.compute_roi_masks(roi_names)
+    with uncounted():
+        A = compose_pixel_matrix(dose.matrix, dose.spacing, dose.origin,
+                                 img.matrix, img.spacing, img.origin)
+        grid = affine_resample(dose.array, A, img.array.shape,
+                               background=0.0, device=dev)
+    dose_b = grid.expand((len(roi_names),) + tuple(grid.shape))
+    mask_b = torch.stack([torch.as_tensor(masks[n], device=dev)
+                          for n in roi_names])
+    vox = voxel_volume_cc(img.spacing)
+    with recording_hist_calls(hist_calls):
+        out_sh, ms_sh = timed(lambda: batch.dvh_batch(
+            dose_b, mask_b, vox, mesh=data4))
+    with uncounted():
+        out_1, ms_1 = timed(lambda: batch.dvh_batch(dose_b, mask_b, vox,
+                                                    device=dev))
+    rows["dvh_batch"] = dict(rois=roi_names, ms=ms_sh, mesh_none_ms=ms_1,
+                             bit_equal=same(out_sh, out_1))
+    assert rows["dvh_batch"]["bit_equal"], rows["dvh_batch"]
+    del dose_b, grid
+
+    contours = [img.rois[n].contour_pixel for n in roi_names]
+    dims = tuple(int(v) for v in img.dimensions)
+    out_sh, ms_sh = timed(lambda: batch.rasterize_batch(contours, dims,
+                                                        mesh=data4))
+    with uncounted():
+        out_1, ms_1 = timed(lambda: batch.rasterize_batch(contours, dims,
+                                                          device=dev))
+    rows["rasterize_batch"] = dict(ms=ms_sh, mesh_none_ms=ms_1,
+                                   bit_equal=same(out_sh, out_1))
+    assert rows["rasterize_batch"]["bit_equal"]
+
+    stack_a = np.stack([masks[n] for n in roi_names])
+    stack_b = np.roll(stack_a, 2, axis=3)          # 1.6 mm in x
+    out_sh, ms_sh = timed(lambda: batch.compare_masks_batch(
+        stack_a, stack_b, img.spacing, mesh=data4))
+    with uncounted():
+        out_1, ms_1 = timed(lambda: batch.compare_masks_batch(
+            stack_a, stack_b, img.spacing, device=dev))
+    rows["compare_masks_batch"] = dict(ms=ms_sh, mesh_none_ms=ms_1,
+                                       bit_equal=same(out_sh, out_1))
+    assert rows["compare_masks_batch"]["bit_equal"]
+    del stack_a, stack_b
+
+    d = dose.array.astype(np.float32)
+    evals = np.stack([d, d * np.float32(GAMMA_SCALE), d * np.float32(0.97),
+                      np.roll(d, 1, axis=2)])
+    refs_g = np.stack([d] * len(evals))
+    out_sh, ms_sh = timed(lambda: batch.gamma_batch(
+        refs_g, evals, dose.spacing, return_maps=True, mesh=data4))
+    with uncounted():
+        out_1, ms_1 = timed(lambda: batch.gamma_batch(
+            refs_g, evals, dose.spacing, return_maps=True, device=dev))
+    rows["gamma_batch"] = dict(ms=ms_sh, mesh_none_ms=ms_1,
+                               pass_rate=[float(v) for v in
+                                          out_sh["pass_rate"]],
+                               bit_equal=same(out_sh, out_1))
+    assert rows["gamma_batch"]["bit_equal"]
+    del refs_g, evals, out_sh, out_1
+
+    ptv = np.asarray(img.rois["PTV"].compute_mask()) > 0
+    lo, hi, _, cm = radiomics._crop(fixed, ptv)
+    box = tuple(slice(a, b) for a, b in zip(lo, hi))
+    crops = np.stack([a[box] for a in (fixed, moving, fixed, moving)])
+    crop_m = np.stack([cm, cm, np.roll(cm, 1, axis=2), np.roll(cm, 1,
+                                                                axis=2)])
+    out_sh, ms_sh = timed(lambda: batch.radiomics_batch(
+        crops, crop_m, SPACING, bin_width=PTV_BIN_HU, mesh=data4))
+    with uncounted():
+        out_1, ms_1 = timed(lambda: batch.radiomics_batch(
+            crops, crop_m, SPACING, bin_width=PTV_BIN_HU, device=dev))
+    rows["radiomics_batch"] = dict(crop=list(cm.shape), ms=ms_sh,
+                                   mesh_none_ms=ms_1,
+                                   bit_equal=same(out_sh, out_1))
+    assert rows["radiomics_batch"]["bit_equal"]
+
+    with uncounted():
+        f2, m2, sp2, _ = demons_batch_pairs(ref_arr, fixed, dev)
+        f4, m4 = torch.cat([f2, f2]), torch.cat([m2, m2])
+    out_sh, ms_sh = timed(lambda: batch.demons_batch(
+        f4, m4, sp2, method="fast", iterations=DEMONS_BATCH_ITERATIONS,
+        mesh=data4))
+    with uncounted():
+        out_1, ms_1 = timed(lambda: batch.demons_batch(
+            f4, m4, sp2, method="fast", iterations=DEMONS_BATCH_ITERATIONS,
+            device=dev))
+    rows["demons_batch"] = dict(pairs=4, shape=list(DEMONS_BATCH_SHAPE),
+                                ms=ms_sh, mesh_none_ms=ms_1,
+                                bit_equal=same(out_sh, out_1))
+    assert rows["demons_batch"]["bit_equal"]
+    del f2, m2, f4, m4, out_sh, out_1
+
+    vols = np.stack([mr_phantom(SEED + k, MD_N4_SHAPE)[0]
+                     for k in range(4)]).astype(np.float32)
+    (c_sh, f_sh), ms_sh = timed(lambda: batch.n4_batch(
+        vols, return_fields=True, mesh=data4, **MD_N4))
+    with uncounted():
+        (c_1, f_1), ms_1 = timed(lambda: batch.n4_batch(
+            vols, return_fields=True, device=dev, **MD_N4))
+    lanes = []
+    for a, b in zip(f_sh, f_1):
+        r = a.astype(np.float64) / b.astype(np.float64)
+        lanes.append([float(abs(r.mean() - 1.0)), float(r.std())])
+    rows["n4_batch"] = dict(
+        volumes=4, shape=list(MD_N4_SHAPE), cut=dict(
+            MD_N4, note="MR_SHAPE halved, one fitting level of at most "
+            "10 iterations: the phase's time"),
+        ms=ms_sh, mesh_none_ms=ms_1, bit_equal=same(f_sh, f_1),
+        field_ratio_mean_dev_std=lanes)
+    # tests/test_n4.py's lane rule: a B=1 contraction may sum otherwise
+    assert all(m < 2e-3 and s < 5e-3 for m, s in lanes), rows["n4_batch"]
+    del vols, c_sh, f_sh, c_1, f_1
+
+    B, in_shape, out_shape = MD_PREPROCESS
+    g = torch.Generator().manual_seed(SEED)
+    raw = (torch.randn((B,) + in_shape, generator=g) * 300.0 - 226.0) \
+        .round().to(torch.int16).numpy()
+    slopes, intercepts = np.ones(B, np.float32), np.full(B, -24.0,
+                                                         np.float32)
+    (v_sh, k_sh), ms_sh = timed(lambda: batch.preprocess_batch(
+        raw, slopes, intercepts, out_shape, mesh=data4))
+    with uncounted():
+        (v_1, k_1), ms_1 = timed(lambda: batch.preprocess_batch(
+            raw, slopes, intercepts, out_shape, device=dev))
+    atol = 1e-5 * float(v_1.abs().max())
+    rows["preprocess_batch"] = dict(
+        batch=B, in_shape=list(in_shape), out_shape=list(out_shape),
+        ms=ms_sh, mesh_none_ms=ms_1, bit_equal=same((v_sh, k_sh),
+                                                    (v_1, k_1)),
+        max_abs_err=max_abs(v_sh, v_1), atol=atol,
+        mask_voxels_differ=int((k_sh != k_1).sum()))
+    # phase_preprocess's bound: B=2 rows and B=8 may sum in other orders
+    assert torch.allclose(v_sh, v_1, rtol=1e-5, atol=atol), \
+        rows["preprocess_batch"]
+    del raw, v_sh, k_sh, v_1, k_1
+
+    # ingest_cohort of a four-series cohort folder into its own registry
+    cohort_dir = os.path.join(folder, "cohort")
+    ref_img = Data.image[names["ref"]]
+    series = (fixed, moving, Data.image[names["mov"]].array,
+              np.roll(fixed, 3, axis=2))
+    for k, arr in enumerate(series):
+        CreateDicomImage(os.path.join(cohort_dir, f"s{k}"),
+                         np.asarray(arr).astype(np.int16),
+                         series=f"{REF_UID}.9{k}", origin=REF_ORIGIN,
+                         spacing=SPACING[:2], thickness=SPACING[2]).run(
+                             patient_id="COHORT")
+    registry = registry_state()
+    try:
+        got, ms_sh = timed(lambda: pcohort.ingest_cohort(
+            folder_path=cohort_dir, out_shape=(64, 256, 256), mesh=data4,
+            device=dev))
+        uids = {n: Data.image[n].series_uid for n in got}
+        with uncounted():
+            want, ms_1 = timed(lambda: pcohort.ingest_cohort(
+                folder_path=cohort_dir, out_shape=(64, 256, 256),
+                device=dev))
+        by_uid = {Data.image[n].series_uid: want[n] for n in want}
+    finally:
+        set_registry(registry)
+    errs = [max_abs(got[n]["volume"], by_uid[u]["volume"])
+            for n, u in uids.items()]
+    atol = 1e-5 * max(float(by_uid[u]["volume"].abs().max())
+                      for u in uids.values())
+    rows["ingest_cohort"] = dict(
+        series=len(got), ms=ms_sh, mesh_none_ms=ms_1,
+        bit_equal=all(same(got[n], by_uid[u]) for n, u in uids.items()),
+        max_abs_err=max(errs), atol=atol)
+    assert len(got) == 4 and max(errs) <= atol, rows["ingest_cohort"]
+    del got, want, by_uid
+
+    # --- one-rank NCCL: the global batch of the four cohort volumes
+    os.environ["MIA_COORDINATOR"] = f"localhost:{free_port()}"
+    import torch.distributed as dist
+
+    assert initialize_distributed(num_processes=1, process_id=0)
+    try:
+        backend = dist.get_backend_config()
+        assert "cuda:nccl" in backend, backend
+        ranked = make_mesh(MD_SHARDS, space=1, devices=[dev] * MD_SHARDS)
+        host = [m.cpu().numpy().astype(np.int32) for m in movs]
+        gb, ms_sh = timed(lambda: pcohort.distributed_cohort_batch(
+            host, ranked))
+        total = float(ranked.psum({p: b.to(torch.float64).mean()
+                                   for p, b in gb.blocks.items()}))
+    finally:
+        dist.destroy_process_group()
+        os.environ.pop("MIA_COORDINATOR")
+    want_total = float(sum(h.astype(np.float64).mean() for h in host))
+    rows["distributed_cohort_batch"] = dict(
+        backend=backend, ranks=1, shape=list(gb.shape), ms=ms_sh,
+        mean_sum=total, numpy_mean_sum=want_total)
+    assert gb.shape == (len(host),) + SHAPE
+    assert abs(total - want_total) <= 1e-9 * want_total, \
+        rows["distributed_cohort_batch"]
+    del host, gb
+
+    launches, shapes = launch_counts(), launch_shapes()
+    hist_shapes = dict(hist.LAUNCH_SHAPES)
+    seconds = time.perf_counter() - t_phase
+
+    # after the window: each warp key of the path on its own tensors (the
+    # sharded calls again, one iteration or step: the keys are the same)
+    calls = {}
+    short = dict(demons_kw, iterations=1)
+    with uncounted():
+        with recording_warp_calls(calls):
+            halo.demons_z_sharded(fixed, moving, space4, SPACING,
+                                  halo=MD_HALO, **short)
+            halo.demons_z_sharded(f_s, m_s, space4, sp_small, halo=MD_HALO,
+                                  **dict(lncc_kw, iterations=1))
+            halo.warp_z_sharded(moving, d_sh, space4, SPACING,
+                                background=-3001.0, halo=MD_HALO)
+            halo.demons_batch_z_sharded(np.stack([fixed, moving]),
+                                        np.stack([moving, fixed]), both,
+                                        SPACING, halo=MD_HALO, **short)
+            ri.register_rigid_intensity_batch(
+                refs, movs, *geo_in, intensity_scale=scale, mesh=data4,
+                levels=tuple((s, 1, lr) for s, _, lr in RIGID_LEVELS))
+        warp_rows = warp_path_rows(calls)
+    del calls
+    torch.cuda.empty_cache()
+    emit("multi_device", seconds=seconds, shards=MD_SHARDS,
+         meshes=dict(space=space4.shape, both=both.shape, data=data4.shape),
+         launches=launches, **rows)
+
+    def profile():
+        return halo.demons_z_sharded(fixed, moving, space4, SPACING,
+                                     halo=MD_HALO, **demons_kw)
+
+    return dict(launches=launches, shapes=shapes, hist_calls=hist_calls,
+                hist_shapes=hist_shapes, warp_rows=warp_rows,
+                profile=profile)
+
+
 def registry_state():
     """The port's registry, every dict and list of it."""
     from medicalimageanalysis_torch.data import Data
@@ -5627,6 +6158,24 @@ def main():
         # its warp launches on its own tensors, as above
         merge_warp_rows(kernels, reg.pop("warp_rows"), "registration_rest")
         torch.cuda.empty_cache()
+        reset_counts()                     # the multi-device path starts
+        md = phase_multi_device(folder, names, img_name, dose_name, cohort,
+                                dev)
+        multi_device_launches = md["launches"]  # ... and ends in it
+        shapes["multi_device"] = md["shapes"]
+        # its warp and histogram launches on its own tensors, as above
+        merge_warp_rows(kernels, md.pop("warp_rows"), "multi_device")
+        with uncounted():
+            row = hist_path_lost(md.pop("hist_calls"), md.pop("hist_shapes"),
+                                 phase="multi_device_hist_path")
+        hist_k = kernels["dose_hist"]
+        hist_k["max_abs_err"] = max(hist_k["max_abs_err"],
+                                    row.pop("path_max_abs_err"))
+        for key in ("ms_lost", "launches_timed_shapes",
+                    "launches_untimed_shapes"):
+            hist_k[key] += row[key]
+        hist_k["multi_device"] = row
+        torch.cuda.empty_cache()
         reset_counts()                     # the view path starts here
         view = phase_view(names, rigid, dev)
         view_launches = launch_counts()    # ... and ends here
@@ -5664,6 +6213,10 @@ def main():
                ("warp_affine", "warp_coords", "warp_disp", "dose_hist")), \
         f"a kernel of the IO path never launched: {io_launches}"
     # ingest_rest assembles with plain PyTorch: no kernel of its own
+    assert all(multi_device_launches[k] for k in
+               ("warp_coords", "warp_disp", "dose_hist")), \
+        f"a kernel of the multi-device path never launched: " \
+        f"{multi_device_launches}"
     assert all(registration_rest_launches[k] for k in
                ("warp_affine", "warp_coords", "warp_disp")), \
         f"a kernel of the registration_rest path never launched: " \
@@ -5681,12 +6234,13 @@ def main():
     assert oblique_launches == dict(
         {k: 0 for k in oblique_launches}, warp_coords=1,
         warp_affine_shear=1), oblique_launches
-    # every kernel's launches on the twelve paths, and the warp launches
+    # every kernel's launches on the thirteen paths, and the warp launches
     # by shape over them
     paths = (rigid_launches, cohort_launches, deformable_launches,
              dose_qa_launches, plan_qa_launches, roi_mesh_launches,
              mesh_rest_launches, image_analysis_launches, io_launches,
-             ingest_rest_launches, registration_rest_launches, view_launches)
+             ingest_rest_launches, registration_rest_launches,
+             multi_device_launches, view_launches)
     launches = {k: sum(p[k] for p in paths) for k in rigid_launches}
     all_shapes = {}
     for per_path in shapes.values():
@@ -5767,7 +6321,10 @@ def main():
         **{name: profile_device(fn)
            for name, fn in analysis["profiles"].items()},
         # the IO path: the deformable REG's read and upload (403 MB)
-        "io_reg_read": io["profile"]}
+        "io_reg_read": io["profile"],
+        # the multi-device path: one demons_z_sharded call (4 logical
+        # shards, 50 iterations), beside demons_level
+        "demons_z_sharded": profile_device(md["profile"], ["warp_disp"])}
     descent = profiles["rigid"]
     descent["device_events_per_step"] = \
         descent["device_events"] / sum(s for _, s, _ in RIGID_LEVELS)
@@ -5778,6 +6335,8 @@ def main():
         descent["device_ms"] / sum(warm["ms_per_level"])
     profiles["demons_level"]["device_events_per_iteration"] = \
         profiles["demons_level"]["device_events"] / 50
+    profiles["demons_z_sharded"]["device_events_per_iteration"] = \
+        profiles["demons_z_sharded"]["device_events"] / MD_ITERATIONS
     profiles["bspline"]["device_events_per_step"] = \
         profiles["bspline"]["device_events"] / 100
     profiles["taubin_smooth"]["device_events_per_step"] = \
@@ -5797,6 +6356,7 @@ def main():
          launches_io_path=io_launches,
          launches_ingest_rest_path=ingest_rest_launches,
          launches_registration_rest_path=registration_rest_launches,
+         launches_multi_device_path=multi_device_launches,
          launches_view_path=view_launches,
          launches_oblique_entry=oblique_launches,
          launch_shapes={k: shape_rows(v) for k, v in shapes.items()},

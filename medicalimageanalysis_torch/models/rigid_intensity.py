@@ -489,21 +489,36 @@ def register_rigid_intensity_batch(refs, movs, ref_pix2pos, mov_pos2pix,
         arrays go to ``device`` (default: the card when present).
     ref_pix2pos, mov_pos2pix : (P, 4, 4) float32 geometry matrices
     centers : (P, 3) rotation centers (mm)
-    mesh : must be None (multi-device: ROADMAP.md queue 1, item 11)
+    mesh : a parallel.mesh.make_mesh mesh: the pairs split over its
+        'data' axis (P must divide by it), each data row's pairs through
+        ``_descend`` on the row's device (parallel.batch.
+        _data_sharded_call); a pair's pose is the same as without it
     Returns (poses (P, n_params), final_losses (P,)) as numpy float32.
     """
-    from ..parallel.batch import _no_mesh
-
     if mode not in _MODE_NPARAMS:
         raise ValueError(f"unknown mode {mode!r}; pick from "
                          f"{sorted(_MODE_NPARAMS)}")
-    _no_mesh("register_rigid_intensity_batch", mesh)
     P_n = len(refs)
     n_params = _MODE_NPARAMS[mode]
     if poses0 is not None and np.shape(poses0) != (P_n, n_params):
         raise ValueError(
             f"poses0 must have shape ({P_n}, {n_params}) for "
             f"mode={mode!r}, got {np.shape(poses0)}")
+    if mesh is not None:
+        from ..parallel.batch import _data_sharded_call
+
+        per_pair = [refs, movs, ref_pix2pos, mov_pos2pix, centers]
+        if poses0 is not None:
+            per_pair.append(np.asarray(poses0, np.float32))
+
+        def row(r, m, rp, mp, c, *p0, device):
+            return register_rigid_intensity_batch(
+                r, m, rp, mp, c, poses0=p0[0] if p0 else None,
+                levels=levels, intensity_scale=intensity_scale,
+                metric=metric, mode=mode, device=device)
+
+        return _data_sharded_call("register_rigid_intensity_batch", mesh,
+                                  row, per_pair)
     if device is None:
         device = refs[0].device if isinstance(refs[0], torch.Tensor) \
             else default_device()

@@ -1,4 +1,4 @@
-"""Batched cohort operations, on one device.
+"""Batched cohort operations, on one device or over a mesh's data axis.
 
 Port of medicalimageanalysis_tpu/parallel/batch.py:
 
@@ -32,12 +32,19 @@ Port of medicalimageanalysis_tpu/parallel/batch.py:
   batched loop (ops/n4), each lane gated on its own convergence
   statistic, so a lane follows its single-volume trajectory.
 
-A ``mesh`` (the JAX package's data-sharded path) raises: multi-device is
-ROADMAP.md queue 1, item 11.
+With ``mesh`` (parallel/mesh.make_mesh) the batch splits over the mesh's
+``data`` axis (B must divide by it, or ValueError as in the JAX package):
+each data row runs the function's ``mesh=None`` body on its slice of the
+batch, on the device of the row's first ``space`` entry, the rows one
+after another from this thread (``_data_sharded_call``), and the rows'
+results merge in batch order, across processes too. The JAX package
+replicates each row over ``space``; the port computes it once, with the
+same result. The return types are those of ``mesh=None``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..device import default_device, full_float32
@@ -102,11 +109,19 @@ def make_preprocess_fn(in_shape, out_shape, ffs_op="ax_rot2",
 
 
 def preprocess_batch(raw, slopes, intercepts, out_shape=(64, 256, 256),
-                     ffs_op="none", device=None):
+                     ffs_op="none", mesh=None, device=None):
     """Host wrapper: run the preprocess over a numpy batch on ``device``
-    (default: ``default_device()``); returns device tensors."""
+    (default: ``default_device()``); returns device tensors. With
+    ``mesh`` each data row's series run on the row's device and the
+    results come back concatenated on the first row's."""
     from ..ops.volume import stored_to_float
 
+    if mesh is not None:
+        return _data_sharded_call(
+            "preprocess_batch", mesh,
+            lambda r, s, i, device: preprocess_batch(
+                r, s, i, out_shape, ffs_op, device=device),
+            [raw, slopes, intercepts])
     device = default_device() if device is None else torch.device(device)
     fn = make_preprocess_fn(raw.shape[1:], out_shape, ffs_op=ffs_op,
                             device=device)
@@ -116,11 +131,33 @@ def preprocess_batch(raw, slopes, intercepts, out_shape=(64, 256, 256),
                               device=device))
 
 
-def _no_mesh(name, mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{name} over a device mesh is not ported yet: multi-device — "
-            "ROADMAP.md queue 1, item 11")
+def _data_sharded_call(name, mesh, body, arrays):
+    """Run a cohort function over the mesh's 'data' axis: check that
+    ``arrays`` share their batch size B and that B divides by the axis,
+    then call ``body(*row_slices, device=...)`` once
+    for each data row this process holds, on the row's slices of
+    ``arrays`` (sliced on the host, or from the tensors given: the body
+    uploads its own) and on the device of the row's first 'space' entry;
+    the rows' results merge in batch order (mesh._merge), across
+    processes too (mesh.gather_blocks)."""
+    from .mesh import _merge, gather_blocks
+
+    n_data = mesh.shape["data"]
+    B = len(arrays[0])
+    if any(len(a) != B for a in arrays):
+        raise ValueError(f"{name}: expected matching batch sizes, got "
+                         f"{[len(a) for a in arrays]}")
+    if B % n_data:
+        raise ValueError(f"{name}: batch {B} not divisible by the "
+                         f"'data' axis ({n_data})")
+    rows = B // n_data
+    results = {}
+    for r in mesh.local_rows():
+        part = slice(r * rows, (r + 1) * rows)
+        results[(r, 0)] = body(*[a[part] for a in arrays],
+                               device=mesh.devices[r, 0])
+    everyone = gather_blocks(mesh, results)
+    return _merge([everyone[(r, 0)] for r in range(n_data)])
 
 
 def make_registration_step(vol_shape, lr=0.05, stride=2, device=None):
@@ -192,15 +229,18 @@ def compare_masks_batch(masks_a, masks_b, spacing, tolerance_mm=2.0,
     masks_a/masks_b: (B, Z, Y, X) bool/uint8 (numpy or tensors); spacing
     [sx, sy, sz] mm, shared. Returns a dict of (B,) float32 numpy arrays
     with the keys of ops.edt.surface_metrics."""
-    import numpy as np
-
     from ..ops.edt import _as_bool, _surface_metrics
 
-    _no_mesh("compare_masks_batch", mesh)
     if masks_a.shape != masks_b.shape or len(masks_a.shape) != 4:
         raise ValueError("compare_masks_batch: expected matching "
                          f"(B, Z, Y, X) stacks, got {tuple(masks_a.shape)} "
                          f"vs {tuple(masks_b.shape)}")
+    if mesh is not None:
+        return _data_sharded_call(
+            "compare_masks_batch", mesh,
+            lambda a, b, device: compare_masks_batch(
+                a, b, spacing, tolerance_mm, device=device),
+            [masks_a, masks_b])
     sp = tuple(float(v) for v in np.asarray(spacing).reshape(-1))
     rows = [_surface_metrics(_as_bool(masks_a[b], device),
                              _as_bool(masks_b[b], device), sp,
@@ -222,11 +262,17 @@ def dvh_batch(doses, masks, voxel_volume_cc, max_dose=150, increment=5,
     voxel_volume_cc: scalar or (B,). Returns a dict of float64 numpy
     arrays keyed like dvh_statistics. Pairs with an empty mask come back
     NaN (volume 0)."""
-    import numpy as np
-
     from ..ops.dvh import D_VALUES, _dvh_core
 
-    _no_mesh("dvh_batch", mesh)
+    if mesh is not None:
+        # each row's body checks its stacks
+        vox = np.broadcast_to(np.asarray(voxel_volume_cc, np.float32),
+                              (len(doses),))
+        return _data_sharded_call(
+            "dvh_batch", mesh,
+            lambda d, m, v, device: dvh_batch(d, m, v, max_dose, increment,
+                                              device=device),
+            [doses, masks, vox])
     device = default_device() if device is None else torch.device(device)
     d = torch.as_tensor(doses, device=device).to(torch.float32)
     m = torch.as_tensor(masks, device=device)
@@ -270,12 +316,15 @@ def rasterize_batch(contour_sets, dimensions, plane="Axial", mesh=None,
     dimensions: (Z, Y, X) of the shared grid; plane: the contours'
     slicing plane. Returns (B, Z, Y, X) uint8 numpy masks with per-slice
     XOR semantics."""
-    import numpy as np
-
     from ..ops.rasterize import rasterize_polygons_grouped
     from ..utils.convert.contour import _plane_split, plane_canvas
 
-    _no_mesh("rasterize_batch", mesh)
+    if mesh is not None:
+        return _data_sharded_call(
+            "rasterize_batch", mesh,
+            lambda sets, device: rasterize_batch(sets, dimensions, plane,
+                                                 device=device),
+            [list(contour_sets)])
     S, H, W, axis = plane_canvas(dimensions, plane)
     grouped = [_plane_split(cs, plane) for cs in contour_sets]
     out = rasterize_polygons_grouped(grouped, S, H, W, device=device)
@@ -303,17 +352,21 @@ def gamma_batch(ref_doses, eval_doses, spacing, dose_pct=3.0,
     reference reports pass rate 100 with 0 analysed voxels (the per-pair
     path raises instead).
     """
-    import numpy as np
-
     from ..ops.gamma import _gamma_map, fine_grid_layout, upsample_to_fine
 
-    _no_mesh("gamma_batch", mesh)
     if ref_doses.shape != eval_doses.shape or len(ref_doses.shape) != 4:
         raise ValueError("gamma_batch: expected matching (B, Z, Y, X) "
                          f"stacks, got {tuple(ref_doses.shape)} vs "
                          f"{tuple(eval_doses.shape)}")
     if cap < 1.0:
         raise ValueError(f"gamma_batch: cap must be >= 1, got {cap}")
+    if mesh is not None:
+        return _data_sharded_call(
+            "gamma_batch", mesh,
+            lambda r, e, device: gamma_batch(
+                r, e, spacing, dose_pct, dta_mm, local, threshold_pct,
+                subdiv, cap, return_maps=return_maps, device=device),
+            [ref_doses, eval_doses])
     if device is None:
         device = ref_doses.device if isinstance(ref_doses, torch.Tensor) \
             else default_device()
@@ -374,7 +427,6 @@ def demons_batch(fixed_batch, moving_batch, spacing_xyz=(1.0, 1.0, 1.0),
     from ..ops.registration.demons import _demons_core, _syn_core
     from ..ops.registration.dvf import compose_dvf, invert_dvf
 
-    _no_mesh("demons_batch", mesh)
     if forces not in ("ssd", "lncc"):
         raise ValueError(f"demons_batch: forces must be 'ssd' or "
                          f"'lncc', got {forces!r}")
@@ -382,6 +434,14 @@ def demons_batch(fixed_batch, moving_batch, spacing_xyz=(1.0, 1.0, 1.0),
     if method not in ("demons", "fast", "diffeomorphic",
                       "biomechanical", "syn"):
         raise ValueError(f"demons_batch: unknown method {method!r}")
+    if mesh is not None:
+        return _data_sharded_call(
+            "demons_batch", mesh,
+            lambda f, m, device: demons_batch(
+                f, m, spacing_xyz, method, iterations, std, step,
+                intensity_threshold, smooth, forces=forces,
+                lncc_radius=lncc_radius, device=device),
+            [fixed_batch, moving_batch])
     device = default_device() if device is None else torch.device(device)
     fixed = as_f32(fixed_batch, device)
     moving = as_f32(moving_batch, device)
@@ -410,17 +470,21 @@ def radiomics_batch(volumes, masks, spacing, bin_width=None, n_bins=32,
     largest level count and the shared run-length cap; each pair's
     formulas then run on the host at its own level count. Returns a list
     of B dicts with the ``ops.radiomics.compute_radiomics`` schema."""
-    import numpy as np
-
     from ..ops import radiomics as rad
 
-    _no_mesh("radiomics_batch", mesh)
     vols = np.asarray(volumes, np.float32)
     ms = np.asarray(masks) > 0
     if vols.shape != ms.shape or vols.ndim != 4:
         raise ValueError("radiomics_batch: expected matching "
                          f"(B, Z, Y, X) stacks, got {vols.shape} vs "
                          f"{ms.shape}")
+    if mesh is not None:
+        return _data_sharded_call(
+            "radiomics_batch", mesh,
+            lambda v, m, device: radiomics_batch(
+                v, m, spacing, bin_width, n_bins, alpha, families,
+                device=device),
+            [vols, ms])
     if families is None:
         families = rad.ALL_FAMILIES
     device = default_device() if device is None else torch.device(device)
@@ -475,11 +539,8 @@ def n4_batch(volumes, masks=None, shrink=4, n_bins=200, fwhm=0.15,
     float64 on the host). Returns the corrected (B, Z, Y, X) float32
     numpy volumes (and the multiplicative fields with
     ``return_fields``). Other knobs as ops/n4.n4_bias_correction."""
-    import numpy as np
-
     from ..ops import n4 as _n4
 
-    _no_mesh("n4_batch", mesh)
     vols = np.asarray(volumes, np.float32)
     if vols.ndim != 4:
         raise ValueError(f"n4_batch: expected (B, Z, Y, X), got "
@@ -489,6 +550,14 @@ def n4_batch(volumes, masks=None, shrink=4, n_bins=200, fwhm=0.15,
     if m.shape != vols.shape:
         raise ValueError(f"n4_batch: masks shape {m.shape} != "
                          f"volumes shape {vols.shape}")
+    if mesh is not None:
+        return _data_sharded_call(
+            "n4_batch", mesh,
+            lambda v, mk, device: n4_batch(
+                v, mk, shrink, n_bins, fwhm, noise, levels, max_iterations,
+                conv_threshold, min_control_spacing, return_fields,
+                device=device),
+            [vols, m])
     device = default_device() if device is None else torch.device(device)
     corrected, fields = _n4._n4_lanes(
         vols, m & (vols > 0), max(1, int(shrink)), device, levels,

@@ -1,7 +1,7 @@
 """The port's public API against the JAX package's: every public name of
-the JAX package's classes and top level exists in the port, none stands
-in for an unported one (only multi-device, ROADMAP.md queue 1 item 11,
-is left, and raises naming it); ``Rigid.compute_aspect``; and the ``only_tags``
+the JAX package's classes, top level and parallel modules (``batch``,
+``mesh``, ``halo``, ``cohort``) exists in the port, and none stands in for
+an unported one; ``Rigid.compute_aspect``; and the ``only_tags``
 read finished by ``Image.load_array``, bit-equal to a normal read and to
 the JAX package's ``load_array``."""
 
@@ -203,11 +203,13 @@ def test_ported_top_level_names_are_not_stand_ins(name):
 
 
 def test_no_stand_in_is_left_but_multi_device():
-    """After the mesh slice no public name of the port stands in for an
-    unported one: the top level and utils serve real objects, and what
-    is left unported is multi-device (ROADMAP.md queue 1, item 11), whose
-    ``mesh=`` arguments raise naming that item."""
+    """After the multi-device slice no public name of the port stands in
+    for an unported one: the top level and utils serve real objects, the
+    classes have no stand-ins, the parallel modules carry the JAX
+    modules' ``__all__``, and a ``mesh=`` argument runs (here on a
+    2-shard CPU mesh, equal to ``mesh=None``)."""
     from medicalimageanalysis_torch.parallel import batch
+    from medicalimageanalysis_torch.parallel.mesh import make_mesh
     from medicalimageanalysis_tpu import utils as jutils
 
     names = list(TOP_LEVEL) + list(jutils.__all__)
@@ -218,12 +220,23 @@ def test_no_stand_in_is_left_but_multi_device():
             f"medicalimageanalysis_torch.{module}"), cls)
         assert [n for n in public(port) if stub_item(
             inspect.getattr_static(port, n)) is not None] == []
+    for module in ("batch", "mesh", "halo", "cohort"):
+        jmod = importlib.import_module(
+            f"medicalimageanalysis_tpu.parallel.{module}")
+        tmod = importlib.import_module(
+            f"medicalimageanalysis_torch.parallel.{module}")
+        assert set(jmod.__all__) <= set(tmod.__all__), module
+        assert [n for n in jmod.__all__
+                if stub_item(getattr(tmod, n)) is not None] == [], module
     assert not os.path.exists(os.path.join(
         os.path.dirname(tmia.__file__), "_waiting.py"))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        batch.compare_masks_batch(np.zeros((1, 2, 2, 2), np.uint8),
-                                  np.zeros((1, 2, 2, 2), np.uint8),
-                                  (1.0, 1.0, 1.0), mesh=object())
+    a = np.zeros((2, 3, 4, 4), np.uint8)
+    a[:, 1, 1:3, 1:3] = 1
+    got = batch.compare_masks_batch(a, a[::-1], (1.0, 1.0, 1.0),
+                                    mesh=make_mesh(2, devices=["cpu"] * 2))
+    want = batch.compare_masks_batch(a, a[::-1], (1.0, 1.0, 1.0))
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 def test_data_plan_registries_start_empty_and_clear():

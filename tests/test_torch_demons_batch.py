@@ -20,6 +20,7 @@ from medicalimageanalysis_torch.device import set_default_device
 from medicalimageanalysis_torch.ops.registration.demons import (
     demons_registration)
 from medicalimageanalysis_torch.parallel.batch import demons_batch
+from medicalimageanalysis_torch.parallel.mesh import make_mesh
 from medicalimageanalysis_tpu.ops.registration.dvf import (
     warp_volume as j_warp)
 from medicalimageanalysis_tpu.parallel.batch import (
@@ -74,5 +75,9 @@ def test_demons_batch_arguments():
         demons_batch(fixed, moving, forces="ncc")
     with pytest.raises(ValueError, match="method"):
         demons_batch(fixed, moving, method="elastic")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        demons_batch(fixed, moving, mesh=object())
+    # over a 2-shard CPU mesh: one pair a data row, each the mesh=None
+    # result (the same single-pair solve)
+    np.testing.assert_array_equal(
+        demons_batch(fixed, moving, SPACING, iterations=4,
+                     mesh=make_mesh(2, devices=["cpu"] * 2)),
+        demons_batch(fixed, moving, SPACING, iterations=4))

@@ -14,6 +14,7 @@ from medicalimageanalysis_torch.data import Data as TData
 from medicalimageanalysis_torch.device import set_default_device
 from medicalimageanalysis_torch.ops import dvh as tdvh
 from medicalimageanalysis_torch.parallel import batch as tbatch
+from medicalimageanalysis_torch.parallel.mesh import make_mesh
 from medicalimageanalysis_tpu.ops import dvh as jdvh
 from medicalimageanalysis_tpu.parallel import batch as jbatch
 
@@ -86,5 +87,14 @@ def test_dvh_batch_matches_jax_and_single():
         for key in ("Dmin", "Dmax", "D95", "VS20Gy_cc"):
             np.testing.assert_allclose(port[key][b], single[key],
                                        rtol=1e-6, err_msg=key)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tbatch.dvh_batch(doses, masks, vox, mesh=object())
+    # over a CPU mesh of 3 data rows x 2: each pair its own row, equal to
+    # mesh=None (one pair at a time either way); 3 pairs do not split
+    # over 2 rows
+    sharded = tbatch.dvh_batch(doses, masks, vox, mesh=make_mesh(
+        6, space=2, devices=["cpu"] * 6))
+    assert sharded.keys() == port.keys()
+    for key, value in port.items():
+        np.testing.assert_array_equal(sharded[key], value, err_msg=key)
+    with pytest.raises(ValueError, match="not divisible"):
+        tbatch.dvh_batch(doses, masks, vox,
+                         mesh=make_mesh(2, devices=["cpu"] * 2))

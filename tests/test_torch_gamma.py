@@ -20,6 +20,7 @@ import torch
 from medicalimageanalysis_torch.device import set_default_device
 from medicalimageanalysis_torch.ops import gamma as TG
 from medicalimageanalysis_torch.parallel import batch as tbatch
+from medicalimageanalysis_torch.parallel.mesh import make_mesh
 from medicalimageanalysis_tpu.ops import gamma as JG
 from medicalimageanalysis_tpu.parallel import batch as jbatch
 
@@ -193,5 +194,14 @@ def test_gamma_batch_rejects_bad_input():
         tbatch.gamma_batch(refs, refs, (2.0, 2.0, 2.0), cap=0.5)
     with pytest.raises(ValueError, match="matching"):
         tbatch.gamma_batch(refs, refs[:, 0], (2.0, 2.0, 2.0))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tbatch.gamma_batch(refs, refs, (2.0, 2.0, 2.0), mesh=object())
+    # a 2-shard CPU mesh runs the same call, equal to mesh=None
+    refs = np.random.default_rng(3).uniform(0, 60, (2, 4, 6, 6)) \
+        .astype(np.float32)
+    got = tbatch.gamma_batch(refs, refs[::-1], (2.0, 2.0, 2.0),
+                             return_maps=True,
+                             mesh=make_mesh(2, devices=["cpu"] * 2))
+    want = tbatch.gamma_batch(refs, refs[::-1], (2.0, 2.0, 2.0),
+                              return_maps=True)
+    assert got.keys() == want.keys()
+    for key, value in want.items():
+        np.testing.assert_array_equal(got[key], value, err_msg=key)

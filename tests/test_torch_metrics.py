@@ -26,6 +26,7 @@ from medicalimageanalysis_torch.device import set_default_device
 from medicalimageanalysis_torch.parallel import batch as tbatch
 from medicalimageanalysis_torch.utils import metrics as TM
 from medicalimageanalysis_torch.utils.roi import margin as TMargin
+from medicalimageanalysis_torch.parallel.mesh import make_mesh
 from medicalimageanalysis_tpu.data import Data as JData
 from medicalimageanalysis_tpu.parallel import batch as jbatch
 from medicalimageanalysis_tpu.utils import metrics as JM
@@ -195,8 +196,12 @@ def test_compare_masks_batch_matches_jax():
         np.testing.assert_allclose(got[k], want[k], rtol=1e-5, err_msg=k)
     with pytest.raises(ValueError, match="matching"):
         tbatch.compare_masks_batch(masks_a[:, 0], masks_b[:, 0], sp)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tbatch.compare_masks_batch(masks_a, masks_b, sp, mesh=object())
+    # a CPU mesh of 3 data rows x 2 runs the same panel, equal to mesh=None
+    sharded = tbatch.compare_masks_batch(
+        masks_a, masks_b, sp, tolerance_mm=1.5,
+        mesh=make_mesh(6, space=2, devices=["cpu"] * 6))
+    for k in got:
+        np.testing.assert_array_equal(sharded[k], got[k], err_msg=k)
 
 
 MARGINS = {"iso_3.7": 3.7, "axes_xy": [4.0, 4.0, 0.0], "contract_2.3": -2.3,

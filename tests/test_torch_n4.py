@@ -33,6 +33,7 @@ from medicalimageanalysis_torch.data import Data as TData
 from medicalimageanalysis_torch.device import set_default_device
 from medicalimageanalysis_torch.ops import n4 as tn4
 from medicalimageanalysis_torch.parallel.batch import n4_batch
+from medicalimageanalysis_torch.parallel.mesh import make_mesh
 from medicalimageanalysis_tpu.data import Data as JData
 from medicalimageanalysis_tpu.ops import n4 as jn4
 from test_n4 import _biased_volume, _host_n4_level
@@ -234,8 +235,13 @@ def test_n4_batch_matches_single_calls():
     assert n4_batch(batch[:2], shrink=2).shape == (2, 16, 24, 24)
     with pytest.raises(ValueError, match="masks shape"):
         n4_batch(np.ones((2, 8, 8, 8)), masks=np.ones((8, 8, 8)))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        n4_batch(batch, mesh=object())
+    # a 2-shard CPU mesh: two lanes a data row, each lane's trajectory
+    # its single-volume one, so the fields equal mesh=None's
+    corr_m, field_m = n4_batch(batch, shrink=2, return_fields=True,
+                               mesh=make_mesh(2, devices=["cpu"] * 2))
+    for b in range(4):
+        assert_same_field(field_m[b], field_b[b])
+    np.testing.assert_array_equal(corr_m[3], corr_b[3])
 
 
 def test_image_correct_bias_matches_jax(tmp_path):

@@ -29,6 +29,7 @@ from medicalimageanalysis_torch.data import Data as TData
 from medicalimageanalysis_torch.device import set_default_device
 from medicalimageanalysis_torch.ops import radiomics as TR
 from medicalimageanalysis_torch.parallel.batch import radiomics_batch
+from medicalimageanalysis_torch.parallel.mesh import make_mesh
 from medicalimageanalysis_tpu.data import Data as JData
 from medicalimageanalysis_tpu.ops import radiomics as JR
 from medicalimageanalysis_tpu.parallel.batch import (
@@ -228,8 +229,12 @@ def test_radiomics_batch_matches_single_calls_and_jax():
         assert_panel_close(sub[b], sub_j[b])
     with pytest.raises(ValueError):
         radiomics_batch(vols[:, 0], masks[:, 0], sp)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        radiomics_batch(vols, masks, sp, mesh=object())
+    # a 4-shard CPU mesh (one pair a data row) gives the same panels
+    sharded = radiomics_batch(vols, masks, sp, n_bins=6,
+                              mesh=make_mesh(4, devices=["cpu"] * 4))
+    for b in range(B):
+        assert_panel_close(sharded[b], out[b])
+        assert sharded[b]["meta"] == out[b]["meta"]
 
 
 def test_image_compute_radiomics_matches_jax(tmp_path):

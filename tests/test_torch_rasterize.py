@@ -13,6 +13,7 @@ from medicalimageanalysis_torch.device import set_default_device
 from medicalimageanalysis_torch.ops import rasterize as traster
 from medicalimageanalysis_torch.parallel import batch as tbatch
 from medicalimageanalysis_torch.utils.convert import contour as tcontour
+from medicalimageanalysis_torch.parallel.mesh import make_mesh
 from medicalimageanalysis_tpu.ops import rasterize as jraster
 from medicalimageanalysis_tpu.parallel import batch as jbatch
 from medicalimageanalysis_tpu.utils.convert import contour as jcontour
@@ -167,5 +168,11 @@ def test_no_cv2_and_no_mesh_in_the_port():
     assert tcontour.MaskToContour(np.zeros((2, 4, 4), np.uint8),
                                   [1, 1, 1], [0, 0, 0],
                                   np.eye(3)).create_contours() == ([], [])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tbatch.rasterize_batch([], (2, 4, 4), mesh=object())
+    # a 2-shard CPU mesh rasterizes each half of the ROIs on its row,
+    # equal to the pooled pass
+    sets = [[np.array([[1.0, 1.0, s], [3.0, 1.0, s], [2.0, 3.0, s]])]
+            for s in (0.0, 1.0)]
+    np.testing.assert_array_equal(
+        tbatch.rasterize_batch(sets, (2, 4, 4),
+                               mesh=make_mesh(2, devices=["cpu"] * 2)),
+        tbatch.rasterize_batch(sets, (2, 4, 4)))

@@ -30,6 +30,7 @@ from medicalimageanalysis_torch.device import set_default_device
 from medicalimageanalysis_torch.models import rigid_intensity as tri
 from medicalimageanalysis_torch.ops import geometry as tgeo
 from medicalimageanalysis_torch.parallel import batch as tbatch
+from medicalimageanalysis_torch.parallel.mesh import make_mesh
 from medicalimageanalysis_tpu.models import rigid_intensity as jri
 from medicalimageanalysis_tpu.parallel import batch as jbatch
 
@@ -169,8 +170,15 @@ def test_batch_mi_guard_and_arguments_match_jax():
     with pytest.warns(UserWarning, match="fall outside"):
         tri.register_rigid_intensity_batch(noisy, noisy, *geo, metric="mi",
                                            levels=((1, 1, 0.1),))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tri.register_rigid_intensity_batch(raw, raw, *geo, mesh=object())
+    # a 2-shard CPU mesh: one pair a data row, the same descent as
+    # mesh=None, so the poses are bit-equal
+    sharded = tri.register_rigid_intensity_batch(
+        noisy, noisy[::-1], *geo, levels=((1, 3, 0.1),),
+        mesh=make_mesh(2, devices=["cpu"] * 2))
+    single = tri.register_rigid_intensity_batch(
+        noisy, noisy[::-1], *geo, levels=((1, 3, 0.1),))
+    for a, b in zip(sharded, single):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_registration_step_matches_jax():
