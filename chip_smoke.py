@@ -116,8 +116,18 @@ card
         -> initialize_distributed (one NCCL rank) and
         distributed_cohort_batch
 
-each held against its single-device (mesh=None) result. Each phase
-prints one JSON line; any failure raises and exits non-zero. Near the end it
+each held against its single-device (mesh=None) result. Before the
+paths, two phases of the port's public surface:
+
+    validate.validate_kernels(fast=False) (every hand kernel bit-equal to
+        its plain version and to a host golden at the JAX fixtures) ->
+    the four examples (medicalimageanalysis_torch/examples: end_to_end,
+        registration_suite, adaptive_rt, cohort_scale) at their own
+        sizes, their own asserts holding
+
+and the paths' warp launch shapes that no row times are timed on their
+own tensors after the phase (recorded_rows). Each phase prints one JSON
+line; any failure raises and exits non-zero. Near the end it
 prints the card's name and power limit (nvidia-smi) and a JSON line with
 every kernel's launches, error, times, bound and ms lost; the last line is
 
@@ -852,13 +862,12 @@ def phase_warp_affine(gen, dev):
     from medicalimageanalysis_torch.ops.warp import affine_coords
 
     main = rows["near_identity"]
-    cz, cy, cx = affine_coords(torch.as_tensor(
-        affine_cases()["near_identity"], device=dev), SHAPE)
-    main["library_ms"] = library_sample_ms(vol, cz, cy, cx)
-    for row in rows.values():
-        row["bound_ms"], row["bound_by"] = warp_bound(
+    for name, A in affine_cases().items():
+        cz, cy, cx = affine_coords(torch.as_tensor(A, device=dev), SHAPE)
+        rows[name]["library_ms"] = library_sample_ms(vol, cz, cy, cx)
+        rows[name]["bound_ms"], rows[name]["bound_by"] = warp_bound(
             vol.numel(), cz.numel(), 1, 0, False)
-    del cz, cy, cx
+        del cz, cy, cx
     emit("warp_affine", shape=list(SHAPE), tolerance=0.0, **rows)
     del vol
     torch.cuda.empty_cache()
@@ -1356,11 +1365,10 @@ def phase_warp_affine_shear(gen, dev):
                        v2, coef, dims, SHAPE, -3001.0), reps=2, warmup=1))
         row["bound_ms"], row["bound_by"] = bound(
             4 * (volr.numel() + k.numel()), 30 * k.numel())
-        if name == "z30":
-            cz, cy, cx = affine_coords(torch.as_tensor(
-                A2, dtype=torch.float32, device=dev), SHAPE)
-            row["library_ms"] = library_sample_ms(volr[None], cz, cy, cx)
-            del cz, cy, cx
+        cz, cy, cx = affine_coords(torch.as_tensor(
+            A2, dtype=torch.float32, device=dev), SHAPE)
+        row["library_ms"] = library_sample_ms(volr[None], cz, cy, cx)
+        del cz, cy, cx
         rows[name] = row
         del v2, k, volr
         torch.cuda.empty_cache()
@@ -1592,7 +1600,8 @@ def phase_deformable(folder, names, dev):
 def phase_deformable_variants(names, dev):
     """SyN with LNCC forces and diffeomorphic demons, 10 iterations each,
     on the pair resampled to (Z/2, Y/4, X/4): the remaining callers of
-    the disp mode (scaling-and-squaring compositions, SyN's inversion)."""
+    the disp mode (scaling-and-squaring compositions, SyN's inversion).
+    Returns the warp rows of a second, uncounted run (recorded_rows)."""
     import medicalimageanalysis_torch as mia
     from medicalimageanalysis_torch import interop
     from medicalimageanalysis_torch.data import Data
@@ -1611,7 +1620,8 @@ def phase_deformable_variants(names, dev):
                                   img.matrix, "CT", f"{key} small")
     body = arrays["ref"] > -900.0
     rows = {}
-    for method, forces in (("syn", "lncc"), ("diffeomorphic", "ssd")):
+    variants = (("syn", "lncc"), ("diffeomorphic", "ssd"))
+    for method, forces in variants:
         d = mia.Deformable(reference_name="ref small",
                            moving_name="deformed small", device=dev)
         sync(dev)
@@ -1625,6 +1635,16 @@ def phase_deformable_variants(names, dev):
             seconds=seconds, residual_ratio=residual_ratio(
                 out, arrays["deformed"], arrays["ref"], body))
     emit("deformable_variants", shape=list(small), iterations=10, **rows)
+
+    def again():
+        for method, forces in variants:
+            d = mia.Deformable(reference_name="ref small",
+                               moving_name="deformed small", device=dev)
+            d.compute_demons(method=method, forces=forces, iterations=10)
+            d.create_image()
+
+    # the reduced grid's warp keys, timed on the variants' own tensors
+    return recorded_rows(again, dev)
 
 
 # ---------------------------------------------------------------------------
@@ -2240,7 +2260,12 @@ def phase_plan_qa(names, img_name, dose_name, dev):
          ptv_voxels=int(ptv.sum()), grown_voxels=int(grown.sum()),
          step_ms=step_ms)
     sp = tuple(float(v) for v in img.spacing)
+    # each criterion's gamma again, recorded: the fine grids' keys timed
+    warp_rows = recorded_rows(lambda: [
+        dose.compute_gamma(evals["shift_1mm"], **kw)
+        for kw in GAMMA_CRITERIA.values()], dev)
     return dict(
+        warp_rows=warp_rows,
         gamma=lambda: dose.compute_gamma(evals["shift_1mm"], dose_pct=3.0,
                                          dta_mm=3.0),
         gamma_work=dict(offsets=len(layout[3]), ref=dose.array.size,
@@ -2385,6 +2410,22 @@ def warp_path_rows(calls):
         out.setdefault(name, {})[key] = row
     torch.cuda.empty_cache()
     return out
+
+
+def recorded_rows(fn, dev):
+    """``fn()`` again with its warp calls recorded, then the kernel at
+    each recorded key on those tensors (warp_path_rows); no launch of
+    either counts. For the launch shapes no other row times."""
+    if torch.device(dev).type != "cuda":
+        return {}
+    calls = {}
+    with uncounted():
+        with recording_warp_calls(calls):
+            fn()
+        rows = warp_path_rows(calls)
+    del calls
+    torch.cuda.empty_cache()
+    return rows
 
 
 def merge_warp_rows(kernels, path_rows, label):
@@ -2582,6 +2623,8 @@ def phase_roi_mesh(names, img_name, dose_name, rigid, dev):
     # one launch a mesh on the card (a CPU rehearsal runs the plain twin)
     assert launches == len(meshes) or torch.device(dev).type == "cpu", \
         (launches, len(meshes))
+    # the propagation again, recorded: each mesh's points key timed
+    warp_rows = recorded_rows(deform.update_rois, dev)
     full = {n: deform.rois[n].points - deform.rigid_rois[n].points
             for n in meshes}
     timed("deformable_update_rois_50", lambda: deform.update_rois(percent=50))
@@ -2612,7 +2655,7 @@ def phase_roi_mesh(names, img_name, dose_name, rigid, dev):
 
     return dict(deform=deform, body_mask=body_mask,
                 body_discrete=body_discrete, external=ext, work=work,
-                meshes=meshes, cleanup=cleanup)
+                meshes=meshes, cleanup=cleanup, warp_rows=warp_rows)
 
 
 def slab_rows(depth, dz):
@@ -2834,7 +2877,7 @@ def phase_mesh_rest(path, names, img_name, dose_name, rigid, dev):
     import medicalimageanalysis_torch as mia
     from medicalimageanalysis_torch.data import Data
     from medicalimageanalysis_torch.ops.voxelize import (
-        voxelize_batch, voxelize_mesh_device)
+        voxelize_batch, voxelize_compute_marginal_ms, voxelize_mesh_device)
     from medicalimageanalysis_torch.ops.warp import LAUNCHES
     from medicalimageanalysis_torch.utils.convert.voxelize import (
         host_voxelize)
@@ -2884,6 +2927,11 @@ def phase_mesh_rest(path, names, img_name, dose_name, rigid, dev):
     for b, n in enumerate(order):
         assert np.array_equal(batch[b], singles[n]), f"batch {n} != single"
     del batch
+    # the pooled pass's device time on resident inputs (the JAX package's
+    # voxelize_compute_marginal_ms), beside the whole call's
+    resident_ms = voxelize_compute_marginal_ms(
+        [(pixels[n], meshes[n].faces) for n in order], dims, device=dev)
+    assert 0.0 < resident_ms < batch_ms, (resident_ms, batch_ms)
     planes = {}
     organ = "Heart"
     for plane in PLANES:
@@ -2903,6 +2951,7 @@ def phase_mesh_rest(path, names, img_name, dose_name, rigid, dev):
         pixels["External"], ext.faces, dims, device=dev, as_numpy=False))
     marks = {"voxelize": time.perf_counter()}
     out["voxelize"] = dict(per_mesh=rows, batch_ms=batch_ms,
+                           batch_resident_pass_ms=resident_ms,
                            batch_crop_bytes=batch_stats["crop_bytes"],
                            batch_equal_to_single=True, planes=planes,
                            organ=organ)
@@ -3083,6 +3132,11 @@ def phase_mesh_rest(path, names, img_name, dose_name, rigid, dev):
                 organ, location=meshes[organ].center, slice_plane="Axial")
         warp_rows = warp_path_rows(calls) \
             if torch.device(dev).type == "cuda" else {}
+    # the masked demons again, recorded: its cropped grids' keys timed
+    demons_rows = recorded_rows(lambda: masked.compute_demons(
+        method="fast", pyramid=DEMONS_PYRAMID), dev)
+    for name, rows in demons_rows.items():
+        warp_rows.setdefault(name, {}).update(rows)
     drop_structures(["PTV_mesh", "PTV_shell", "Heart_3mf"])
     set_registry(registry)
     for n in (names["ref"], names["deformed"]):
@@ -3516,6 +3570,9 @@ def phase_cohort_rigid(names, truth, rigid, dev):
             lambda: step(params, state, ref_b, mov_b))
         step_losses.append(float(loss))
         step_ms.append(ms)
+    # one more step, recorded: the batched points' keys timed
+    step_rows = recorded_rows(lambda: step(params, state, ref_b, mov_b),
+                              dev)
     del ref_b, mov_b
     torch.cuda.empty_cache()
     emit("cohort_rigid", pairs=P, shape=list(SHAPE),
@@ -3533,7 +3590,7 @@ def phase_cohort_rigid(names, truth, rigid, dev):
     assert worst_single <= 1e-4, f"batch != single-pair descent: {rows}"
     assert step_losses[-1] < step_losses[0], step_losses
     return refs, movs, geo_in, dict(poses=poses, losses=losses,
-                                    batch_ms=batch_ms)
+                                    batch_ms=batch_ms, warp_rows=step_rows)
 
 
 def ia_timed(fn, dev):
@@ -5964,6 +6021,74 @@ def phase_multi_device(folder, names, img_name, dose_name, cohort, dev):
                 profile=profile)
 
 
+# the kernels each example's path launches on the card at least once
+EXAMPLE_KERNELS = {
+    "end_to_end": ("warp_coords", "warp_affine", "warp_disp"),
+    "registration_suite": ("warp_coords", "warp_affine", "warp_disp"),
+    "adaptive_rt": ("warp_disp", "dose_hist"),
+    "cohort_scale": ("warp_coords", "warp_disp", "dose_hist")}
+
+
+def phase_validate():
+    """validate_kernels(fast=False) on the card: every hand kernel held
+    bit-equal to its plain version and to its host golden at the JAX
+    fixtures (medicalimageanalysis_torch/validate.py). A kernel that does
+    not build or launch raises there; a failed check fails the run."""
+    from medicalimageanalysis_torch.validate import validate_kernels
+
+    t0 = time.perf_counter()
+    result = validate_kernels(fast=False)
+    seconds = time.perf_counter() - t0
+    emit("validate", seconds=seconds, **result)
+    assert result["backend"] == "cuda", result["backend"]
+    assert result["ok"], {k: result["detail"][k]
+                          for k, ok in result["checks"].items() if not ok}
+
+
+def phase_examples():
+    """The four examples (medicalimageanalysis_torch/examples) on the
+    card at their own sizes, each in a folder of its own: each one's own
+    asserts hold inside its main; its wall time, launches and printed
+    lines. They replace the Data registry, so they run before the
+    paths."""
+    import contextlib
+    import importlib
+    import io
+
+    rows = {}
+    with tempfile.TemporaryDirectory(prefix="mia_examples_") as root:
+        for name, expect in EXAMPLE_KERNELS.items():
+            module = importlib.import_module(
+                f"medicalimageanalysis_torch.examples.{name}")
+            before = launch_counts()
+            printed = io.StringIO()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                module.main(workdir=os.path.join(root, name))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launched = {k: v - before[k] for k, v in launch_counts().items()}
+            rows[name] = dict(seconds=seconds, launches=launched,
+                              printed=printed.getvalue().splitlines())
+            missing = [k for k in expect if not launched[k]]
+            assert not missing, f"example {name} never launched {missing}"
+    emit("examples", seconds=sum(r["seconds"] for r in rows.values()),
+         **rows)
+
+
+def untimed_rows(kernels, shapes):
+    """[path, kernel, B, grad, "ZxYxX", launches] of every warp launch
+    shape no row times, by path."""
+    out = []
+    for path, per_path in shapes.items():
+        for (k, B, grad, shape), n in sorted(per_path.items()):
+            if timed_key(B, grad, shape) not in kernels[k]["timed"]:
+                out.append([path, k, B, int(grad),
+                            "x".join(map(str, shape)), n])
+    return out
+
+
 def registry_state():
     """The port's registry, every dict and list of it."""
     from medicalimageanalysis_torch.data import Data
@@ -6056,6 +6181,14 @@ def main():
         warp.LAUNCH_SHAPES.clear()
         hist.LAUNCH_SHAPES.clear()
 
+    reset_counts()                         # validate_kernels starts here
+    phase_validate()
+    validate_launches = launch_counts()    # ... and ends here
+    shapes = {"validate": launch_shapes()}
+    reset_counts()                         # the four examples start here
+    phase_examples()
+    examples_launches = launch_counts()    # ... and end here
+    shapes["examples"] = launch_shapes()
     with tempfile.TemporaryDirectory(prefix="mia_smoke_") as folder:
         truth, ref = write_pair(cpu_gen, folder)
         reset_counts()                     # the rigid path starts here
@@ -6063,19 +6196,21 @@ def main():
         rigid, warm = phase_rigid(names, truth)
         phase_reslice(rigid, dev)
         rigid_launches = launch_counts()   # ... and ends here
-        shapes = {"rigid": launch_shapes()}
+        shapes["rigid"] = launch_shapes()
         reset_counts()                     # the cohort rigid starts here
         cohort = phase_cohort_rigid(names, truth, rigid, dev)
         cohort_launches = launch_counts()  # ... and ends here
         shapes["cohort_rigid"] = launch_shapes()
+        merge_warp_rows(kernels, cohort[3].pop("warp_rows"), "cohort_rigid")
         deformed = os.path.join(folder, "deformed")
         write_deformed(ref, deformed)
         del ref
         reset_counts()                     # the deformable path starts here
         names = phase_deformable(deformed, names, dev)
-        phase_deformable_variants(names, dev)
+        variant_rows = phase_deformable_variants(names, dev)
         deformable_launches = launch_counts()  # ... and ends here
         shapes["deformable"] = launch_shapes()
+        merge_warp_rows(kernels, variant_rows, "deformable_variants")
         reset_counts()                     # the dose-QA path starts here
         with recording_hist_calls({}) as hist_calls:
             img_name, dose_name = phase_dose_qa(folder, names, dev)
@@ -6093,11 +6228,13 @@ def main():
         plan = phase_plan_qa(names, img_name, dose_name, dev)
         plan_qa_launches = launch_counts()  # ... and ends here
         shapes["plan_qa"] = launch_shapes()
+        merge_warp_rows(kernels, plan.pop("warp_rows"), "plan_qa")
         torch.cuda.empty_cache()
         reset_counts()                     # the ROI mesh path starts here
         mesh_path = phase_roi_mesh(names, img_name, dose_name, rigid, dev)
         roi_mesh_launches = launch_counts()  # ... and ends here
         shapes["roi_mesh"] = launch_shapes()
+        merge_warp_rows(kernels, mesh_path.pop("warp_rows"), "roi_mesh")
         reset_counts()                     # the rest of the mesh slice
         mesh_rest = phase_mesh_rest(mesh_path, names, img_name, dose_name,
                                     rigid, dev)
@@ -6213,6 +6350,8 @@ def main():
                ("warp_affine", "warp_coords", "warp_disp", "dose_hist")), \
         f"a kernel of the IO path never launched: {io_launches}"
     # ingest_rest assembles with plain PyTorch: no kernel of its own
+    assert all(validate_launches.values()), \
+        f"a kernel never launched in validate_kernels: {validate_launches}"
     assert all(multi_device_launches[k] for k in
                ("warp_coords", "warp_disp", "dose_hist")), \
         f"a kernel of the multi-device path never launched: " \
@@ -6234,13 +6373,15 @@ def main():
     assert oblique_launches == dict(
         {k: 0 for k in oblique_launches}, warp_coords=1,
         warp_affine_shear=1), oblique_launches
-    # every kernel's launches on the thirteen paths, and the warp launches
+    # every kernel's launches on the fifteen paths (validate_kernels and
+    # the examples at their own sizes among them), and the warp launches
     # by shape over them
-    paths = (rigid_launches, cohort_launches, deformable_launches,
-             dose_qa_launches, plan_qa_launches, roi_mesh_launches,
-             mesh_rest_launches, image_analysis_launches, io_launches,
-             ingest_rest_launches, registration_rest_launches,
-             multi_device_launches, view_launches)
+    paths = (validate_launches, examples_launches, rigid_launches,
+             cohort_launches, deformable_launches, dose_qa_launches,
+             plan_qa_launches, roi_mesh_launches, mesh_rest_launches,
+             image_analysis_launches, io_launches, ingest_rest_launches,
+             registration_rest_launches, multi_device_launches,
+             view_launches)
     launches = {k: sum(p[k] for p in paths) for k in rigid_launches}
     all_shapes = {}
     for per_path in shapes.values():
@@ -6248,6 +6389,7 @@ def main():
             all_shapes[key] = all_shapes.get(key, 0) + n
     assert sum(all_shapes.values()) == sum(
         launches[k] for k in WARP_MODES.values()), (all_shapes, launches)
+    emit("untimed_shapes", rows=untimed_rows(kernels, shapes))
     for name in WARP_MODES.values():
         kernels[name].update(ms_lost(name, kernels[name].pop("timed"),
                                      all_shapes))
@@ -6345,6 +6487,8 @@ def main():
         profiles["cohort_level"]["device_events"] / (
             len(COHORT_POSES) + 1) / COHORT_PROFILE_STEPS
     emit("kernel_ran", launches=launches,
+         launches_validate=validate_launches,
+         launches_examples=examples_launches,
          launches_rigid_path=rigid_launches,
          launches_cohort_rigid_path=cohort_launches,
          launches_deformable_path=deformable_launches,
@@ -6378,8 +6522,9 @@ def main():
              "launches": launches[name], **kernels[name]}
             for name in ("warp_coords", "warp_affine", "warp_disp",
                          "warp_affine_shear")]
-    # affine_shear is reached only by affine_warp_oblique called directly,
-    # which no path calls: 0 launches on the paths, its own count beside
+    # affine_shear is reached only by affine_warp_oblique called directly:
+    # validate_kernels' oblique check calls it, no other path does; the
+    # entry's own call at the display's map counted beside
     rows[-1]["launches_oblique_entry"] = oblique_launches["warp_affine_shear"]
     rows.append({"name": "dose_hist", "route": "cuda",
                  "source": "medicalimageanalysis_torch/csrc/hist.cu",

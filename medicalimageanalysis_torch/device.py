@@ -15,7 +15,7 @@ import contextlib
 import torch
 
 __all__ = ["as_f32", "default_device", "full_float32", "set_default_device",
-           "set_numerics"]
+           "set_numerics", "using_device"]
 
 _requested = None
 
@@ -25,6 +25,22 @@ def set_default_device(device):
     called without one; ``None`` goes back to the card."""
     global _requested
     _requested = None if device is None else torch.device(device)
+
+
+@contextlib.contextmanager
+def using_device(device):
+    """Within the block, ``device`` (e.g. ``"cpu"``) is the device of
+    every entry point called without one, as :func:`set_default_device`
+    makes it; the earlier choice is restored on exit. ``None`` changes
+    nothing."""
+    global _requested
+    saved = _requested
+    if device is not None:
+        set_default_device(device)
+    try:
+        yield
+    finally:
+        _requested = saved
 
 
 def default_device():

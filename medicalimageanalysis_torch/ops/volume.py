@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["apply_ffs", "assemble_volume"]
+__all__ = ["apply_ffs", "assemble_volume", "assemble_volume_numpy"]
 
 _TORCH_DTYPE = {np.dtype(np.int16): torch.int16,
                 np.dtype(np.float32): torch.float32}
@@ -78,3 +78,30 @@ def assemble_volume(raw_slices, slopes, intercepts, ffs_op="none",
     vol = vol * slope[:, None, None] + intercept[:, None, None]
     vol = vol.to(_TORCH_DTYPE[np.dtype(out_dtype)])
     return apply_ffs(vol, ffs_op).contiguous()
+
+
+def assemble_volume_numpy(raw_slices, slopes, intercepts, ffs_op="none",
+                          out_dtype=np.int16):
+    """Pure-numpy twin of :func:`assemble_volume` on the host (the golden
+    path of parity tests), bit-equal to the JAX package's: float32
+    ``raw * slope + intercept`` rounded twice, then the cast and the FFS
+    op (geometry.apply_ffs_numpy)."""
+    from .geometry import apply_ffs_numpy
+
+    slopes = np.asarray(slopes, dtype=np.float32)
+    intercepts = np.asarray(intercepts, dtype=np.float32)
+    raw = np.asarray(raw_slices)
+    # integer fast path: slope 1 and one integral intercept on 16-bit
+    # stored values is exact in the output type, and equal to the float32
+    # round trip (float32 holds every 16-bit value exactly)
+    if (raw.dtype in (np.int16, np.uint16)
+            and np.all(slopes == 1.0)
+            and np.all(intercepts == intercepts[0])
+            and float(intercepts[0]).is_integer()):
+        vol = raw.astype(out_dtype, copy=True)
+        if intercepts[0]:
+            vol += out_dtype(int(intercepts[0]))
+        return np.ascontiguousarray(apply_ffs_numpy(vol, ffs_op))
+    vol = (raw.astype(np.float32) * slopes[:, None, None]
+           + intercepts[:, None, None]).astype(out_dtype)
+    return np.ascontiguousarray(apply_ffs_numpy(vol, ffs_op))

@@ -63,7 +63,8 @@ import torch
 
 from ..device import default_device
 
-__all__ = ["voxelize_mesh_device", "voxelize_batch"]
+__all__ = ["voxelize_batch", "voxelize_compute_marginal_ms",
+           "voxelize_mesh_device"]
 
 _RAY_EPS_U = 1.0e-4
 _RAY_EPS_V = 2.3e-4
@@ -271,70 +272,97 @@ def _add(stats, key, value):
         stats[key] = stats.get(key, 0) + value
 
 
+def _upload_chunk(preps, S, H, W, device, stats=None):
+    """The resident inputs of one pooled pass over <= _MAX_CHUNK prepped
+    meshes: the shared crop box, the paste origins, the concatenated
+    vertex arrays and each class's faces and sideband, uploaded as int32.
+    None when no mesh of the chunk has a face in a window class."""
+    B = len(preps)
+    crops = [p["crop"] for p in preps if p["crop"] is not None]
+    if not crops:
+        return None
+    Hc, Wc, Sc = _chunk_dims(crops, S, H, W)
+    if B * Hc * Wc * Sc + 1 >= 2**31:
+        raise ValueError("voxelize chunk exceeds the int32 key space")
+    # paste origins, shifted so the shared crop block stays in the
+    # canvas (anchors are re-expressed relative to the shift)
+    origins = np.zeros((B, 2), np.int64)
+    voff = np.zeros(B, np.int64)
+    nver = 0
+    for b, p in enumerate(preps):
+        if p["crop"] is not None:
+            origins[b] = (min(p["crop"][2], H - Hc),
+                          min(p["crop"][0], W - Wc))
+        voff[b] = nver
+        nver += p["vu"].shape[0]
+
+    def up(a, dtype):
+        return torch.as_tensor(a, dtype=dtype).to(device)
+
+    a = dict(B=B, S=S, Hc=Hc, Wc=Wc, Sc=Sc, origins=origins,
+             vu=up(np.concatenate([p["vu"] for p in preps]), torch.float32),
+             vv=up(np.concatenate([p["vv"] for p in preps]), torch.float32),
+             vw=up(np.concatenate([p["vw"] for p in preps]), torch.float32),
+             cv0=up(origins[:, 0], torch.int32),
+             cu0=up(origins[:, 1], torch.int32), classes=[])
+    _add(stats, "upload_bytes", 12 * nver + 8 * B)
+    for P in _WINDOW_CLASSES:
+        fl, sl = [], []
+        for b, p in enumerate(preps):
+            sel = p["classes"].get(P)
+            if sel is None:
+                continue
+            fl.append(p["faces"][sel] + voff[b])
+            sl.append(np.stack([p["iu0"][sel], p["iv0"][sel],
+                                p["nu"][sel] | (p["nv"][sel] << 6)
+                                | (b << 12)], axis=1))
+        if not fl:
+            continue
+        faces = up(np.concatenate(fl), torch.int32)
+        a["classes"].append((P, faces, up(np.concatenate(sl), torch.int32)))
+        _add(stats, "upload_bytes", 24 * faces.shape[0])
+        _add(stats, "pairs", faces.shape[0] * P * P)
+    return a
+
+
+def _crop_pass(a, vw, stats=None):
+    """The device work of one pooled pass on resident inputs ``a``
+    (:func:`_upload_chunk`), with ``vw`` as the ray-axis coordinates:
+    each class's keys added into the int32 histogram, then the parity.
+    Returns the (B, Sc, Hc, Wc) uint8 crop block."""
+    B, Hc, Wc, Sc = a["B"], a["Hc"], a["Wc"], a["Sc"]
+    counts = torch.zeros(B * Hc * Wc * Sc + 1, dtype=torch.int32,
+                         device=vw.device)
+    _add(stats, "crop_bytes", counts.numel() * 4)
+    for P, faces, side in a["classes"]:
+        step = max(1, _CHUNK_ELEMENTS // (P * P))
+        for t in range(0, faces.shape[0], step):
+            keys = _window_keys(a["vu"], a["vv"], vw, faces[t:t + step],
+                                side[t:t + step], a["cu0"], a["cv0"], P,
+                                Hc, Wc, Sc, a["S"], B)
+            counts.index_add_(0, keys, torch.ones_like(keys))
+    return _parity(counts, B, Hc, Wc, Sc)
+
+
+def _paste(a, crop, out):
+    """Each mesh's crop block into the (B, S, H, W) canvas at its
+    origin."""
+    Hc, Wc, Sc = a["Hc"], a["Wc"], a["Sc"]
+    for b in range(a["B"]):
+        y0, x0 = (int(o) for o in a["origins"][b])
+        out[b, :Sc, y0:y0 + Hc, x0:x0 + Wc] = crop[b]
+
+
 def _voxelize_chunk(preps, S, H, W, device, stats=None):
     """One pooled device pass over <= _MAX_CHUNK prepped meshes: the
-    shared crop box, the concatenated vertex arrays, each class's faces
-    and sideband uploaded as int32, the keys of each class added into the
-    histogram, the parity pasted. Returns the (B, S, H, W) uint8 masks on
-    ``device``."""
+    inputs uploaded (:func:`_upload_chunk`), the keys of each class added
+    into the histogram, the parity pasted, the big faces' host terms
+    XORed in. Returns the (B, S, H, W) uint8 masks on ``device``."""
     B = len(preps)
     out = torch.zeros((B, S, H, W), dtype=torch.uint8, device=device)
-    crops = [p["crop"] for p in preps if p["crop"] is not None]
-    if crops:
-        Hc, Wc, Sc = _chunk_dims(crops, S, H, W)
-        if B * Hc * Wc * Sc + 1 >= 2**31:
-            raise ValueError("voxelize chunk exceeds the int32 key space")
-        # paste origins, shifted so the shared crop block stays in the
-        # canvas (anchors are re-expressed relative to the shift)
-        origins = np.zeros((B, 2), np.int64)
-        voff = np.zeros(B, np.int64)
-        nver = 0
-        for b, p in enumerate(preps):
-            if p["crop"] is not None:
-                origins[b] = (min(p["crop"][2], H - Hc),
-                              min(p["crop"][0], W - Wc))
-            voff[b] = nver
-            nver += p["vu"].shape[0]
-
-        def up(a, dtype):
-            return torch.as_tensor(a, dtype=dtype).to(device)
-
-        vu = up(np.concatenate([p["vu"] for p in preps]), torch.float32)
-        vv = up(np.concatenate([p["vv"] for p in preps]), torch.float32)
-        vw = up(np.concatenate([p["vw"] for p in preps]), torch.float32)
-        cv0 = up(origins[:, 0], torch.int32)
-        cu0 = up(origins[:, 1], torch.int32)
-        _add(stats, "upload_bytes", 12 * nver + 8 * B)
-        counts = torch.zeros(B * Hc * Wc * Sc + 1, dtype=torch.int32,
-                             device=device)
-        _add(stats, "crop_bytes", counts.numel() * 4)
-        for P in _WINDOW_CLASSES:
-            fl, sl = [], []
-            for b, p in enumerate(preps):
-                sel = p["classes"].get(P)
-                if sel is None:
-                    continue
-                fl.append(p["faces"][sel] + voff[b])
-                sl.append(np.stack([p["iu0"][sel], p["iv0"][sel],
-                                    p["nu"][sel] | (p["nv"][sel] << 6)
-                                    | (b << 12)], axis=1))
-            if not fl:
-                continue
-            faces = up(np.concatenate(fl), torch.int32)
-            side = up(np.concatenate(sl), torch.int32)
-            _add(stats, "upload_bytes", 24 * faces.shape[0])
-            _add(stats, "pairs", faces.shape[0] * P * P)
-            step = max(1, _CHUNK_ELEMENTS // (P * P))
-            for t in range(0, faces.shape[0], step):
-                keys = _window_keys(vu, vv, vw, faces[t:t + step],
-                                    side[t:t + step], cu0, cv0, P, Hc, Wc,
-                                    Sc, S, B)
-                counts.index_add_(0, keys, torch.ones_like(keys))
-        crop = _parity(counts, B, Hc, Wc, Sc)
-        del counts
-        for b in range(B):
-            y0, x0 = (int(o) for o in origins[b])
-            out[b, :Sc, y0:y0 + Hc, x0:x0 + Wc] = crop[b]
+    a = _upload_chunk(preps, S, H, W, device, stats=stats)
+    if a is not None:
+        _paste(a, _crop_pass(a, a["vw"], stats=stats), out)
     for b, p in enumerate(preps):
         _add(stats, "big_faces", p["big_faces"])
         if p["host_term"] is not None:
@@ -381,6 +409,61 @@ def voxelize_batch(meshes_pixel, dimensions, plane="Axial", as_numpy=True,
 
 
 voxelize_batch.__doc__ = voxelize_batch.__doc__.format(_MAX_CHUNK)
+
+
+def voxelize_compute_marginal_ms(meshes_pixel, dimensions, plane="Axial",
+                                 iters=3, device=None):
+    """Resident-input device time of one pooled voxelize pass (the window
+    keys of every class, the parity scatter and the paste), in ms per
+    pass, for the first {0} meshes on ``device`` (default: the card).
+
+    The inputs are uploaded first and stay resident, so the figure is the
+    device's cost without staging. The JAX function's timing rules hold:
+    n against n + ``iters`` passes, each pass on ray coordinates scaled by
+    its own 1 + k * 1e-6 (no pass repeats another's work), and a reduction
+    over every pass's whole output, read once at the end. On the card the
+    passes are timed with CUDA events, the least of two runs each; on the
+    CPU, asked for by name, with the host clock."""
+    import time
+
+    device = default_device() if device is None else torch.device(device)
+    S, H, W = _slicing_dims(dimensions, plane)
+    preps = [_prep_mesh(p, f, plane, S, H, W)
+             for p, f in meshes_pixel[:_MAX_CHUNK]]
+    a = _upload_chunk(preps, S, H, W, device)
+    if a is None:
+        return 0.0
+    out = torch.zeros((a["B"], S, H, W), dtype=torch.uint8, device=device)
+    on_card = device.type == "cuda"
+
+    def run(n):
+        total = torch.zeros((), dtype=torch.int64, device=device)
+        if on_card:
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize(device)
+            start.record()
+        else:
+            t0 = time.perf_counter()
+        for k in range(1, n + 1):
+            _paste(a, _crop_pass(a, a["vw"] * (1.0 + k * 1e-6)), out)
+            total += out.sum(dtype=torch.int64)
+        if on_card:
+            stop.record()
+            int(total)
+            return start.elapsed_time(stop)
+        int(total)
+        return 1e3 * (time.perf_counter() - t0)
+
+    run(1)
+    run(1 + iters)                              # warm both counts
+    t1 = min(run(1), run(1))
+    t2 = min(run(1 + iters), run(1 + iters))
+    return max(t2 - t1, 0.0) / iters
+
+
+voxelize_compute_marginal_ms.__doc__ = \
+    voxelize_compute_marginal_ms.__doc__.format(_MAX_CHUNK)
 
 
 def voxelize_mesh_device(points_pixel, faces, dimensions, plane="Axial",

@@ -30,10 +30,13 @@ clamp to the volume edge, samples outside ``[0, dim-1]`` take
 in the kernel's order, so the two are bit-equal on the card.
 
 The TPU kernel's slab/window machinery (``_pick_config``,
-``fits_warp_caps``, ``required_window``, the overflow counter, the
-``window`` / ``with_overflow`` arguments and ``oblique_plan``'s VMEM
-gates) has no counterpart: the CUDA kernel reads global memory directly
-and serves every coordinate map.
+``fits_warp_caps``, ``fits_x_window``, ``required_window``,
+``window_slab_bytes``, ``predicted_spread``, the overflow counter, the
+``window`` / ``interpret`` arguments and ``oblique_plan``'s VMEM gates)
+has no counterpart: the CUDA kernel reads global memory directly and
+serves every coordinate map. The JAX module's entry names
+(``field_warp_xla``, ``warp_jit``, ``warp_disp_jit``, ``field_warp_disp``,
+``affine_warp``) are kept with their signatures less those arguments.
 """
 
 from __future__ import annotations
@@ -46,11 +49,13 @@ import torch
 from torch import Tensor
 
 __all__ = ["LAUNCHES", "LAUNCH_SHAPES", "MAX_B", "affine_coords",
-           "affine_warp_fused", "batch_chunks", "check_index_range",
-           "affine_warp_oblique", "field_warp", "field_warp_disp",
-           "make_disp_sampler", "make_warp_sampler", "oblique_plan",
-           "oblique_v2", "warp_affine_plain", "warp_affine_shear_plain",
-           "warp_coords_plain", "warp_disp", "warp_disp_plain"]
+           "affine_warp", "affine_warp_fused", "batch_chunks",
+           "check_index_range", "affine_warp_oblique", "field_warp",
+           "field_warp_disp", "field_warp_xla", "make_disp_sampler",
+           "make_warp_sampler", "oblique_plan", "oblique_v2",
+           "warp_affine_plain", "warp_affine_shear_plain",
+           "warp_coords_plain", "warp_disp", "warp_disp_jit",
+           "warp_disp_plain", "warp_jit"]
 
 # Kernel launches per operator; a run reads them to show that its main
 # path went through the kernels. Only the CUDA implementations add to them.
@@ -444,16 +449,27 @@ def affine_coords(pixel_matrix, out_shape):
     return cz, cy, cx
 
 
-def affine_warp_fused(volume, pixel_matrix, background, out_shape):
-    """One-launch affine resample: coordinates generated inside the kernel
+def affine_warp(volume, pixel_matrix, out_shape, background=0.0):
+    """Exact affine resample: one ``affine`` launch whose coordinates come
     from the 12 row-major coefficients of ``pixel_matrix`` (4x4, f32
-    values). volume (Z, Y, X) -> (Zo, Yo, Xo)."""
-    volb, _ = _as_batch(volume)
+    values), mapping output pixel (x, y, z, 1) -> input pixel. volume
+    (Z, Y, X) -> (Zo, Yo, Xo), or (B, Z, Y, X) -> (B, Zo, Yo, Xo); the
+    contract of ``ops.resample.affine_resample``. The JAX function's
+    ``window`` / ``interpret`` / ``check_overflow`` belong to the TPU slab
+    window and have no counterpart."""
+    volb, squeeze = _as_batch(volume)
     A = torch.as_tensor(pixel_matrix, dtype=torch.float32).cpu()
     coef = [float(v) for v in A[:3, :].reshape(12)]
     out = torch.ops.mia_torch.warp_affine(
         volb, coef, [int(s) for s in out_shape], float(background))
-    return out[0]
+    return out[0] if squeeze else out
+
+
+def affine_warp_fused(volume, pixel_matrix, background, out_shape):
+    """One-launch affine resample (:func:`affine_warp` in the JAX
+    module's argument order): volume (Z, Y, X) -> (Zo, Yo, Xo). No
+    overflow count: the kernel has no slab."""
+    return affine_warp(volume, pixel_matrix, out_shape, background)
 
 
 def warp_disp(vols, disp, background=0.0):
@@ -470,10 +486,41 @@ def warp_disp(vols, disp, background=0.0):
     return out[0] if squeeze else out
 
 
-# The JAX package's eager twin sizes the kernel's slab window from the
-# field and falls back to a gather on overflow; the kernel here has no
-# slab, so the eager surface is the same call.
-field_warp_disp = warp_disp
+def field_warp_disp(vols, disp, background=0.0):
+    """Eager exact displacement warp, :func:`warp_disp`. The JAX function
+    sizes the TPU kernel's slab window from the field and falls back to
+    the gather on overflow; the CUDA kernel has no slab, so every field
+    takes the one launch."""
+    return warp_disp(vols, disp, background)
+
+
+def warp_disp_jit(vols, disp, background=0.0, with_overflow=False):
+    """:func:`warp_disp` under the JAX module's name. ``with_overflow``
+    also returns the slab-overflow count, a float32 zero on the volumes'
+    device: the CUDA kernel has no slab to overflow. The JAX function's
+    ``window`` / ``interpret`` have no counterpart."""
+    out = warp_disp(vols, disp, background)
+    if not with_overflow:
+        return out
+    return out, torch.zeros((), dtype=torch.float32, device=out.device)
+
+
+def warp_jit(vols, cz, cy, cx, background=0.0):
+    """:func:`field_warp` without gradients, under the JAX module's name:
+    vols (B, Z, Y, X) or (Z, Y, X), coordinates (Zo, Yo, Xo) in voxels.
+    The JAX function's ``window`` has no counterpart."""
+    return field_warp(vols, cz, cy, cx, background)
+
+
+def field_warp_xla(vol, cz, cy, cx, background=0.0):
+    """The plain PyTorch sample (the JAX module's XLA twin) on the
+    tensors' device, whatever it is: vol (Z, Y, X) or (B, Z, Y, X),
+    coordinates (Zo, Yo, Xo). The golden the kernel is held to."""
+    volb, squeeze = _as_batch(vol)
+    cz, cy, cx = (torch.as_tensor(c, dtype=torch.float32, device=volb.device)
+                  for c in (cz, cy, cx))
+    out = warp_coords_plain(volb, cz, cy, cx, background)[0]
+    return out[0] if squeeze else out
 
 
 class _DispSample(torch.autograd.Function):

@@ -268,6 +268,11 @@ class DicomReader(object):
             out.append(ds if ds else [])
         return out
 
+    def add_datasets(self, datasets):
+        """Add parsed datasets to the reader's list (the in-memory ingest
+        path: creation utilities and tests), before the grouping."""
+        self.ds.extend(datasets)
+
     # ------------------------------------------------------------------
     # grouping
     # ------------------------------------------------------------------

@@ -1,7 +1,8 @@
-"""Import hygiene of the PyTorch port: neither the package nor
-``chip_smoke.py`` may pull in jax, optax or psutil, which the GPU
-machine does not have, nor any module of the JAX package
-(``medicalimageanalysis_tpu``): the port carries its own copies."""
+"""Import hygiene of the PyTorch port: neither the package (its
+examples included) nor ``chip_smoke.py`` may pull in jax, optax or
+psutil, which the GPU machine does not have, nor any module of the JAX
+package (``medicalimageanalysis_tpu``): the port carries its own
+copies."""
 
 import re
 import subprocess
@@ -62,7 +63,10 @@ def test_port_and_smoke_import_no_jax_optax_psutil():
                  "native", "ops.hist", "ops.dvh", "ops.rasterize",
                  "structure.roi", "structure.dose", "read.rtstruct",
                  "read.rtdose", "utils.convert.contour", "ops.lane_interp",
-                 "structure.common", "structure.image", "config"):
+                 "structure.common", "structure.image", "config",
+                 "validate", "examples", "examples.end_to_end",
+                 "examples.registration_suite", "examples.adaptive_rt",
+                 "examples.cohort_scale"):
         assert f"medicalimageanalysis_torch.{name}" in report["modules"]
 
 
