@@ -141,6 +141,7 @@ scipy and the port; nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import math
 import os
@@ -361,17 +362,25 @@ def cuda_ms(fn, reps=10, warmup=2):
 # the kernels' records in a profile, by the wrapper count they answer to
 WARP_MODES = {"0": "warp_coords", "1": "warp_affine", "2": "warp_disp",
               "3": "warp_affine_shear"}
+# the affine mode's two kernel entries (ops/warp.affine_path), and every
+# warp kernel by the name its launches count under
+AFFINE_KERNELS = ("warp_affine", "warp_affine_axis")
+WARP_KERNELS = tuple(WARP_MODES.values()) + ("warp_affine_axis",)
 
 
 def kernel_of(key):
     """The wrapper count a device event answers to, or None. A dose_hist
     call launches two kernels; only its main pass (dose_hist_count)
-    answers, not its finish (dose_hist_finish)."""
+    answers, not its finish (dose_hist_finish). The affine mode's
+    separable entry runs csrc/warp.cu axis_kernel."""
     if "dose_hist_count" in key:
         return "dose_hist"
     if "lane_interp_kernel" in key:
         return "lane_interp"
-    mode = re.search(r"warp_kernel<\(\(anonymous namespace\)::Mode\)(\d)", key)
+    if "axis_kernel" in key:
+        return "warp_affine_axis"
+    mode = re.search(r"(?:warp|affine)_kernel<\(\(anonymous namespace\)"
+                     r"::Mode\)(\d)", key)
     return WARP_MODES[mode.group(1)] if mode else None
 
 
@@ -453,27 +462,38 @@ def launch_counts():
 
 def launch_shapes():
     """The warp wrappers' launches by (operator, B, gradients, output
-    dims) since the counts were last reset."""
+    dims, volume dims) since the counts were last reset."""
     from medicalimageanalysis_torch.ops import warp
 
     return dict(warp.LAUNCH_SHAPES)
 
 
 def shape_rows(shapes):
-    """launch_shapes() as JSON rows [operator, B, grad, "ZxYxX", count]."""
-    return [[k, B, int(g), "x".join(map(str, shape)), n]
-            for (k, B, g, shape), n in sorted(shapes.items())]
+    """launch_shapes() as JSON rows [operator, B, grad, "ZxYxX" out,
+    "ZxYxX" volume, count]."""
+    return [[k, B, int(g), "x".join(map(str, shape)),
+             "x".join(map(str, vin)), n]
+            for (k, B, g, shape, vin), n in sorted(shapes.items())]
+
+
+def launch_key(kernel, B, want_grad, shape, vin):
+    """The timed_key a launch of ``kernel`` is weighed under: the affine
+    kernels' by their volume dims too, so that a map from another grid
+    onto the same output (the dose onto the CT, the CT onto itself) has
+    its own row."""
+    return timed_key(B, want_grad, shape,
+                     vin if kernel in AFFINE_KERNELS else None)
 
 
 def ms_lost(kernel, timed, shapes):
     """Sum over ``kernel``'s launches at a shape its phase timed of
     launches x (ms - bound ms), with the launches it covers and those at
-    shapes the phase did not time (``timed``: timed_key -> row)."""
+    shapes the phase did not time (``timed``: launch_key -> row)."""
     lost, covered, untimed = 0.0, 0, 0
-    for (k, B, grad, shape), n in shapes.items():
+    for (k, B, grad, shape, vin), n in shapes.items():
         if k != kernel:
             continue
-        row = timed.get(timed_key(B, grad, shape))
+        row = timed.get(launch_key(k, B, grad, shape, vin))
         if row is None:
             untimed += n
             continue
@@ -751,9 +771,11 @@ def edge_cases():
             for field in ("smooth", "special")]
 
 
-def timed_key(B, want_grad, shape):
-    """The key of a timed row: a launch's (B, gradients, output dims)."""
-    return (int(B), bool(want_grad), tuple(int(s) for s in shape))
+def timed_key(B, want_grad, shape, vin=None):
+    """The key of a timed row: a launch's (B, gradients, output dims),
+    and its volume dims ``vin`` where given (launch_key)."""
+    key = (int(B), bool(want_grad), tuple(int(s) for s in shape))
+    return key if vin is None else key + (tuple(int(s) for s in vin),)
 
 
 def phase_warp_coords(gen, dev):
@@ -818,8 +840,40 @@ def phase_warp_coords(gen, dev):
                 library_ms=main["library_ms"], timed=timed)
 
 
+def dose_grid():
+    """The RTDOSE grid dose_plan() writes over the reference CT: (Z, Y, X)
+    dims, [sx, sy, sz] spacing, origin (the CT's)."""
+    extent = [SPACING[i] * (SHAPE[2 - i] - 1) for i in range(3)]
+    n = [int(np.ceil(e / DOSE_SPACING_MM)) + 1 for e in extent]  # x, y, z
+    return (n[2], n[1], n[0]), [DOSE_SPACING_MM] * 3, \
+        np.asarray(REF_ORIGIN, np.float64)
+
+
+def gamma_fine_map(dta_mm, shift_mm=(GAMMA_SHIFT_MM, 0.0, 0.0)):
+    """Dose.compute_gamma's one resample onto its fine search grid, for an
+    evaluated dose ``shift_mm`` (x, y, z) from the reference on the dose
+    grid: (float32 output -> input pixel map, fine grid dims)."""
+    from medicalimageanalysis_torch.ops.gamma import (
+        fine_grid_layout, fine_grid_shape, fine_to_ref_pixel_matrix)
+    from medicalimageanalysis_torch.ops.resample import compose_pixel_matrix
+
+    shape, spacing, origin = dose_grid()
+    s, r = fine_grid_layout(spacing, dta_mm)[:2]
+    A = compose_pixel_matrix(np.eye(3), spacing, origin + np.asarray(shift_mm),
+                             np.eye(3), spacing, origin).astype(np.float64) \
+        @ fine_to_ref_pixel_matrix(s, r)
+    return A.astype(np.float32), fine_grid_shape(shape, s, r)
+
+
 def affine_cases():
-    """Output-pixel -> input-pixel maps on SHAPE (x, y, z order)."""
+    """Output-pixel -> input-pixel maps (x, y, z order), name -> (input
+    dims, map, output dims). On SHAPE three rotated maps (the general
+    path); then the axis-aligned maps the paths run (the separable path):
+    gamma's fine grids at 3 %/3 mm and 2 %/2 mm from the dose grid, the
+    CT onto the dose grid (resample_to) and the dose onto the CT (the DVH
+    masks' grid), and a flip in x and z."""
+    from medicalimageanalysis_torch.ops.resample import compose_pixel_matrix
+
     Z, Y, X = SHAPE
     c = np.array([(X - 1) / 2, (Y - 1) / 2, (Z - 1) / 2])
 
@@ -834,49 +888,230 @@ def affine_cases():
         return np.array([[np.cos(th), -np.sin(th), 0],
                          [np.sin(th), np.cos(th), 0], [0, 0, 1]])
 
-    return {"near_identity": about_center(rz(0.7), (0.31, -0.47, 0.23)),
-            "relabel_90": about_center(rz(90.0)),
-            "oblique_45": about_center(rz(45.0), (0.5, 0.25, 0.0))}
+    out = {name: (SHAPE, A, SHAPE) for name, A in (
+        ("near_identity", about_center(rz(0.7), (0.31, -0.47, 0.23))),
+        ("relabel_90", about_center(rz(90.0))),
+        ("oblique_45", about_center(rz(45.0), (0.5, 0.25, 0.0))))}
+    dose_shape, dose_sp, origin = dose_grid()
+    for name, dta in (("gamma_3mm", 3.0), ("gamma_2mm", 2.0)):
+        A, fine = gamma_fine_map(dta)
+        out[name] = (dose_shape, A, fine)
+    out["ct_to_dose"] = (SHAPE, compose_pixel_matrix(
+        np.eye(3), SPACING, origin, np.eye(3), dose_sp, origin), dose_shape)
+    out["dose_to_ct"] = (dose_shape, compose_pixel_matrix(
+        np.eye(3), dose_sp, origin, np.eye(3), SPACING, origin), SHAPE)
+    flip = np.diag([-1.0, 1.0, -1.0, 1.0]).astype(np.float32)
+    flip[0, 3], flip[2, 3] = X - 1, Z - 1
+    out["flip_xz"] = (SHAPE, flip, SHAPE)
+    return out
+
+
+# the axis entry's two branches forced: every tile gathers its taps, or
+# every tile whose input rows fit stages them (mia_warp_affine_axis_ratio)
+AXIS_BRANCHES = {"gather": 0.0, "stage": 1e30}
+
+
+def affine_entry(vol, coef, out_shape, bg, entry, misalign=False):
+    """One call of a kernel entry of the affine mode on vol (B <= 4,
+    Z, Y, X), outside the wrapper (no launch counted): "general"
+    (mia_warp_affine), "axis" (mia_warp_affine_axis) or an AXIS_BRANCHES
+    name. Returns (CUDA error, output); with ``misalign`` the output
+    starts 4 bytes past an 8-byte boundary."""
+    from medicalimageanalysis_torch.ops._build import load_warp_library
+
+    lib = load_warp_library()
+    B, Z, Y, X = vol.shape
+    n = B * math.prod(out_shape)
+    buf = torch.empty(n + 1, dtype=torch.float32, device=vol.device)
+    out = (buf[1:] if misalign else buf[:n]).view((B,) + tuple(out_shape))
+    args = (vol.data_ptr(), B, Z, Y, X, (ctypes.c_float * 12)(*coef),
+            *out_shape, bg, out.data_ptr())
+    stream = torch.cuda.current_stream().cuda_stream
+    if entry in AXIS_BRANCHES:
+        err = lib.mia_warp_affine_axis_ratio(*args, AXIS_BRANCHES[entry],
+                                             stream)
+    elif entry == "axis":
+        err = lib.mia_warp_affine_axis(*args, stream)
+    else:
+        err = lib.mia_warp_affine(*args, stream)
+    return err, out
+
+
+def affine_edges():
+    """Where the affine tiles and paths are ragged or the map special:
+    name -> (volume dims, 12 coefficients, output dims, misaligned volume
+    and output). Output x tiles of 32, y tiles of 8 and the separable
+    path's z tiles of 16 cut at Xo 1, 69 and 509, odd Yo, Zo 1 and 21;
+    signed-zero and 1e-30 off-diagonals; NaN, +-inf and 1e30 diagonals
+    and translations; maps landing exactly on faces 0 and dim - 1."""
+    def diag(scale, shift, off=()):
+        A = np.zeros((3, 4), np.float32)
+        A[[0, 1, 2], [0, 1, 2]] = scale
+        A[:, 3] = shift
+        coef = [float(v) for v in A.reshape(-1)]
+        for k, v in off:
+            coef[k] = v
+        return coef
+
+    nan, inf = float("nan"), float("inf")
+    up = (0.34, 0.34, 0.3)
+    return {
+        "xo1": ((7, 9, 40), diag(up, (3.2, 0.3, 0.1)), (21, 25, 1), False),
+        "xo69": ((7, 9, 40), diag(up, (0.1, 0.2, 0.3)), (21, 25, 69), False),
+        "xo509": ((7, 9, 180), diag(up, (0.1, 0.2, 0.3)), (19, 23, 509),
+                  False),
+        "zo1_y17": ((4, 20, 30), diag((0.5, 0.5, 1.0), (0.1, 0.2, 1.5)),
+                    (1, 17, 57), False),
+        "down_ragged": ((40, 90, 100), diag((3.125, 3.125, 1.25),
+                                            (0.5, 0.25, 0.0)),
+                        (31, 27, 33), False),
+        "misaligned": ((7, 9, 40), diag(up, (0.1, 0.2, 0.3)), (21, 25, 69),
+                       True),
+        "signed_zero": ((7, 9, 40), diag(up, (0.1, 0.2, 0.3),
+                                         ((1, -0.0), (4, -0.0), (9, -0.0))),
+                        (21, 25, 69), False),
+        "off_1e-30": ((7, 9, 40), diag(up, (0.1, 0.2, 0.3), ((4, 1e-30),)),
+                      (21, 25, 69), False),
+        "off_nan": ((7, 9, 40), diag(up, (0.1, 0.2, 0.3), ((8, nan),)),
+                    (21, 25, 69), False),
+        "nan_shift": ((7, 9, 40), diag(up, (nan, 0.2, 0.3)), (21, 25, 69),
+                      False),
+        "inf_shift": ((7, 9, 40), diag(up, (0.1, inf, -inf)), (21, 25, 69),
+                      False),
+        "huge": ((7, 9, 40), diag((1e30, 0.34, 0.3), (0.1, 0.2, 1e30)),
+                 (21, 25, 69), False),
+        "nan_inf_diag": ((7, 9, 40), diag((0.34, nan, inf), (0.1, 0.2, 0.3)),
+                         (21, 25, 69), False),
+        "faces": ((5, 9, 33), diag((0.5, 0.5, 0.25), (0.0, 0.0, 0.0)),
+                  (17, 17, 65), False),
+        "faces_flip": ((5, 9, 33), diag((-0.5, -0.5, -0.25), (32.0, 8.0, 4.0)),
+                       (17, 17, 65), False)}
+
+
+def affine_bound(vol, coef, shape):
+    """warp_bound of one ``affine`` launch on vol (B, Z, Y, X) at the 12
+    coefficients onto ``shape``. Where the map has fewer outputs than
+    volume voxels (a downsampling: the CT onto the dose grid), what it
+    must read is the volume voxels that the taps of its samples inside
+    the volume touch (mesh_taps), not the whole volume. Returns (ms,
+    'bytes' or 'operations', those voxels or None)."""
+    from medicalimageanalysis_torch.ops.warp import affine_coords
+
+    B, Z, Y, X = vol.shape
+    n_out = math.prod(shape)
+    if n_out >= Z * Y * X:
+        return (*warp_bound(Z * Y * X, n_out, B, 0, False), None)
+    A = torch.tensor(coef, dtype=torch.float32, device=vol.device)
+    cz, cy, cx = affine_coords(A.reshape(3, 4), shape)
+    inside = (cz >= 0) & (cz <= Z - 1) & (cy >= 0) & (cy <= Y - 1) \
+        & (cx >= 0) & (cx <= X - 1)
+    taps = mesh_taps(vol, cz[inside], cy[inside], cx[inside])
+    del cz, cy, cx, inside
+    return (*bound(4 * B * (taps + n_out), 30 * B * n_out), taps)
 
 
 def phase_warp_affine(gen, dev):
-    from medicalimageanalysis_torch.ops.warp import warp_affine_plain
+    """Kernel against plain version at each affine_cases map, through the
+    operator (the wrapper's entry); at an axis-aligned map also each
+    branch of the separable entry forced, and the general entry. Then the
+    ragged edges and special maps (affine_edges) through every entry that
+    takes them, each bit-equal; the separable entry refuses a map with a
+    non-zero off-diagonal. Each case's row: the kernel it took
+    (ops/warp.affine_path), ms (and each branch's), plain ms, bound
+    (affine_bound) and F.grid_sample at the same samples. Returns a row
+    for each of the two kernels, warp_affine (at the near-identity map)
+    and warp_affine_axis (at gamma's 3 %/3 mm fine grid), each with its
+    ``timed`` rows: the general kernel's launches at SHAPE from SHAPE
+    weighed by the near-identity map's time, the separable kernel's by
+    its maps at their shapes, until a path's own row takes their key."""
+    from medicalimageanalysis_torch.ops.warp import (affine_coords,
+                                                     affine_path,
+                                                     warp_affine_plain)
 
     op = torch.ops.mia_torch.warp_affine
-    vol = torch.randn((1,) + SHAPE, generator=gen, device=dev) * 500
+    bg = -3001.0
     rows = {}
-    for name, A in affine_cases().items():
-        coef = [float(v) for v in A[:3].reshape(-1)]
-        k = op(vol, coef, list(SHAPE), -3001.0)
-        p = warp_affine_plain(vol, coef, SHAPE, -3001.0)
-        torch.cuda.synchronize()
-        err = max_abs(k, p)
-        assert err == 0.0, f"warp_affine {name}: kernel != plain ({err})"
-        rows[name] = dict(
-            max_abs_err=err, background_share=float((k == -3001.0).float()
-                                                     .mean()),
-            ms=cuda_ms(lambda: op(vol, coef, list(SHAPE), -3001.0)),
-            plain_ms=cuda_ms(lambda: warp_affine_plain(vol, coef, SHAPE,
-                                                       -3001.0),
-                             reps=3, warmup=1))
-    from medicalimageanalysis_torch.ops.warp import affine_coords
+    timed = {k: {} for k in AFFINE_KERNELS}
 
-    main = rows["near_identity"]
-    for name, A in affine_cases().items():
-        cz, cy, cx = affine_coords(torch.as_tensor(A, device=dev), SHAPE)
-        rows[name]["library_ms"] = library_sample_ms(vol, cz, cy, cx)
-        rows[name]["bound_ms"], rows[name]["bound_by"] = warp_bound(
-            vol.numel(), cz.numel(), 1, 0, False)
+    def held(what, got, want):
+        err = max_abs(got, want)
+        assert torch.equal(got, want), f"warp_affine {what}: kernel != " \
+            f"plain ({err})"
+        return err
+
+    for name, (shape_in, A, shape) in affine_cases().items():
+        vol = torch.randn((1,) + tuple(shape_in), generator=gen,
+                          device=dev) * 500
+        coef = [float(v) for v in np.float32(A[:3]).reshape(-1)]
+        kernel = affine_path(coef)
+        p = warp_affine_plain(vol, coef, shape, bg)
+        k = op(vol, coef, list(shape), bg)
+        torch.cuda.synchronize()
+        row = dict(path=kernel, shape_in=list(shape_in), shape=list(shape),
+                   max_abs_err=held(name, k, p),
+                   background_share=float((k == bg).float().mean()),
+                   ms=cuda_ms(lambda: op(vol, coef, list(shape), bg)),
+                   plain_ms=cuda_ms(lambda: warp_affine_plain(
+                       vol, coef, shape, bg), reps=3, warmup=1))
+        del k
+        if kernel == "warp_affine_axis":
+            for entry in ("general",) + tuple(AXIS_BRANCHES):
+                err, k = affine_entry(vol, coef, shape, bg, entry)
+                assert err == 0, f"affine {entry} {name}: CUDA error {err}"
+                torch.cuda.synchronize()
+                held(f"{name} ({entry})", k, p)
+                row[f"{entry}_ms"] = cuda_ms(
+                    lambda: affine_entry(vol, coef, shape, bg, entry))
+                del k
+        del p
+        cz, cy, cx = affine_coords(torch.as_tensor(A, device=dev), shape)
+        row["library_ms"] = library_sample_ms(vol, cz, cy, cx)
         del cz, cy, cx
-    emit("warp_affine", shape=list(SHAPE), tolerance=0.0, **rows)
-    del vol
+        row["bound_ms"], row["bound_by"], taps = affine_bound(vol, coef,
+                                                              shape)
+        if taps is not None:
+            row["taps"] = taps
+        rows[name] = row
+        del vol
+        torch.cuda.empty_cache()
+        if kernel == "warp_affine_axis" or name == "near_identity":
+            timed[kernel][timed_key(1, False, shape, shape_in)] = row
+    for name, (vshape, coef, shape, mis) in affine_edges().items():
+        vol = torch.randn((2,) + vshape, generator=gen, device=dev) * 500
+        if mis:
+            vol = misaligned(vol)
+        kernel = affine_path(coef)
+        p = warp_affine_plain(vol, coef, shape, bg)
+        row = dict(path=kernel, vol=list(vshape), out=list(shape),
+                   max_abs_err=held(f"edge {name}",
+                                    op(vol, coef, list(shape), bg), p))
+        entries = ("general",) + (("axis",) + tuple(AXIS_BRANCHES)
+                                  if kernel == "warp_affine_axis" else ())
+        for entry in entries:
+            err, k = affine_entry(vol, coef, shape, bg, entry, misalign=mis)
+            assert err == 0, f"affine {entry} edge {name}: CUDA error {err}"
+            torch.cuda.synchronize()
+            held(f"edge {name} ({entry})", k, p)
+        if kernel == "warp_affine":    # the separable entry refuses the map
+            err, _ = affine_entry(vol, coef, shape, bg, "axis")
+            assert err != 0, f"the axis entry took edge {name}"
+            row["axis_entry_refused"] = err
+        row["entries"] = list(entries)
+        rows[f"edge_{name}"] = row
+        del vol, p
+    emit("warp_affine", tolerance=0.0, **rows)
     torch.cuda.empty_cache()
-    # the path's launches at SHAPE weighed by the near-identity map's time
-    return dict(max_abs_err=max(r["max_abs_err"] for r in rows.values()),
-                ms=main["ms"], plain_ms=main["plain_ms"],
-                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-                library_ms=main["library_ms"],
-                timed={timed_key(1, False, SHAPE): main})
+    out = {}
+    for kernel, main in (("warp_affine", rows["near_identity"]),
+                         ("warp_affine_axis", rows["gamma_3mm"])):
+        out[kernel] = dict(
+            max_abs_err=max(r["max_abs_err"] for r in rows.values()
+                            if kernel == "warp_affine"
+                            or r["path"] == kernel),
+            ms=main["ms"], plain_ms=main["plain_ms"],
+            bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+            library_ms=main["library_ms"], timed=timed[kernel])
+    return out
 
 
 def smooth_disp(gen, shape, dev, special=False):
@@ -1728,11 +1963,9 @@ def dose_plan():
     """(Z, Y, X) Gy on a DOSE_SPACING_MM grid over the reference CT: the
     prescription within 2 mm of the PTV, falling off smoothly to 5 Gy.
     Returns (dose, origin)."""
-    extent = [SPACING[i] * (SHAPE[2 - i] - 1) for i in range(3)]
-    n = [int(np.ceil(e / DOSE_SPACING_MM)) + 1 for e in extent]  # x, y, z
-    origin = np.asarray(REF_ORIGIN, np.float64)
-    zz, yy, xx = np.meshgrid(*(origin[i] + DOSE_SPACING_MM * np.arange(n[i])
-                               for i in (2, 1, 0)), indexing="ij")
+    shape, _, origin = dose_grid()
+    zz, yy, xx = np.meshgrid(*(origin[2 - i] + DOSE_SPACING_MM * np.arange(n)
+                               for i, n in enumerate(shape)), indexing="ij")
     cx, cy, cz = PTV_CENTER_MM
     r = np.sqrt((xx - cx) ** 2 + (yy - cy) ** 2 + (zz - cz) ** 2)
     edge = PTV_RADIUS_MM + 2.0
@@ -2320,9 +2553,12 @@ def uncounted():
 def recording_warp_calls(calls):
     """Within the block, keep in ``calls`` copies of the inputs of the
     first warp_coords / warp_affine / warp_disp operator call at each
-    (kernel, timed_key): the path's own tensors, to check and time the
+    (kernel, launch_key), an affine call under the kernel entry it takes
+    (ops/warp.affine_path): the path's own tensors, to check and time the
     kernel on after it."""
     from torch.utils._python_dispatch import TorchDispatchMode
+
+    from medicalimageanalysis_torch.ops.warp import affine_path
 
     kernels = {"mia_torch::warp_coords": "warp_coords",
                "mia_torch::warp_affine": "warp_affine",
@@ -2332,7 +2568,9 @@ def recording_warp_calls(calls):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             name = kernels.get(func._schema.name)
             if name == "warp_affine":     # (vol, coef, out_shape, bg)
-                key = (name, timed_key(args[0].shape[0], False, args[2]))
+                name = affine_path(args[1])
+                key = (name, timed_key(args[0].shape[0], False, args[2],
+                                       args[0].shape[1:]))
             elif name is not None:
                 key = (name, timed_key(args[0].shape[0], args[-1],
                                        args[1].shape[-3:]))
@@ -2346,28 +2584,68 @@ def recording_warp_calls(calls):
         yield calls
 
 
+@contextlib.contextmanager
+def recording_affine_calls(calls):
+    """Within the block, keep in ``calls`` the first ops/warp.affine_warp
+    call at each (affine_path, launch_key), as recording_warp_calls keeps
+    them: the volume it sampled (a reference, or the float32 batch the
+    wrapper makes of it; the callers' volumes outlive the block
+    unchanged), its 12 coefficients, output dims and background, for a
+    volume on the card of at most MAX_B volumes. Every affine launch goes
+    through affine_warp. No copy of a float32 volume
+    and no dispatch mode: a path timed inside it keeps its times."""
+    from medicalimageanalysis_torch.ops import warp
+
+    run = warp.affine_warp
+    affine_path = warp.affine_path
+
+    def affine_warp(volume, pixel_matrix, out_shape, background=0.0):
+        A = torch.as_tensor(pixel_matrix, dtype=torch.float32).cpu()
+        coef = [float(v) for v in A[:3, :].reshape(12)]
+        shape = [int(s) for s in out_shape]
+        vol = torch.as_tensor(volume)
+        B = 1 if vol.dim() == 3 else vol.shape[0]
+        key = (affine_path(coef), timed_key(B, False, shape,
+                                            vol.shape[-3:]))
+        # a launch on the card (one a call), not the CPU's plain twin
+        if vol.is_cuda and B <= warp.MAX_B and key not in calls:
+            calls[key] = (warp._as_batch(vol)[0], coef, shape,
+                          float(background))
+        return run(volume, pixel_matrix, out_shape, background)
+
+    warp.affine_warp = affine_warp
+    try:
+        yield calls
+    finally:
+        warp.affine_warp = run
+
+
 def warp_path_rows(calls):
     """The warp kernels at each key recorded by recording_warp_calls, on
     those tensors: held bit-equal to the plain twin, timed, with the bound
     of their work (warp_bound; for a list of points, the field voxels
     their taps touch; for a halo slab deeper than the output, the slab
-    rows the taps reach, slab_rows) and F.grid_sample at the same points
-    (library_sample_ms). Returns {kernel: {timed_key: row}}."""
+    rows the taps reach, slab_rows; for an affine map, affine_bound) and
+    F.grid_sample at the same points (library_sample_ms). Returns
+    {kernel: {launch_key: row}}, each affine row tagged with its kernel
+    entry (``path``)."""
     from medicalimageanalysis_torch.ops.warp import (MAX_B, affine_coords,
                                                      warp_affine_plain,
                                                      warp_coords_plain,
                                                      warp_disp_plain)
 
     plain = {"warp_coords": warp_coords_plain, "warp_disp": warp_disp_plain,
-             "warp_affine": warp_affine_plain}
+             "warp_affine": warp_affine_plain,
+             "warp_affine_axis": warp_affine_plain}
     out = {}
     for (name, key), args in sorted(calls.items()):
-        B, want, shape = key
+        B, want, shape = key[:3]
+        affine = name in AFFINE_KERNELS
         assert B <= MAX_B, (name, key)         # one launch a call
-        op = getattr(torch.ops.mia_torch, name)
+        op = getattr(torch.ops.mia_torch, "warp_affine" if affine else name)
         k, p = op(*args), plain[name](*args)
         torch.cuda.synchronize()
-        if name == "warp_affine":
+        if affine:
             k, p = [k], [p]
         errs = [max_abs(a, b) for a, b in zip(k, p)]
         assert errs == [0.0] * len(errs), \
@@ -2377,9 +2655,15 @@ def warp_path_rows(calls):
                    ms=cuda_ms(lambda: op(*args)),
                    plain_ms=cuda_ms(lambda: plain[name](*args), reps=3,
                                     warmup=1))
-        row["bound_ms"], row["bound_by"] = warp_bound(
-            args[0][0].numel(), math.prod(shape), B,
-            0 if name == "warp_affine" else 3, want)
+        if affine:
+            row["path"], row["shape_in"] = name, list(key[3])
+            row["bound_ms"], row["bound_by"], taps = affine_bound(
+                args[0], args[1], shape)
+            if taps is not None:
+                row["taps"] = taps
+        else:
+            row["bound_ms"], row["bound_by"] = warp_bound(
+                args[0][0].numel(), math.prod(shape), B, 3, want)
         if name == "warp_disp" and args[0].shape[1] != shape[0]:
             # a halo slab (parallel/halo.py): the rows the field reaches
             row["slab_rows"] = slab_rows(args[0].shape[1], args[1][2])
@@ -2395,7 +2679,7 @@ def warp_path_rows(calls):
                 4 * (B * row["taps"] + 3 * n + B * n), B * 30 * n)
         if name == "warp_coords":
             cz, cy, cx = args[1:4]
-        elif name == "warp_affine":
+        elif affine:
             coef = torch.tensor(args[1], dtype=torch.float32,
                                 device=args[0].device)
             cz, cy, cx = affine_coords(coef.reshape(3, 4), shape)
@@ -2430,14 +2714,15 @@ def recorded_rows(fn, dev):
 
 def merge_warp_rows(kernels, path_rows, label):
     """A path's warp rows (warp_path_rows) into the kernel rows: timed
-    rows weigh the path's launches in ms_lost, each beside the synthetic
-    field's time at its key, and the kernel's row lists them under
-    ``label``."""
+    rows weigh the path's launches in ms_lost, in place of any row at
+    their key, each beside the synthetic field's time at its key
+    (``synthetic_field_ms``, which marks a path's row), and the kernel's
+    row lists them under ``label``."""
     for name, rows in path_rows.items():
         for key, row in rows.items():
-            synthetic = kernels[name]["timed"].get(key)
-            row["synthetic_field_ms"] = None if synthetic is None \
-                else synthetic["ms"]
+            before = kernels[name]["timed"].get(key)
+            row["synthetic_field_ms"] = None if before is None \
+                else before.get("synthetic_field_ms", before["ms"])
             kernels[name]["max_abs_err"] = max(
                 kernels[name]["max_abs_err"], max(row["max_abs_err"]))
         kernels[name]["timed"].update(rows)
@@ -3702,13 +3987,15 @@ def ia_resample(img_name, dose_name, dev):
 def affine_at_dose_grid(img_name, dose_name, dev):
     """After the image-analysis path's launch window: the ``affine``
     launch of resample_to(dose) against its plain twin on the same
-    tensors (bit-equal), timed with its bound (the CT voxels the taps of
-    its samples inside the volume touch read once, the samples written,
-    30 float32 operations each) and beside F.grid_sample at the same
-    samples. Returns the kernel row and its timed_key."""
+    tensors (bit-equal), timed with its bound (affine_bound: the CT
+    voxels the taps of its samples inside the volume touch read once, the
+    samples written, 30 float32 operations each) and beside F.grid_sample
+    at the same samples. Returns the kernel row, the kernel it counts
+    under (ops/warp.affine_path) and its launch_key."""
     from medicalimageanalysis_torch.data import Data
     from medicalimageanalysis_torch.ops.resample import compose_pixel_matrix
-    from medicalimageanalysis_torch.ops.warp import affine_coords
+    from medicalimageanalysis_torch.ops.warp import (affine_coords,
+                                                     affine_path)
 
     ct, dose = Data.image[img_name], Data.dose[dose_name]
     vol = torch.as_tensor(np.asarray(ct.array, np.float32), device=dev)
@@ -3720,26 +4007,23 @@ def affine_at_dose_grid(img_name, dose_name, dev):
     k = op(volb, coef, list(shape), -3001.0)[0]
     err = max_abs(k, affine_plain(vol, A, shape, -3001.0))
     assert err == 0.0, f"affine at the dose grid: kernel != plain ({err})"
-    row = dict(max_abs_err=err, shape=list(shape),
+    kernel = affine_path(coef)
+    row = dict(max_abs_err=err, shape=list(shape), path=kernel,
                ms=cuda_ms(lambda: op(volb, coef, list(shape), -3001.0)),
                plain_ms=cuda_ms(lambda: affine_plain(vol, A, shape,
                                                      -3001.0),
                                 reps=3, warmup=1))
-    n_out = int(np.prod(shape))
     cz, cy, cx = affine_coords(torch.as_tensor(np.asarray(A, np.float32),
                                                device=dev), shape)
     # F.grid_sample of the CT at the same samples
     row["library_ms"] = library_sample_ms(vol[None], cz, cy, cx)
-    inside = (cz >= 0) & (cz <= SHAPE[0] - 1) & (cy >= 0) \
-        & (cy <= SHAPE[1] - 1) & (cx >= 0) & (cx <= SHAPE[2] - 1)
-    row["taps"] = mesh_taps(vol[None], cz[inside], cy[inside], cx[inside])
-    del cz, cy, cx, inside
-    row["bound_ms"], row["bound_by"] = bound(4 * (row["taps"] + n_out),
-                                             30 * n_out)
+    del cz, cy, cx
+    row["bound_ms"], row["bound_by"], row["taps"] = affine_bound(
+        volb, coef, shape)
     emit("affine_at_dose_grid", tolerance=0.0, **row)
     del vol, volb, k
     torch.cuda.empty_cache()
-    return row, timed_key(1, False, shape)
+    return row, kernel, timed_key(1, False, shape, ct.array.shape)
 
 
 def ia_display(names, dev):
@@ -6021,10 +6305,11 @@ def phase_multi_device(folder, names, img_name, dose_name, cohort, dev):
                 profile=profile)
 
 
-# the kernels each example's path launches on the card at least once
+# the kernels each example's path launches on the card at least once; a
+# tuple of names: at least one of them (the affine mode's two entries)
 EXAMPLE_KERNELS = {
-    "end_to_end": ("warp_coords", "warp_affine", "warp_disp"),
-    "registration_suite": ("warp_coords", "warp_affine", "warp_disp"),
+    "end_to_end": ("warp_coords", AFFINE_KERNELS, "warp_disp"),
+    "registration_suite": ("warp_coords", AFFINE_KERNELS, "warp_disp"),
     "adaptive_rt": ("warp_disp", "dose_hist"),
     "cohort_scale": ("warp_coords", "warp_disp", "dose_hist")}
 
@@ -6071,21 +6356,50 @@ def phase_examples():
             launched = {k: v - before[k] for k, v in launch_counts().items()}
             rows[name] = dict(seconds=seconds, launches=launched,
                               printed=printed.getvalue().splitlines())
-            missing = [k for k in expect if not launched[k]]
+            missing = [k for k in expect if not any(
+                launched[n] for n in ((k,) if isinstance(k, str) else k))]
             assert not missing, f"example {name} never launched {missing}"
     emit("examples", seconds=sum(r["seconds"] for r in rows.values()),
          **rows)
 
 
+def untimed_calls(kernels, calls):
+    """The recorded calls (recording_affine_calls) at keys no path's row
+    (merge_warp_rows) of their kernel times yet: a synthetic map's row
+    at the key gives way to the path's own call."""
+    timed = {name: {k for k, row in kernels[name]["timed"].items()
+                    if "synthetic_field_ms" in row}
+             for name in {name for name, _ in calls}}
+    return {(name, key): args for (name, key), args in calls.items()
+            if key not in timed[name]}
+
+
+@contextlib.contextmanager
+def timing_affine_calls(kernels, label):
+    """Within the block, record the path's affine calls
+    (recording_affine_calls); after it, hold and time those at keys no
+    path's row times yet on their own tensors (warp_path_rows), uncounted,
+    and merge them under ``label``: every affine launch of the path is
+    then weighed by a call of its own path or of an earlier one."""
+    calls = {}
+    with recording_affine_calls(calls):
+        yield
+    with uncounted():
+        merge_warp_rows(kernels, warp_path_rows(untimed_calls(kernels,
+                                                              calls)), label)
+    del calls
+    torch.cuda.empty_cache()
+
+
 def untimed_rows(kernels, shapes):
-    """[path, kernel, B, grad, "ZxYxX", launches] of every warp launch
-    shape no row times, by path."""
+    """[path, kernel, B, grad, "ZxYxX" out, "ZxYxX" volume, launches] of
+    every warp launch shape no row times, by path."""
     out = []
     for path, per_path in shapes.items():
-        for (k, B, grad, shape), n in sorted(per_path.items()):
-            if timed_key(B, grad, shape) not in kernels[k]["timed"]:
-                out.append([path, k, B, int(grad),
-                            "x".join(map(str, shape)), n])
+        for (k, B, grad, shape, vin), n in sorted(per_path.items()):
+            if launch_key(k, B, grad, shape, vin) not in kernels[k]["timed"]:
+                out.append([path, k, B, int(grad), "x".join(map(str, shape)),
+                            "x".join(map(str, vin)), n])
     return out
 
 
@@ -6169,7 +6483,7 @@ def main():
     smi = phase_device()
     phase_build()
     kernels = {"warp_coords": phase_warp_coords(gen, dev),
-               "warp_affine": phase_warp_affine(gen, dev),
+               **phase_warp_affine(gen, dev),
                "warp_disp": phase_warp_disp(gen, dev),
                "dose_hist": phase_hist(gen, dev),
                "warp_affine_shear": phase_warp_affine_shear(gen, dev)}
@@ -6192,11 +6506,12 @@ def main():
     with tempfile.TemporaryDirectory(prefix="mia_smoke_") as folder:
         truth, ref = write_pair(cpu_gen, folder)
         reset_counts()                     # the rigid path starts here
-        names = phase_ingest(folder, dev)
-        rigid, warm = phase_rigid(names, truth)
-        phase_reslice(rigid, dev)
-        rigid_launches = launch_counts()   # ... and ends here
-        shapes["rigid"] = launch_shapes()
+        with timing_affine_calls(kernels, "rigid"):
+            names = phase_ingest(folder, dev)
+            rigid, warm = phase_rigid(names, truth)
+            phase_reslice(rigid, dev)
+            rigid_launches = launch_counts()   # ... and ends here
+            shapes["rigid"] = launch_shapes()
         reset_counts()                     # the cohort rigid starts here
         cohort = phase_cohort_rigid(names, truth, rigid, dev)
         cohort_launches = launch_counts()  # ... and ends here
@@ -6206,16 +6521,18 @@ def main():
         write_deformed(ref, deformed)
         del ref
         reset_counts()                     # the deformable path starts here
-        names = phase_deformable(deformed, names, dev)
-        variant_rows = phase_deformable_variants(names, dev)
-        deformable_launches = launch_counts()  # ... and ends here
-        shapes["deformable"] = launch_shapes()
-        merge_warp_rows(kernels, variant_rows, "deformable_variants")
+        with timing_affine_calls(kernels, "deformable"):
+            names = phase_deformable(deformed, names, dev)
+            variant_rows = phase_deformable_variants(names, dev)
+            deformable_launches = launch_counts()  # ... and ends here
+            shapes["deformable"] = launch_shapes()
+            merge_warp_rows(kernels, variant_rows, "deformable_variants")
         reset_counts()                     # the dose-QA path starts here
-        with recording_hist_calls({}) as hist_calls:
-            img_name, dose_name = phase_dose_qa(folder, names, dev)
-        dose_qa_launches = launch_counts()  # ... and ends here
-        shapes["dose_qa"] = launch_shapes()
+        with timing_affine_calls(kernels, "dose_qa"):
+            with recording_hist_calls({}) as hist_calls:
+                img_name, dose_name = phase_dose_qa(folder, names, dev)
+            dose_qa_launches = launch_counts()  # ... and ends here
+            shapes["dose_qa"] = launch_shapes()
         hist_shapes = dict(hist.LAUNCH_SHAPES)
         # the histogram at each shape the path launched, on its tensors
         path = hist_path_lost(hist_calls, hist_shapes)
@@ -6225,10 +6542,11 @@ def main():
         del hist_calls
         torch.cuda.empty_cache()
         reset_counts()                     # the plan-QA path starts here
-        plan = phase_plan_qa(names, img_name, dose_name, dev)
-        plan_qa_launches = launch_counts()  # ... and ends here
-        shapes["plan_qa"] = launch_shapes()
-        merge_warp_rows(kernels, plan.pop("warp_rows"), "plan_qa")
+        with timing_affine_calls(kernels, "plan_qa_reslices"):
+            plan = phase_plan_qa(names, img_name, dose_name, dev)
+            plan_qa_launches = launch_counts()  # ... and ends here
+            shapes["plan_qa"] = launch_shapes()
+            merge_warp_rows(kernels, plan.pop("warp_rows"), "plan_qa")
         torch.cuda.empty_cache()
         reset_counts()                     # the ROI mesh path starts here
         mesh_path = phase_roi_mesh(names, img_name, dose_name, rigid, dev)
@@ -6252,23 +6570,28 @@ def main():
         coords["max_abs_err"] = max(coords["max_abs_err"], row["max_abs_err"])
         coords["mesh_warp"] = row
         reset_counts()                     # the image-analysis path starts
-        analysis = phase_image_analysis(folder, names, img_name, dose_name,
-                                        dev)
+        affine_calls = {}
+        with recording_affine_calls(affine_calls):
+            analysis = phase_image_analysis(folder, names, img_name,
+                                            dose_name, dev)
         image_analysis_launches = launch_counts()  # ... and ends here
         shapes["image_analysis"] = launch_shapes()
-        # the CT onto the dose grid: its affine launch timed
-        row, key = affine_at_dose_grid(img_name, dose_name, dev)
-        kernels["warp_affine"]["timed"].setdefault(key, row)
-        kernels["warp_affine"]["at_dose_grid"] = row
+        # the CT onto the dose grid: its affine launch timed, in place of
+        # the synthetic map's row at its key
+        row, name, key = affine_at_dose_grid(img_name, dose_name, dev)
+        merge_warp_rows(kernels, {name: {key: dict(
+            row, max_abs_err=[row["max_abs_err"]])}}, "at_dose_grid")
         # the Display's frames and demons_batch again, each warp launch
-        # key held and timed on their own tensors: these rows weigh the
-        # launches at their keys in ms_lost on every path
-        calls = {}
+        # key held and timed on their own tensors, and the path's affine
+        # launches at keys no row times yet (the ITV's planning grid):
+        # these rows weigh the launches at their keys in ms_lost on every
+        # path
+        calls = untimed_calls(kernels, affine_calls)
         with recording_warp_calls(calls):
             for rerun in analysis.pop("warp_calls").values():
                 rerun()
         merge_warp_rows(kernels, warp_path_rows(calls), "image_analysis")
-        del calls
+        del calls, affine_calls
         reset_counts()                     # the IO path starts here
         io = phase_io(folder, names, img_name, dose_name, rigid, dev)
         io_launches = io["launches"]       # ... and ends in it
@@ -6314,9 +6637,12 @@ def main():
         hist_k["multi_device"] = row
         torch.cuda.empty_cache()
         reset_counts()                     # the view path starts here
-        view = phase_view(names, rigid, dev)
-        view_launches = launch_counts()    # ... and ends here
-        shapes["view"] = launch_shapes()
+        # its affine launches at keys no path's row times yet (the
+        # off-axis display's and the Rigid nudges' grids) timed after it
+        with timing_affine_calls(kernels, "view"):
+            view = phase_view(names, rigid, dev)
+            view_launches = launch_counts()    # ... and ends here
+            shapes["view"] = launch_shapes()
         reset_counts()      # the oblique entry alone, at the display's map
         phase_oblique_entry(names, *view["display_map"], dev)
         oblique_launches = launch_counts()
@@ -6325,29 +6651,32 @@ def main():
     assert rigid_launches["warp_coords"] and rigid_launches["warp_affine"], \
         f"a kernel of the rigid path never launched: {rigid_launches}"
     assert all(deformable_launches[k] for k in
-               ("warp_coords", "warp_affine", "warp_disp")), \
+               ("warp_coords", "warp_affine_axis", "warp_disp")), \
         f"a kernel of the deformable path never launched: " \
         f"{deformable_launches}"
     assert all(dose_qa_launches[k] for k in
-               ("dose_hist", "warp_affine", "warp_coords", "warp_disp")), \
+               ("dose_hist", "warp_affine_axis", "warp_coords",
+                "warp_disp")), \
         f"a kernel of the dose-QA path never launched: {dose_qa_launches}"
     assert cohort_launches["warp_coords"], \
         f"the cohort rigid never launched warp_coords: {cohort_launches}"
     assert all(plan_qa_launches[k] for k in
-               ("warp_affine", "warp_coords", "warp_disp")), \
+               ("warp_affine_axis", "warp_coords", "warp_disp")), \
         f"a kernel of the plan-QA path never launched: {plan_qa_launches}"
     assert roi_mesh_launches["warp_coords"], \
         f"the ROI mesh path never launched warp_coords: {roi_mesh_launches}"
     assert all(mesh_rest_launches[k] for k in
-               ("warp_affine", "warp_coords", "warp_disp")), \
+               ("warp_affine_axis", "warp_coords", "warp_disp")), \
         f"a kernel of the mesh_rest path never launched: " \
         f"{mesh_rest_launches}"
     assert all(image_analysis_launches[k] for k in
-               ("warp_affine", "warp_coords", "warp_disp")), \
+               ("warp_affine", "warp_affine_axis", "warp_coords",
+                "warp_disp")), \
         f"a kernel of the image-analysis path never launched: " \
         f"{image_analysis_launches}"
     assert all(io_launches[k] for k in
-               ("warp_affine", "warp_coords", "warp_disp", "dose_hist")), \
+               ("warp_affine", "warp_affine_axis", "warp_coords",
+                "warp_disp", "dose_hist")), \
         f"a kernel of the IO path never launched: {io_launches}"
     # ingest_rest assembles with plain PyTorch: no kernel of its own
     assert all(validate_launches.values()), \
@@ -6357,7 +6686,8 @@ def main():
         f"a kernel of the multi-device path never launched: " \
         f"{multi_device_launches}"
     assert all(registration_rest_launches[k] for k in
-               ("warp_affine", "warp_coords", "warp_disp")), \
+               ("warp_affine", "warp_affine_axis", "warp_coords",
+                "warp_disp")), \
         f"a kernel of the registration_rest path never launched: " \
         f"{registration_rest_launches}"
     # three lane_interp passes per shear reslice; the exact reslices (the
@@ -6367,6 +6697,7 @@ def main():
     assert view_launches["lane_interp"] == 3 * view["n_shear"], \
         view_launches
     assert view_launches["warp_affine"] >= 6, view_launches
+    assert view_launches["warp_affine_axis"] == 0, view_launches
     assert view_launches["warp_affine_shear"] == 0, view_launches
     assert view_launches["warp_coords"] == 0, view_launches
     # the oblique entry called alone: one V2 build, one affine_shear
@@ -6388,9 +6719,9 @@ def main():
         for key, n in per_path.items():
             all_shapes[key] = all_shapes.get(key, 0) + n
     assert sum(all_shapes.values()) == sum(
-        launches[k] for k in WARP_MODES.values()), (all_shapes, launches)
+        launches[k] for k in WARP_KERNELS), (all_shapes, launches)
     emit("untimed_shapes", rows=untimed_rows(kernels, shapes))
-    for name in WARP_MODES.values():
+    for name in WARP_KERNELS:
         kernels[name].update(ms_lost(name, kernels[name].pop("timed"),
                                      all_shapes))
     # lane_interp: each pass shape the view path ran, timed once
@@ -6435,7 +6766,7 @@ def main():
         "dvh_curve_body": profile_device(
             lambda: Data.dose[dose_name].compute_dvh_curve(
                 img_name, "Body", n_bins=DVH_BINS),
-            ["warp_affine", "dose_hist"]),
+            ["warp_affine_axis", "dose_hist"]),
         # the pooled rasterization of the structure set alone, without
         # the mask cache's host bit-packing
         "rasterize_batch": profile_device(lambda: rasterize_batch(
@@ -6444,7 +6775,8 @@ def main():
             tuple(int(v) for v in Data.image[img_name].dimensions))),
         # plan QA: one gamma (3 %/3 mm, the shifted dose) and one full-size
         # squared EDT (the Body mask), both plain PyTorch on the card
-        "compute_gamma": profile_device(plan["gamma"], ["warp_affine"]),
+        "compute_gamma": profile_device(plan["gamma"],
+                                        ["warp_affine_axis"]),
         "edt": profile_device(plan["edt"]),
         # one cohort level over the four pairs: the first level's stride
         # and rate, COHORT_PROFILE_STEPS steps (the trace's processing
@@ -6520,8 +6852,8 @@ def main():
              "source": "medicalimageanalysis_torch/csrc/warp.cu",
              "replaces": "medicalimageanalysis_tpu/ops/pallas_warp.py:181",
              "launches": launches[name], **kernels[name]}
-            for name in ("warp_coords", "warp_affine", "warp_disp",
-                         "warp_affine_shear")]
+            for name in ("warp_coords", "warp_affine", "warp_affine_axis",
+                         "warp_disp", "warp_affine_shear")]
     # affine_shear is reached only by affine_warp_oblique called directly:
     # validate_kernels' oblique check calls it, no other path does; the
     # entry's own call at the display's map counted beside

@@ -67,24 +67,40 @@ def build_library(name):
     return out, proc.stderr
 
 
+# the warp library's entry points: name -> argtypes (each returns a
+# cudaError_t as int)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+WARP_ENTRIES = {
+    "mia_warp_coords": [_P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _F,
+                        _P, _P, _P, _P, _I, _P],
+    "mia_warp_affine": [_P, _I, _I, _I, _I, _P, _I, _I, _I, _F, _P, _P],
+    "mia_warp_affine_axis": [_P, _I, _I, _I, _I, _P, _I, _I, _I, _F, _P,
+                             _P],
+    "mia_warp_affine_axis_ratio": [_P, _I, _I, _I, _I, _P, _I, _I, _I, _F,
+                                   _P, _F, _P],
+    "mia_warp_disp": [_P, _I, _I, _I, _I, _P, _I, _I, _I, _F, _P, _P, _P,
+                      _P, _I, _P],
+    "mia_warp_affine_shear": [_P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I,
+                              _F, _P, _P]}
+
+
+def bind_warp_library(lib):
+    """Set the return and argument types of each WARP_ENTRIES entry point
+    that the loaded warp library ``lib`` has (a build of an older
+    csrc/warp.cu may lack some); returns ``lib``."""
+    for name, argtypes in WARP_ENTRIES.items():
+        entry = getattr(lib, name, None)
+        if entry is not None:
+            entry.restype = _I
+            entry.argtypes = argtypes
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def load_warp_library():
     """The warp kernels' ctypes handle, built on first use."""
     path, _ = build_library("warp")
-    lib = ctypes.CDLL(str(path))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mia_warp_coords.restype = i
-    lib.mia_warp_coords.argtypes = [p, i, i, i, i, p, p, p, i, i, i, f,
-                                    p, p, p, p, i, p]
-    lib.mia_warp_affine.restype = i
-    lib.mia_warp_affine.argtypes = [p, i, i, i, i, p, i, i, i, f, p, p]
-    lib.mia_warp_disp.restype = i
-    lib.mia_warp_disp.argtypes = [p, i, i, i, i, p, i, i, i, f, p, p, p, p,
-                                  i, p]
-    lib.mia_warp_affine_shear.restype = i
-    lib.mia_warp_affine_shear.argtypes = [p, i, i, i, i, i, i, p, i, i, i, f,
-                                          p, p]
-    return lib
+    return bind_warp_library(ctypes.CDLL(str(path)))
 
 
 @functools.lru_cache(maxsize=None)

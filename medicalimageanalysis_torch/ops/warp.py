@@ -7,7 +7,9 @@ Port of medicalimageanalysis_tpu/ops/pallas_warp.py. The TPU kernel
   optionally with the exact coordinate gradients from the same taps
   (rigid registration);
 - ``affine``: the coordinates come from 12 coefficients over the output
-  index, inside the kernel (reslice);
+  index, inside the kernel (reslice); a map whose off-diagonal
+  coefficients are 0 takes the kernel's separable entry
+  (:func:`affine_path`);
 - ``disp``: the coordinates are the output index plus a planar
   (3, Zo, Yo, Xo) voxel displacement, rows (x, y, z), optionally with
   the coordinate gradients (demons, DVF inversion and composition, the
@@ -49,6 +51,7 @@ import torch
 from torch import Tensor
 
 __all__ = ["LAUNCHES", "LAUNCH_SHAPES", "MAX_B", "affine_coords",
+           "affine_path",
            "affine_warp", "affine_warp_fused", "batch_chunks",
            "check_index_range", "affine_warp_oblique", "field_warp",
            "field_warp_disp", "field_warp_xla", "make_disp_sampler",
@@ -59,10 +62,13 @@ __all__ = ["LAUNCHES", "LAUNCH_SHAPES", "MAX_B", "affine_coords",
 
 # Kernel launches per operator; a run reads them to show that its main
 # path went through the kernels. Only the CUDA implementations add to them.
-LAUNCHES = {"warp_coords": 0, "warp_affine": 0, "warp_disp": 0,
-            "warp_affine_shear": 0}
+# The affine mode counts under the kernel entry it took (affine_path):
+# "warp_affine" (any map) or "warp_affine_axis" (zero off-diagonals).
+LAUNCHES = {"warp_coords": 0, "warp_affine": 0, "warp_affine_axis": 0,
+            "warp_disp": 0, "warp_affine_shear": 0}
 # The same launches by (operator, volumes B, gradients, output (Zo, Yo,
-# Xo)): a run weighs each shape's kernel time against its bound with them.
+# Xo), volume (Z, Y, X)): a run weighs each shape's kernel time against
+# its bound with them.
 LAUNCH_SHAPES = {}
 
 MAX_B = 4                 # volumes per launch (csrc/warp.cu kMaxB)
@@ -253,8 +259,24 @@ def _launch(kernel, vol, outs, want_grad, call):
             + [None] * (4 - len(outs))
         _raise_on(call(vol.data_ptr() + b0 * vstep, nb, ptr), kernel)
         LAUNCHES[kernel] += 1
-        key = (kernel, nb, bool(want_grad), shape)
+        key = (kernel, nb, bool(want_grad), shape, tuple(vol.shape[1:]))
         LAUNCH_SHAPES[key] = LAUNCH_SHAPES.get(key, 0) + 1
+
+
+# the six off-diagonal entries of the row-major 3 x 4 affine coefficients
+_OFF_DIAGONAL = [1, 2, 4, 6, 8, 9]
+
+
+def affine_path(coef):
+    """The kernel entry an ``affine`` launch at the 12 row-major
+    coefficients takes, by the name it counts under in LAUNCHES:
+    "warp_affine_axis" (``mia_warp_affine_axis``, the separable path)
+    where all six off-diagonal coefficients are 0.0 or -0.0 in float32,
+    as the kernel receives them; "warp_affine" (``mia_warp_affine``) for
+    every other map, NaN, inf and tiny non-zero off-diagonals included.
+    Both entries give the bits of :func:`warp_affine_plain`."""
+    off = np.asarray(coef, dtype=np.float32)[_OFF_DIAGONAL]
+    return "warp_affine" if off.any() else "warp_affine_axis"
 
 
 @_warp_coords_op.register_kernel("cuda")
@@ -301,10 +323,13 @@ def _warp_affine_cuda(vol, coef, out_shape, background):
     Zo, Yo, Xo = (int(s) for s in out_shape)
     out = torch.empty((B, Zo, Yo, Xo), dtype=torch.float32, device=dev)
     c12 = (ctypes.c_float * 12)(*[float(v) for v in coef])
+    kernel = affine_path(coef)
+    entry = lib.mia_warp_affine_axis if kernel == "warp_affine_axis" \
+        else lib.mia_warp_affine
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        _launch("warp_affine", vol, [out], False,
-                lambda v, nb, ptr: lib.mia_warp_affine(
+        _launch(kernel, vol, [out], False,
+                lambda v, nb, ptr: entry(
                     v, nb, Z, Y, X, c12, Zo, Yo, Xo, float(background),
                     ptr[0], stream))
     return out

@@ -13,7 +13,7 @@ version.
 
 The fixtures are the JAX function's, drawn in its order from
 ``np.random.default_rng(0)`` (and ``(7)`` for the raster star): the same
-shapes, backgrounds and tolerances. Three keys differ in what they pin:
+shapes, backgrounds and tolerances. Four keys differ in what they pin:
 
 - ``warp_affine_tz16``: the JAX key pins a TPU tile height the CUDA
   kernel does not have. Here it pins the kernel's one-float-at-a-time
@@ -21,6 +21,9 @@ shapes, backgrounds and tolerances. Three keys differ in what they pin:
   at the affine fixture's coordinates;
 - ``warp_coords_grads`` (the port's own): the ``coords`` mode with the
   fused coordinate gradients;
+- ``warp_affine_axis`` (the port's own): the ``affine`` mode at a x3
+  upsampling with zero off-diagonal coefficients, the kernel's separable
+  path (``ops/warp.affine_path``);
 - ``dvh_histogram_large`` (the port's own, ``fast=False`` only): a bin
   past 2^24 voxels, exact in the port's int64 counts where the JAX
   histogram counts in float32.
@@ -147,12 +150,13 @@ def validate_kernels(fast=True, device=None):
 
     Returns ``{"backend": str, "ok": bool, "checks": {name: bool},
     "detail": {name: str}}``: the JAX function's twelve keys and the
-    port's two (``warp_coords_grads``; ``dvh_histogram_large`` with
-    ``fast=False``). ``fast=True`` keeps the shapes small (about a
-    second on the card); ``fast=False`` adds the larger warp grid and the
-    large histogram bin. On the card each hand kernel is held bit-equal
-    to its plain version and to the golden within the JAX tolerance; a
-    kernel that does not build or launch raises. With ``device="cpu"``
+    port's three (``warp_coords_grads``, ``warp_affine_axis``;
+    ``dvh_histogram_large`` with ``fast=False``). ``fast=True`` keeps the
+    shapes small (about a second on the card); ``fast=False`` adds the
+    larger warp grid and the large histogram bin. On the card each hand
+    kernel is held bit-equal to its plain version and to the golden
+    within the JAX tolerance; a kernel that does not build or launch
+    raises. With ``device="cpu"``
     the plain versions are held to the goldens and no hand kernel runs.
     """
     from scipy import ndimage
@@ -252,6 +256,24 @@ def validate_kernels(fast=True, device=None):
         lambda: warp.warp_affine_plain(volm_t[None], coef, out_shape,
                                        -3001.0)[0],
         golden_a, _AFFINE_TOL)
+
+    # the separable path: a x3 upsampling, off-diagonals 0 (no draw from
+    # rng, so the JAX fixtures that follow keep their values)
+    A3 = np.diag([1 / 3, 1 / 3, 1 / 3, 1]).astype(np.float32)
+    A3[:3, 3] = [-0.5, 0.25, -0.25]
+    up_shape = tuple(3 * n - 2 for n in volm.shape)
+    coef3 = [float(v) for v in A3[:3].reshape(-1)]
+    c3 = [c.cpu().numpy() for c in warp.affine_coords(torch.as_tensor(A3),
+                                                      up_shape)]
+    kernel_check(
+        "warp_affine_axis",
+        lambda: warp.affine_warp_fused(volm_t, A3, -3001.0, up_shape),
+        lambda: warp.warp_affine_plain(volm_t[None], coef3, up_shape,
+                                       -3001.0)[0],
+        _trilinear_host(volm, *c3, -3001.0), _AFFINE_TOL,
+        f"; a x3 upsampling to {up_shape}, on the "
+        f"{warp.affine_path(coef3)} entry")
+    del c3
 
     # the one-float-at-a-time path at the affine fixture's coordinates:
     # odd Xo, and rows off an 8-byte boundary

@@ -194,6 +194,6 @@ def test_disp_wrapper_splits_batches_and_records_shapes(monkeypatch, B,
         assert a[14] == int(want_grad)
     assert twarp.LAUNCHES["warp_disp"] == len(chunks)
     assert twarp.LAUNCH_SHAPES == {
-        ("warp_disp", nb, want_grad, (2, 3, 5)): sum(
+        ("warp_disp", nb, want_grad, (2, 3, 5), (6, 7, 8)): sum(
             1 for _, m in chunks if m == nb) for _, nb in chunks}
 

@@ -1,5 +1,5 @@
 """``validate_kernels`` of the port on the CPU: with ``device="cpu"`` the
-plain versions pass every check of the JAX function and the port's two;
+plain versions pass every check of the JAX function and the port's three;
 without a card and without ``device`` it raises; and a plain version
 broken on purpose fails its own checks and no other."""
 
@@ -33,6 +33,7 @@ def test_cpu_passes_every_jax_check_and_the_ports_two():
     result = validate_kernels(fast=False, device="cpu")
     assert result["backend"] == "cpu"
     assert set(result["checks"]) == JAX_KEYS | {"warp_coords_grads",
+                                               "warp_affine_axis",
                                                "dvh_histogram_large"}
     assert result["ok"], result["detail"]
     assert set(result["detail"]) == set(result["checks"])
@@ -46,7 +47,9 @@ def test_cpu_passes_every_jax_check_and_the_ports_two():
 def test_fast_leaves_out_only_the_large_bin():
     result = validate_kernels(device="cpu")
     assert result["ok"], result["detail"]
-    assert set(result["checks"]) == JAX_KEYS | {"warp_coords_grads"}
+    assert set(result["checks"]) == JAX_KEYS | {"warp_coords_grads",
+                                               "warp_affine_axis"}
+    assert "the warp_affine_axis entry" in result["detail"]["warp_affine_axis"]
 
 
 def test_no_card_and_no_device_raises(monkeypatch):
@@ -70,7 +73,9 @@ def _shifted(fn):
     (lane_interp, "lane_interp_plain", {"lane_interp"}),
     (hist, "_hist_plain", {"dvh_histogram"}),
     (warp, "warp_disp_plain", {"warp_disp_mode", "warp_disp_vjp"}),
-], ids=["lane_interp", "hist", "warp_disp"])
+    (warp, "warp_affine_plain", {"warp_affine_mode", "warp_oblique_shear",
+                                 "warp_affine_axis"}),
+], ids=["lane_interp", "hist", "warp_disp", "warp_affine"])
 def test_a_broken_plain_version_fails_only_its_own_checks(monkeypatch,
                                                           module, name,
                                                           fails):

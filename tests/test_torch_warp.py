@@ -288,8 +288,8 @@ def test_coords_wrapper_splits_batches_and_records_shapes(
         assert (a0[13], a0[14], a0[15]) == (None, None, None)
     assert twarp.LAUNCHES["warp_coords"] == 2
     assert twarp.LAUNCH_SHAPES == {
-        ("warp_coords", 4, want_grad, (2, 3, 7)): 1,
-        ("warp_coords", 2, want_grad, (2, 3, 7)): 1}
+        ("warp_coords", 4, want_grad, (2, 3, 7), (3, 4, 5)): 1,
+        ("warp_coords", 2, want_grad, (2, 3, 7), (3, 4, 5)): 1}
 
 
 def test_affine_wrappers_refuse_volumes_beyond_int32(fake_warp_library):
@@ -299,7 +299,9 @@ def test_affine_wrappers_refuse_volumes_beyond_int32(fake_warp_library):
         twarp._warp_affine_cuda(vol, coef, [2048, 1024, 1024], 0.0)
     assert fake_warp_library.calls == []
     twarp._warp_affine_cuda(vol, coef, [3, 2, 2], 0.0)
-    assert twarp.LAUNCH_SHAPES == {("warp_affine", 1, False, (3, 2, 2)): 1}
+    # an identity map: the separable entry, counted under its name
+    assert twarp.LAUNCH_SHAPES == {
+        ("warp_affine_axis", 1, False, (3, 2, 2), (2, 2, 2)): 1}
 
 
 def test_build_compiles_warp_with_fmad_false(monkeypatch, tmp_path):
