@@ -396,8 +396,10 @@ def profile_device(fn, expect=()):
     them. Where they differ, ``events`` lists every event of the port's
     kernels, every device event and the runtime calls: name, device
     type, start (µs from the first event) and duration. The sleep
-    kernels that open the window (``spin_kernel``) are left out of every
-    figure: the device figures are ``fn``'s alone."""
+    kernels that open the window (``spin_kernel``) and the device-side
+    copies of the port's spans (:func:`is_range`, counted in
+    ``ranges_left_out``) are left out of every figure: the device
+    figures are ``fn``'s work alone."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     t_start = time.perf_counter()
@@ -419,9 +421,10 @@ def profile_device(fn, expect=()):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     counted = {k: v - before[k] for k, v in launch_counts().items()}
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and "spin_kernel" not in e.key]
+    on_device = [e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "spin_kernel" not in e.key]
+    events = [e for e in on_device if not is_range(e)]
     profiled = dict.fromkeys(counted, 0)
     names, kernel_ms = set(), dict.fromkeys(counted, 0.0)
     for e in events:
@@ -435,6 +438,8 @@ def profile_device(fn, expect=()):
     out = dict(expect=list(expect), profiled_wall_ms=wall_ms,
                profile_s=time.perf_counter() - t_start,
                device_events=sum(e.count for e in events),
+               ranges_left_out=sum(e.count for e in on_device
+                                   if is_range(e)),
                device_ms=device_ms, device_share=device_ms / wall_ms,
                profiled=profiled, wrapper_launches=counted,
                kernel_ms=kernel_ms, kernels=sorted(names),
@@ -451,6 +456,14 @@ def profile_device(fn, expect=()):
             or e.device_type == torch.autograd.DeviceType.CUDA
             or e.name.startswith(("cuda", "mia_torch::", "aten::copy_"))]
     return out
+
+
+def is_range(event):
+    """Whether a profiler event is a ``record_function`` range (the
+    port's ``mia.*`` spans): the profiler copies each range onto the
+    device's timeline, and such a copy is no device work."""
+    return getattr(event, "is_user_annotation", False) \
+        or event.key.startswith("mia.")
 
 
 def launch_counts():
@@ -1798,11 +1811,9 @@ def phase_deformable(folder, names, dev):
         known, ref.origin, ref.spacing, names["ref"], names["deformed"],
         name="known field", device=dev).create_image()["array"]
     del known
-    iters = 50
     demons = dict(
         seconds=demons_s, create_image_seconds=image_s,
         jacobian_seconds=jac_s, level_shapes=info["level_shapes"],
-        ms_per_iteration=[1e3 * s / iters for s in info["level_seconds"]],
         residual_ratio=ratio, residual_limit=RESIDUAL_LIMIT,
         floor_excess_limit=FLOOR_EXCESS,
         field_err_p95_limit_mm=FIELD_P95_LIMIT_MM,

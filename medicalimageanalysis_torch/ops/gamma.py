@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import default_device
+from ..telemetry import trace
 
 __all__ = ["gamma_index", "fine_grid_layout", "fine_grid_shape",
            "fine_to_ref_pixel_matrix", "upsample_to_fine"]
@@ -216,10 +217,11 @@ def gamma_index(ref_dose, eval_fine, spacing, dose_pct=3.0, dta_mm=3.0,
     device = eval_fine.device if isinstance(eval_fine, torch.Tensor) \
         else default_device()
     fine = torch.as_tensor(eval_fine, dtype=torch.float32, device=device)
-    gamma = _gamma_map(torch.as_tensor(ref, device=device), fine,
-                       torch.as_tensor(dd2, device=device),
-                       (s, r, offsets, dist2), dta_mm, cap,
-                       chunk).cpu().numpy()
+    with trace("mia.gamma.scan"):
+        gamma = _gamma_map(torch.as_tensor(ref, device=device), fine,
+                           torch.as_tensor(dd2, device=device),
+                           (s, r, offsets, dist2), dta_mm, cap,
+                           chunk).cpu().numpy()
 
     mask = ref >= (threshold_pct / 100.0) * norm_dose
     n = int(mask.sum())

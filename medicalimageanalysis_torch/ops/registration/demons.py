@@ -23,12 +23,11 @@ default did in the JAX package.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
 from ...device import as_f32, default_device, full_float32
+from ...telemetry import trace
 from ..filters import _gauss_kernel_matrix
 from ..resample import _separable_apply, separable_resample
 from ..warp import warp_disp
@@ -299,9 +298,10 @@ def demons_registration(fixed, moving, spacing_xyz=(1.0, 1.0, 1.0),
     field (see the JAX package's ``demons_registration``).
 
     device: where the iterations run (default: the card when present).
-    info: an optional dict that receives ``level_shapes`` and
-    ``level_seconds`` (each level ends in a device synchronisation when
-    it is given).
+    info: an optional dict that receives ``level_shapes``, the (Z, Y, X)
+    grid of each level. Nothing here waits for the device: a level's
+    time is read from a profiler trace, under its ``mia.demons.level``
+    span.
     """
     if forces not in ("ssd", "lncc"):
         raise ValueError(f"demons: forces must be 'ssd' or 'lncc', "
@@ -310,9 +310,10 @@ def demons_registration(fixed, moving, spacing_xyz=(1.0, 1.0, 1.0),
     if method not in METHODS:
         raise ValueError(f"demons: unknown method {method!r}")
     device = default_device() if device is None else torch.device(device)
-    fixed = as_f32(fixed, device)
-    moving = as_f32(moving, device)
-    sp = as_f32(spacing_xyz, device)
+    with trace("mia.demons.inputs"):
+        fixed = as_f32(fixed, device)
+        moving = as_f32(moving, device)
+        sp = as_f32(spacing_xyz, device)
     syn = method == "syn"
 
     if pyramid:
@@ -324,45 +325,44 @@ def demons_registration(fixed, moving, spacing_xyz=(1.0, 1.0, 1.0),
         pyramid = (1,)
     out_mm = None
     halves_mm = None                     # (u1_mm, u2_mm) for syn
-    shapes, seconds = [], []
+    shapes = []
     for factor in pyramid:
-        t0 = time.perf_counter()
-        if factor > 1:
-            f_l = _downsample_volume(fixed, factor)
-            m_l = _downsample_volume(moving, factor)
-        else:
-            f_l, m_l = fixed, moving
-        # physical voxel size grows with the factor
-        ratio = torch.tensor(
-            [fixed.shape[2] / f_l.shape[2], fixed.shape[1] / f_l.shape[1],
-             fixed.shape[0] / f_l.shape[0]], dtype=torch.float32,
-            device=device)
-        sp_l = sp * ratio
-        if syn:
-            u1_0 = u2_0 = None
-            if halves_mm is not None:
-                u1_0, u2_0 = [
-                    torch.movedim(_upsample_field(h, f_l.shape) / sp_l,
-                                  -1, 0).contiguous() for h in halves_mm]
-            halves_mm = _syn_core(
-                f_l, m_l, sp_l, float(std), float(step),
-                float(intensity_threshold), int(iterations), bool(smooth),
-                forces, int(lncc_radius), u1_0=u1_0, u2_0=u2_0)
-        else:
-            u0 = None
-            if out_mm is not None:
-                up = _upsample_field(out_mm, f_l.shape)
-                u0 = torch.movedim(up / sp_l, -1, 0).contiguous()
-            out_mm = _demons_core(
-                f_l, m_l, sp_l, float(std), float(step),
-                float(intensity_threshold), int(iterations), method,
-                bool(smooth), float(elastic_lambda), u0=u0, forces=forces,
-                lncc_radius=int(lncc_radius))
-        if info is not None:
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            shapes.append(tuple(f_l.shape))
-            seconds.append(time.perf_counter() - t0)
+        with trace("mia.demons.level"):
+            if factor > 1:
+                f_l = _downsample_volume(fixed, factor)
+                m_l = _downsample_volume(moving, factor)
+            else:
+                f_l, m_l = fixed, moving
+            # physical voxel size grows with the factor
+            ratio = torch.tensor(
+                [fixed.shape[2] / f_l.shape[2],
+                 fixed.shape[1] / f_l.shape[1],
+                 fixed.shape[0] / f_l.shape[0]], dtype=torch.float32,
+                device=device)
+            sp_l = sp * ratio
+            if syn:
+                u1_0 = u2_0 = None
+                if halves_mm is not None:
+                    u1_0, u2_0 = [
+                        torch.movedim(_upsample_field(h, f_l.shape) / sp_l,
+                                      -1, 0).contiguous()
+                        for h in halves_mm]
+                halves_mm = _syn_core(
+                    f_l, m_l, sp_l, float(std), float(step),
+                    float(intensity_threshold), int(iterations),
+                    bool(smooth), forces, int(lncc_radius), u1_0=u1_0,
+                    u2_0=u2_0)
+            else:
+                u0 = None
+                if out_mm is not None:
+                    up = _upsample_field(out_mm, f_l.shape)
+                    u0 = torch.movedim(up / sp_l, -1, 0).contiguous()
+                out_mm = _demons_core(
+                    f_l, m_l, sp_l, float(std), float(step),
+                    float(intensity_threshold), int(iterations), method,
+                    bool(smooth), float(elastic_lambda), u0=u0,
+                    forces=forces, lncc_radius=int(lncc_radius))
+        shapes.append(tuple(f_l.shape))
     if syn:
         # full map x -> phi2(phi1^{-1}(x)): with w = u1^{-1},
         # d = w + u2(x + w) = compose(u2, w); inverted once, at full size
@@ -373,5 +373,5 @@ def demons_registration(fixed, moving, spacing_xyz=(1.0, 1.0, 1.0),
         out = out_mm
     if info is not None:
         info["level_shapes"] = shapes
-        info["level_seconds"] = seconds
-    return out.cpu().numpy()
+    with trace("mia.demons.field_out"):
+        return out.cpu().numpy()

@@ -33,6 +33,7 @@ import torch
 
 from ..config import config
 from ..device import default_device, full_float32
+from ..telemetry import trace
 from . import geometry as geo
 from .lane_interp import shear_x
 from .warp import affine_warp_fused, make_warp_sampler, warp_coords_plain
@@ -223,8 +224,11 @@ def reslice_transform(volume, vol_matrix, vol_spacing, vol_origin,
     device = default_device() if device is None else device
     warp = affine_resample_shear if config.use_shear_warp \
         else affine_resample
-    arr = warp(volume, A, out_shape, background, device=device)
-    return {"array": arr.cpu().numpy(), "origin": lo,
+    with trace("mia.resample.warp"):
+        arr = warp(volume, A, out_shape, background, device=device)
+    with trace("mia.resample.out"):
+        array = arr.cpu().numpy()
+    return {"array": array, "origin": lo,
             "spacing": np.asarray(out_spacing, dtype=np.float64),
             "dimensions": np.asarray(out_dims)}
 

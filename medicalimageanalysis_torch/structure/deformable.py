@@ -51,6 +51,7 @@ from ..ops import geometry as geo
 from ..ops.registration.dvf import invert_dvf, sample_dvf_at_points
 from ..ops.resample import affine_resample, compose_pixel_matrix
 from ..ops.warp import affine_coords, field_warp, warp_disp
+from ..telemetry import trace
 from ..utils.mesh.trimesh import _SliceResult
 from .common import host_array, mesh_cut_pixels
 
@@ -304,6 +305,7 @@ class Deformable(object):
             return np.round(self.spacing[0] / self.spacing[2], 2)
         return np.round(self.spacing[1] / self.spacing[2], 2)
 
+    @trace("mia.deformable.setup")
     def _backend(self, modality_gradient, sigma):
         """Common setup: reference/moving volumes, the cross-modality
         correction, and the ROI mask union + blur (JAX
@@ -358,6 +360,7 @@ class Deformable(object):
                 mov_mask = mm if mov_mask is None else mov_mask + mm
         return ref_mask, mov_mask
 
+    @trace("mia.deformable.store")
     def _store_dvf(self, dvf_volume):
         """Store in point-displacement convention: invert the sampling
         field the solvers return."""
@@ -400,6 +403,7 @@ class Deformable(object):
             control_spacing=control_spacing, mesh_size=mesh_size,
             gradient=gradient, iterations=iterations, crop=crop))
 
+    @trace("mia.demons")
     def compute_demons(self, method=None, modality_gradient=True, sigma=2,
                        smooth=True, std=1, iterations=50,
                        intensity_threshold=0.001, step=2.0, crop=5,
@@ -407,8 +411,9 @@ class Deformable(object):
         """Demons variants: 'demons', 'diffeomorphic', 'syn', else the
         fast symmetric-forces demons; ``pyramid`` e.g. (4, 2, 1) for a
         coarse-to-fine schedule, ``forces`` 'ssd' or 'lncc'. Returns a
-        dict with the solver's per-level ``level_shapes`` and
-        ``level_seconds``."""
+        dict with the solver's per-level ``level_shapes``; the stages'
+        times are read from a profiler trace (the ``mia.demons`` span and
+        those inside it)."""
         backend = self._backend(modality_gradient, sigma)
         backend.resample()
         run = {"demons": backend.demons,
@@ -491,6 +496,7 @@ class Deformable(object):
                                background=config.background_fill,
                                device=self.device)
 
+    @trace("mia.deformable.create_image")
     def create_image(self, ratio=1):
         """Rigid resample -> invert DVF -> displacement warp onto the
         reference grid; returns a volume dict with a numpy array."""
@@ -498,7 +504,9 @@ class Deformable(object):
         warped = self._warp_resampled_to_reference(
             self._rigid_resampled_moving(), config.background_fill,
             ratio=ratio)
-        return {"array": warped.cpu().numpy(),
+        with trace("mia.deformable.image_out"):
+            array = warped.cpu().numpy()
+        return {"array": array,
                 "origin": np.asarray(ref.origin),
                 "spacing": np.asarray(ref.spacing),
                 "direction": np.asarray(ref.matrix)}

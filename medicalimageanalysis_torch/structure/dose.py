@@ -27,6 +27,7 @@ from ..dicom import generate_uid
 from ..ops.dvh import dvh_statistics
 from ..ops.hist import dose_below_histogram
 from ..ops.resample import affine_resample, compose_pixel_matrix
+from ..telemetry import trace
 from .common import (GeometryQueriesMixin, MetadataMixin, ViewOpsMixin,
                      host_array)
 from .image import Display as ImageDisplay
@@ -103,6 +104,7 @@ class Dose(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
             "grid_volume_cc": float(arr.size * voxel_cc),
         }
 
+    @trace("mia.dose.roi_dose")
     def _roi_dose(self, image_name, roi_name, device):
         """(the dose resampled onto the image grid and masked by the ROI,
         as a 1-d float32 tensor on ``device``; the image -> dose pixel
@@ -128,20 +130,22 @@ class Dose(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
         enter the array as background 0 Gy)."""
         values, A, mask = self._roi_dose(image_name, roi_name,
                                          default_device())
-        values = values.cpu().numpy()
+        with trace("mia.dose.values_out"):
+            values = values.cpu().numpy()
         if not return_coverage:
             return values
-        idx = np.argwhere(mask > 0)
-        if idx.size == 0:
-            return values, 1.0
-        hom = np.concatenate(
-            [idx[:, ::-1].astype(np.float64),
-             np.ones((idx.shape[0], 1))], axis=1)        # (N, 4) xyz1
-        dose_px = hom @ np.asarray(A, np.float64).T
-        dims_xyz = np.asarray(self.dimensions, np.float64)[::-1]
-        inside = np.all((dose_px[:, :3] >= -0.5)
-                        & (dose_px[:, :3] <= dims_xyz - 0.5), axis=1)
-        return values, float(inside.mean())
+        with trace("mia.dose.coverage"):
+            idx = np.argwhere(mask > 0)
+            if idx.size == 0:
+                return values, 1.0
+            hom = np.concatenate(
+                [idx[:, ::-1].astype(np.float64),
+                 np.ones((idx.shape[0], 1))], axis=1)        # (N, 4) xyz1
+            dose_px = hom @ np.asarray(A, np.float64).T
+            dims_xyz = np.asarray(self.dimensions, np.float64)[::-1]
+            inside = np.all((dose_px[:, :3] >= -0.5)
+                            & (dose_px[:, :3] <= dims_xyz - 0.5), axis=1)
+            return values, float(inside.mean())
 
     def compute_roi_dose_statistics(self, image_name, roi_name,
                                     max_dose=150, increment=5):
@@ -155,6 +159,7 @@ class Dose(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
                               roi_name=roi_name, max_dose=max_dose,
                               increment=increment)
 
+    @trace("mia.dose.dvh")
     def compute_dvh_curve(self, image_name, roi_name, n_bins=300,
                           max_dose=None):
         """Cumulative DVH curve: (dose_gy (n_bins,) float64,
@@ -182,6 +187,7 @@ class Dose(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
         from ..utils.dose import evaluate_constraints
         return evaluate_constraints(self, goals, image_name=image_name)
 
+    @trace("mia.gamma")
     def compute_gamma(self, dose_name, dose_pct=3.0, dta_mm=3.0,
                       local=False, norm_dose=None, threshold_pct=10.0,
                       subdiv=None, cap=2.0, chunk=None):
@@ -207,10 +213,11 @@ class Dose(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
         ).astype(np.float64) @ fine_to_ref_pixel_matrix(s, r)
         # array.shape, not self.dimensions: non-axial doses keep
         # dimensions in (x, y, z)-permuted order while the array is zyx
-        fine = affine_resample(
-            np.asarray(other.array, np.float32), A.astype(np.float32),
-            fine_grid_shape(tuple(np.asarray(self.array).shape), s, r),
-            background=float(_OUTSIDE), device=default_device())
+        with trace("mia.gamma.resample"):
+            fine = affine_resample(
+                np.asarray(other.array, np.float32), A.astype(np.float32),
+                fine_grid_shape(tuple(np.asarray(self.array).shape), s, r),
+                background=float(_OUTSIDE), device=default_device())
         return gamma_index(np.asarray(self.array, np.float32), fine,
                            self.spacing, dose_pct=dose_pct, dta_mm=dta_mm,
                            local=local, norm_dose=norm_dose,

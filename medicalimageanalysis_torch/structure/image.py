@@ -33,6 +33,7 @@ from ..config import config
 from ..data import Data
 from ..dicom import generate_uid
 from ..ops import geometry as geo
+from ..telemetry import trace
 from .common import (GeometryQueriesMixin, MetadataMixin, ViewOpsMixin,
                      host_array)
 from .poi import Poi
@@ -350,6 +351,7 @@ class Image(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
             object.__setattr__(roi, "_mask_cache_token", tok)
         return (tok, getattr(roi, "_mask_rev", 0))
 
+    @trace("mia.rois.cache")
     def _roi_mask_cache_get(self, name, roi, reconstruct=True):
         cache = getattr(self, "_roi_mask_cache", None)
         ent = cache.get(name) if cache else None
@@ -370,6 +372,7 @@ class Image(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
             out[z0:z1, y0:y1, x0:x1] = crop
         return out
 
+    @trace("mia.rois.cache")
     def _roi_mask_cache_put(self, name, roi, mask):
         if getattr(self, "_roi_mask_cache", None) is None:
             self._roi_mask_cache = {}
@@ -394,6 +397,7 @@ class Image(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
         self._roi_mask_cache[name] = (key, mask.shape, bbox, payload,
                                       packed)
 
+    @trace("mia.rois.masks")
     def compute_roi_masks(self, roi_names=None):
         """Every (or the named) contoured ROI rasterized in one pooled
         device pass per slicing plane (parallel/batch.rasterize_batch),
@@ -420,9 +424,10 @@ class Image(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
                     self._roi_mask_cache_put(n, roi, out[n])
             for plane in sorted(set(plane_of.values())):
                 group = [n for n in names if plane_of.get(n) == plane]
-                masks = rasterize_batch(
-                    [self.rois[n].contour_pixel for n in group], dims,
-                    plane=plane)
+                with trace("mia.rois.rasterize"):
+                    masks = rasterize_batch(
+                        [self.rois[n].contour_pixel for n in group], dims,
+                        plane=plane)
                 for i, n in enumerate(group):
                     out[n] = masks[i]
                     self._roi_mask_cache_put(n, self.rois[n], out[n])

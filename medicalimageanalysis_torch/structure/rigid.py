@@ -39,6 +39,7 @@ from ..data import Data
 from ..dicom import generate_uid
 from ..ops import geometry as geo
 from ..ops.resample import reslice_transform
+from ..telemetry import trace
 from ..utils.mesh.trimesh import _SliceResult
 from .common import mesh_cut_pixels
 
@@ -129,15 +130,17 @@ class Display(object):
             return _SliceResult(loops)
         return mesh_cut_pixels(self, loops, slice_plane)
 
+    @trace("mia.view.reslice")
     def compute_reslice(self):
         """Pull the transformed moving volume (reference
         structure/rigid.py:225-247, the device warp instead of VTK)."""
         out = self.rigid.create_image()
-        self.origin = np.asarray(out["origin"])
-        self.spacing = tuple(out["spacing"])
-        self.array = out["array"]
-        self.compute_offset()
-        self.compute_scroll_max()
+        with trace("mia.view.state"):
+            self.origin = np.asarray(out["origin"])
+            self.spacing = tuple(out["spacing"])
+            self.array = out["array"]
+            self.compute_offset()
+            self.compute_scroll_max()
 
     def compute_slice_location(self, position=None):
         """Derive the slice location from the counterpart image's display
@@ -326,6 +329,7 @@ class Rigid(object):
         rotation = Rotation.from_matrix(self.matrix[:3, :3])
         return rotation.as_euler(order, degrees=True)
 
+    @trace("mia.view.plane")
     def retrieve_array_plane(self, slice_plane, solo=None, position=None):
         if self.display.array is None:
             self.display.compute_reslice()

@@ -1,16 +1,29 @@
 """Tracing / logging / ingest reporting.
 
 Carried over from medicalimageanalysis_tpu/telemetry.py: a structured
-logger, profiler annotations around the pipeline stages (here
-``torch.profiler.record_function``, so the spans show in a
-``torch.profiler`` trace beside the CUDA kernels) and the IngestReport.
+logger, spans around the pipeline stages and the IngestReport.
+
+The spans' contract:
+
+- A span is a ``torch.profiler.record_function`` range and nothing
+  else. A ``torch.profiler`` trace holds it on the clock it gives the
+  device's activities, with the launches made inside it, so a reader of
+  the trace can put device time, copies and the device's idle gaps
+  under the span that issued them.
+- It is free when nothing records: :func:`trace` asks the profiler
+  whether it is on at every entry (one call well under a microsecond)
+  and, when it is off, enters no range at all.
+- There is no second clock: no host timer runs beside the range, and
+  no span waits for the device.
+
+Names follow ``mia.<layer>.<stage>``; ``PERF.md`` lists every span, its
+site and the benchmark metric that reads it.
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
-import time
 from dataclasses import dataclass, field
 
 import torch
@@ -23,13 +36,13 @@ __all__ = ["logger", "trace", "IngestReport"]
 
 @contextlib.contextmanager
 def trace(name):
-    """Wall-clock + profiler annotation around a region."""
-    t0 = time.perf_counter()
+    """A profiler range ``name`` around a region while a profiler
+    records; otherwise nothing."""
+    if not torch._C._autograd._profiler_enabled():
+        yield
+        return
     with torch.profiler.record_function(name):
-        try:
-            yield
-        finally:
-            logger.debug("%s took %.4fs", name, time.perf_counter() - t0)
+        yield
 
 
 @dataclass

@@ -21,6 +21,7 @@ from ...ops.registration.bspline import bspline_registration
 from ...ops.registration.demons import demons_registration
 from ...ops.registration.dvf import gradient_magnitude
 from ...ops.resample import affine_resample, compose_pixel_matrix
+from ...telemetry import trace
 
 __all__ = ["DeformableTorch", "DeformableJAX", "DeformableITK"]
 
@@ -36,15 +37,16 @@ def _volume(array, origin=(0, 0, 0), spacing=(1, 1, 1), direction=None):
 def _demons_method(method, doc):
     """A backend method running ``demons_registration`` with ``method``
     on the (cropped, masked) pair; ``info`` receives the per-level
-    shapes and seconds. ``elastic_lambda`` is read by 'biomechanical'
+    shapes. ``elastic_lambda`` is read by 'biomechanical'
     only, ``pyramid`` by every method."""
 
     def run(self, smooth=True, std=1, iterations=50,
             intensity_threshold=0.001, step=2.0, *, elastic_lambda=0.2,
             crop=5, pyramid=None, forces="ssd", lncc_radius=3, info=None):
-        if crop > 0:
-            self.mask_crop(margin=crop)
-        fixed, moving = self._masked_arrays()
+        with trace("mia.demons.inputs"):
+            if crop > 0:
+                self.mask_crop(margin=crop)
+            fixed, moving = self._masked_arrays()
         dvf = demons_registration(
             fixed, moving, self.reference_image["spacing"], method=method,
             smooth=smooth, std=std, iterations=iterations,
@@ -110,6 +112,7 @@ class DeformableTorch(object):
             lo, hi = blurred.min(), blurred.max()
             vol["array"] = (blurred - lo) / max(hi - lo, 1e-9)
 
+    @trace("mia.deformable.resample")
     def resample(self):
         """Resample the moving image/mask onto the reference grid."""
         def do(mov, ref):

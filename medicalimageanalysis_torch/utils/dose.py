@@ -20,6 +20,7 @@ import torch
 
 from ..data import Data
 from ..device import default_device
+from ..telemetry import trace
 
 __all__ = ["accumulate_dose", "register_dose_grid",
            "evaluate_constraints"]
@@ -228,6 +229,7 @@ def _metric_value(kind, qual, unit, dose_in_roi, voxel_cc):
     return float(covered.sum() * voxel_cc)
 
 
+@trace("mia.dose.goals")
 def evaluate_constraints(dose, goals, image_name=None):
     """Evaluate clinical DVH goals against a dose — BEYOND-PARITY
     (plan-QA tooling the reference lacks; its DVH support stops at the
@@ -294,19 +296,20 @@ def evaluate_constraints(dose, goals, image_name=None):
                 f"ROI {roi_name!r} lies inside the dose grid — the "
                 "uncovered voxels count as 0 Gy, so these goal results "
                 "are unreliable", UserWarning, stacklevel=2)
-        for goal in goal_list:
-            kind, qual, comparator, limit, unit = _parse_goal(goal)
-            if dose_in_roi.size == 0:
-                value, passed = float("nan"), False
-            else:
-                value = _metric_value(kind, qual, unit, dose_in_roi,
-                                      voxel_cc)
-                passed = bool(ops[comparator](value, limit))
-            results.append({
-                "roi": roi_name, "goal": goal,
-                "metric": f"{kind}{qual}", "value": value,
-                "comparator": comparator, "limit": limit,
-                "unit": unit, "passed": passed,
-                "dose_grid_coverage": coverage,
-            })
+        with trace("mia.dose.goal_values"):
+            for goal in goal_list:
+                kind, qual, comparator, limit, unit = _parse_goal(goal)
+                if dose_in_roi.size == 0:
+                    value, passed = float("nan"), False
+                else:
+                    value = _metric_value(kind, qual, unit, dose_in_roi,
+                                          voxel_cc)
+                    passed = bool(ops[comparator](value, limit))
+                results.append({
+                    "roi": roi_name, "goal": goal,
+                    "metric": f"{kind}{qual}", "value": value,
+                    "comparator": comparator, "limit": limit,
+                    "unit": unit, "passed": passed,
+                    "dose_grid_coverage": coverage,
+                })
     return results

@@ -74,15 +74,19 @@ def test_demons_matches_jax(method, forces):
 
 
 def test_pyramid_levels_and_info():
-    """A (4, 2, 1) pyramid against JAX, and the per-level report."""
+    """A (4, 2, 1) pyramid against JAX, the per-level report, and one
+    ``mia.demons.level`` span a level in a profiler trace of the call."""
     fixed, moving = pair()
     kw = dict(method="fast", iterations=6, pyramid=(4, 2))
     info = {}
-    out = tdemons.demons_registration(fixed, moving, SPACING, device="cpu",
-                                      info=info, **kw)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        out = tdemons.demons_registration(fixed, moving, SPACING,
+                                          device="cpu", info=info, **kw)
     ref = j_demons(fixed, moving, SPACING, **kw)
-    assert info["level_shapes"] == [(4, 6, 8), (8, 12, 16), SHAPE]
-    assert len(info["level_seconds"]) == 3
+    assert info == {"level_shapes": [(4, 6, 8), (8, 12, 16), SHAPE]}
+    levels = [e for e in prof.events() if e.name == "mia.demons.level"]
+    assert len(levels) == 3
     assert np.abs(out - ref).max() < 0.15
 
 
