@@ -4,7 +4,8 @@ Port of medicalimageanalysis_tpu/structure/dose.py: the ``Dose``
 constructor, the view operations (``ViewOpsMixin``, the off-axis reslice
 of the image Display), ``create_volume``, ``compute_dose_statistics``,
 ``compute_roi_dose_array`` (the dose grid resampled onto the image grid by
-the warp kernel's ``affine`` mode, background 0 Gy),
+the warp kernel's ``affine`` mode, background 0 Gy; its dose-grid coverage
+counted on the device from the uploaded mask),
 ``compute_roi_dose_statistics`` (ops/dvh), ``compute_dvh_curve``
 (ops/hist, the CUDA histogram kernel on the card), the plan-QA methods
 ``evaluate_constraints`` (utils/dose), ``compute_gamma`` (the evaluated
@@ -32,7 +33,44 @@ from .common import (GeometryQueriesMixin, MetadataMixin, ViewOpsMixin,
                      host_array)
 from .image import Display as ImageDisplay
 
-__all__ = ["Display", "Dose"]
+__all__ = ["COVERAGE", "Display", "Dose"]
+
+# dose-grid coverage evaluations by the path they took: "axis" where the
+# image -> dose pixel matrix has its six off-diagonal coefficients 0 (a
+# dose grid aligned with its image), "general" for every other map
+COVERAGE = {"axis": 0, "general": 0}
+
+_OFF_DIAGONAL = ~np.eye(3, dtype=bool)
+
+
+def _covered_count(inside, A, dims_xyz):
+    """How many voxels of the (Z, Y, X) bool tensor ``inside`` have their
+    centre inside the dose grid: each coordinate of the image -> dose
+    pixel map ``A``, in float64, within [-0.5, dim - 0.5] of ``dims_xyz``.
+    The products and sums are the reference's row of ``hom @ A.T``,
+    ``((x*A0 + y*A1) + z*A2) + A3``; one count leaves the device."""
+    A = np.asarray(A, np.float64)
+    hi = np.asarray(dims_xyz, np.float64) - 0.5
+    if not A[:3, :3][_OFF_DIAGONAL].any():
+        COVERAGE["axis"] += 1
+        # each coordinate depends on its own axis' index alone, and the
+        # zero terms add nothing: fl(fl(i*a) + b) per index, on the host
+        keep = []
+        for k, n in enumerate(inside.shape[::-1]):          # x, y, z
+            p = np.arange(n, dtype=np.float64) * A[k, k] + A[k, 3]
+            keep.append(torch.as_tensor((p >= -0.5) & (p <= hi[k]),
+                                        device=inside.device))
+        bx, by, bz = keep
+        return int((inside & bz[:, None, None] & by[None, :, None]
+                    & bx[None, None, :]).sum())
+    COVERAGE["general"] += 1
+    zyx = torch.nonzero(inside).to(torch.float64)
+    x, y, z = zyx[:, 2], zyx[:, 1], zyx[:, 0]
+    ok = torch.ones(zyx.shape[0], dtype=torch.bool, device=inside.device)
+    for row, top in zip(A[:3].tolist(), hi.tolist()):
+        p = x * row[0] + y * row[1] + z * row[2] + row[3]
+        ok &= (p >= -0.5) & (p <= top)
+    return int(ok.sum())
 
 
 class Display(ImageDisplay):
@@ -108,7 +146,7 @@ class Dose(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
     def _roi_dose(self, image_name, roi_name, device):
         """(the dose resampled onto the image grid and masked by the ROI,
         as a 1-d float32 tensor on ``device``; the image -> dose pixel
-        matrix; the mask)."""
+        matrix; the ROI's mask as a bool tensor on ``device``)."""
         image = Data.image[image_name]
         mask = image.rois[roi_name].compute_mask()
         A = compose_pixel_matrix(self.matrix, self.spacing, self.origin,
@@ -117,7 +155,7 @@ class Dose(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
                                     image.array.shape, background=0.0,
                                     device=device)
         inside = torch.as_tensor(mask, device=device) > 0
-        return resampled[inside], A, mask
+        return resampled[inside], A, inside
 
     def compute_roi_dose_array(self, image_name, roi_name,
                                return_coverage=False):
@@ -127,25 +165,22 @@ class Dose(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
 
         With ``return_coverage=True`` also returns the fraction of ROI
         voxels whose center falls inside the dose grid (voxels outside it
-        enter the array as background 0 Gy)."""
-        values, A, mask = self._roi_dose(image_name, roi_name,
-                                         default_device())
+        enter the array as background 0 Gy), in float64 as the reference
+        tests each voxel; the voxels are counted on the device from the
+        mask ``_roi_dose`` uploaded, and only the count comes back
+        (``COVERAGE`` counts the evaluations by path)."""
+        values, A, inside = self._roi_dose(image_name, roi_name,
+                                           default_device())
         with trace("mia.dose.values_out"):
             values = values.cpu().numpy()
         if not return_coverage:
             return values
         with trace("mia.dose.coverage"):
-            idx = np.argwhere(mask > 0)
-            if idx.size == 0:
+            if values.size == 0:
                 return values, 1.0
-            hom = np.concatenate(
-                [idx[:, ::-1].astype(np.float64),
-                 np.ones((idx.shape[0], 1))], axis=1)        # (N, 4) xyz1
-            dose_px = hom @ np.asarray(A, np.float64).T
-            dims_xyz = np.asarray(self.dimensions, np.float64)[::-1]
-            inside = np.all((dose_px[:, :3] >= -0.5)
-                            & (dose_px[:, :3] <= dims_xyz - 0.5), axis=1)
-            return values, float(inside.mean())
+            covered = _covered_count(
+                inside, A, np.asarray(self.dimensions)[::-1])
+            return values, covered / values.size
 
     def compute_roi_dose_statistics(self, image_name, roi_name,
                                     max_dose=150, increment=5):

@@ -19,6 +19,8 @@ Tolerances, stated per check:
   none does here).
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -30,6 +32,7 @@ from medicalimageanalysis_torch import interop
 from medicalimageanalysis_torch.data import Data as TData
 from medicalimageanalysis_torch.device import set_default_device
 from medicalimageanalysis_torch.ops import hist as thist
+from medicalimageanalysis_torch.structure import dose as tdose
 from medicalimageanalysis_tpu.data import Data as JData
 from medicalimageanalysis_tpu.structure.deformable import (
     Deformable as JDeformable)
@@ -202,6 +205,132 @@ def test_roi_dose_array_and_dvh_match_jax(tmp_path):
             np.testing.assert_array_equal(a, b)
         for a, b in zip(t_iso[level][1], pos):
             np.testing.assert_allclose(a, b, rtol=0, atol=1e-9)
+
+
+def _rot_z(deg):
+    c, s = np.cos(np.radians(deg)), np.sin(np.radians(deg))
+    return np.array([[c, s, 0.0], [-s, c, 0.0], [0.0, 0.0, 1.0]])
+
+
+# (dose grid (Z, Y, X) or None for the RTDOSE on file, its spacing, origin
+# and orientation matrix; the ROI; the COVERAGE entry it takes). The CT:
+# 1 x 1 x 2 mm, origin (-18, -16, -10), identity orientation.
+COVERAGE_CASES = {
+    # the file's 1.5 x 1.5 x 2.5 mm grid, offset, over the whole CT
+    "aligned": (None, None, None, None, "PTV", "axis"),
+    # slices z >= 3 of the CT only
+    "cropped": ((10, 32, 36), (1.0, 1.0, 2.0), (-18.0, -16.0, -4.0),
+                np.eye(3), "Ring", "axis"),
+    # 2 x 2 x 4 mm: the grid's faces fall on CT voxel centres, so the
+    # ROI's edge voxels map to exactly -0.5 and dim - 0.5 on each axis
+    "tie": ((2, 5, 5), (2.0, 2.0, 4.0), (-8.0, -5.0, -4.0), np.eye(3),
+            "Ring", "axis"),
+    # y runs the other way: a negative coefficient
+    "flipped": ((10, 20, 36), (1.0, 1.0, 2.0), (-18.0, 6.0, -10.0),
+                np.diag([1.0, -1.0, 1.0]), "Ring", "axis"),
+    # a zero z row: every CT slice maps to dose slice 0
+    "zero_axis": ((1, 32, 36), (1.0, 1.0, 2.0), (-18.0, -16.0, -10.0),
+                  np.diag([1.0, 1.0, 0.0]), "Ring", "axis"),
+    # 30 degrees about z, part of the ring outside: the general path
+    "rotated": ((10, 24, 24), (1.0, 1.0, 2.0), (-14.0, -10.0, -10.0),
+                _rot_z(30.0), "Ring", "general"),
+    # a quarter turn about z on the tie's faces: ties on the general path
+    "rotated_tie": ((2, 5, 5), (2.0, 2.0, 4.0), (1.0, -5.0, -4.0),
+                    np.array([[0.0, 1.0, 0.0], [-1.0, 0.0, 0.0],
+                              [0.0, 0.0, 1.0]]), "Ring", "general"),
+    # no voxel: 1.0, no evaluation
+    "empty": (None, None, None, None, "Star", None),
+}
+
+
+def _register_coverage_dose(case):
+    """The case's dose in both packages, under one name."""
+    from medicalimageanalysis_torch.utils.dose import (
+        register_dose_grid as t_register)
+    from medicalimageanalysis_tpu.utils.dose import (
+        register_dose_grid as j_register)
+
+    shape, spacing, origin, matrix, _, _ = COVERAGE_CASES[case]
+    if shape is None:
+        return TData.dose["RTDOSE 01"], JData.dose["RTDOSE 01"]
+    zz, yy, xx = np.mgrid[0:shape[0], 0:shape[1], 0:shape[2]]
+    array = (10.0 + zz + 0.5 * yy + 0.25 * xx).astype(np.float32)
+    like = types.SimpleNamespace(
+        plane="Axial", spacing=np.asarray(spacing), frame_ref="",
+        orientation=np.asarray(matrix, float)[:2].ravel(),
+        origin=np.asarray(origin), matrix=np.asarray(matrix, float))
+    return (t_register(array, like, name=case),
+            j_register(array, like, name=case))
+
+
+def _reference_dose_px(dose, roi):
+    """The float64 (N, 3) dose pixel coordinates of the ROI's voxels, as
+    the JAX package computes them."""
+    from medicalimageanalysis_torch.ops.resample import compose_pixel_matrix
+
+    img = TData.image["CT 01"]
+    A = compose_pixel_matrix(dose.matrix, dose.spacing, dose.origin,
+                             img.matrix, img.spacing, img.origin)
+    idx = np.argwhere(img.rois[roi].compute_mask() > 0)
+    hom = np.concatenate([idx[:, ::-1].astype(np.float64),
+                          np.ones((len(idx), 1))], axis=1)
+    return (hom @ np.asarray(A, np.float64).T)[:, :3]
+
+
+@pytest.mark.parametrize("case", list(COVERAGE_CASES))
+def test_roi_dose_coverage_matches_jax(tmp_path, case):
+    """The coverage counted on the device equals the JAX package's float64
+    test of every voxel exactly, on the path the map's off-diagonals
+    choose; the values stay the resample's."""
+    write_case(tmp_path)
+    read_both(tmp_path)
+    roi, path = COVERAGE_CASES[case][4:]
+    if case == "empty":
+        for img in (TData.image["CT 01"], JData.image["CT 01"]):
+            img.rois[roi].contour_pixel = []
+    td, jd = _register_coverage_dose(case)
+    if case in ("tie", "rotated_tie"):
+        px = _reference_dose_px(td, roi)
+        hi = np.asarray(td.dimensions, np.float64)[::-1] - 0.5
+        assert ((px == -0.5).any(axis=0) & (px == hi).any(axis=0)).all()
+    before = dict(tdose.COVERAGE)
+    tv, tcov = td.compute_roi_dose_array("CT 01", roi, return_coverage=True)
+    jv, jcov = jd.compute_roi_dose_array("CT 01", roi, return_coverage=True)
+    assert tv.dtype == np.float32 and tv.shape == jv.shape
+    np.testing.assert_allclose(tv, jv, rtol=0, atol=1e-4)
+    assert type(tcov) is float and tcov == jcov
+    if case in ("aligned", "zero_axis", "empty"):
+        assert tcov == 1.0
+    else:
+        assert 0.0 < tcov < 1.0
+    expected = dict(before)
+    if path:
+        expected[path] += 1
+    assert tdose.COVERAGE == expected
+    # without return_coverage: the same values, no coverage work
+    np.testing.assert_array_equal(
+        td.compute_roi_dose_array("CT 01", roi), tv)
+    assert tdose.COVERAGE == expected
+
+
+@pytest.mark.parametrize("case", ["cropped", "rotated"])
+def test_roi_dose_coverage_leaves_the_host_mask_alone(tmp_path, monkeypatch,
+                                                      case):
+    """With the mask on the default device the coverage needs no host pass
+    over it: the same number with ``np.argwhere`` refusing."""
+    write_case(tmp_path)
+    read_both(tmp_path)
+    td, jd = _register_coverage_dose(case)
+    roi = COVERAGE_CASES[case][4]
+    _, jcov = jd.compute_roi_dose_array("CT 01", roi, return_coverage=True)
+    TData.image["CT 01"].rois[roi].compute_mask()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("np.argwhere on the host")
+
+    monkeypatch.setattr(np, "argwhere", refuse)
+    _, tcov = td.compute_roi_dose_array("CT 01", roi, return_coverage=True)
+    assert tcov == jcov
 
 
 def test_dvh_batch_agrees_with_per_roi_statistics(tmp_path):
