@@ -123,76 +123,99 @@ def _operators(shape, std_vox, lncc_radius, forces, device):
     return gauss, (box, cnt)
 
 
-@torch.no_grad()
-def _demons_core(fixed, moving, sp, std_vox, step, intensity_threshold,
-                 iterations, method, smooth, elastic_lambda=0.2, u0=None,
-                 forces="ssd", lncc_radius=3):
-    """One level: returns the (Z, Y, X, 3) mm field.
+class _Demons:
+    """One level of a demons solve, a step at a time: the set-up once,
+    then each :meth:`step` one iteration u -> u_new, and
+    :meth:`field_mm` the (Z, Y, X, 3) mm field. ``_demons_core`` runs
+    the steps of one solve one after another; ``parallel.batch.
+    demons_batch`` runs several solves' steps in lockstep, each on its own
+    tensors' device. Nothing here waits for the device.
 
     The loop holds the field planar (3, Z, Y, X) in voxels and warps
     through the ``disp`` mode. sp (and the update math) stays in
     (x, y, z) component order along the leading axis."""
-    grad_f = _spatial_gradient_planar(fixed, sp)
-    K = torch.mean(sp) ** 2
-    spc = sp[:, None, None, None]
-    (mz, my, mx), lncc = _operators(fixed.shape, std_vox, lncc_radius,
-                                    forces, fixed.device)
 
-    # the symmetric variants (and LNCC, whose force rides the moving
-    # gradient) warp the moving image AND its gradient every iteration:
-    # one launch for all four, sharing the coordinates
-    symmetric = method in ("fast", "diffeomorphic", "biomechanical")
-    if symmetric or forces == "lncc":
-        warp_stack = torch.cat([moving[None],
-                                _spatial_gradient_planar(moving, sp)])
-    else:
-        warp_stack = moving[None].contiguous()
+    @torch.no_grad()
+    def __init__(self, fixed, moving, sp, std_vox, step,
+                 intensity_threshold, method, smooth, elastic_lambda=0.2,
+                 u0=None, forces="ssd", lncc_radius=3):
+        self.fixed, self.sp = fixed, sp
+        self.peak, self.threshold = step, intensity_threshold
+        self.method, self.smooth, self.forces = method, smooth, forces
+        self.elastic_lambda = elastic_lambda
+        self.grad_f = _spatial_gradient_planar(fixed, sp)
+        self.K = torch.mean(sp) ** 2
+        self.spc = sp[:, None, None, None]
+        self.gauss, lncc = _operators(fixed.shape, std_vox, lncc_radius,
+                                      forces, fixed.device)
 
-    if lncc is not None:
-        (lz, ly, lx), cnt = lncc
-        # GLOBAL CENTERING is load-bearing numerics: LNCC is invariant
-        # to a constant shift, and centering removes the E[x^2] - E[x]^2
-        # cancellation on large raw intensities
-        f_cent = fixed - torch.mean(fixed)
-        m_shift = torch.mean(moving)
-        i_f, var_f = _lncc_moments(f_cent, lz, ly, lx, cnt)
-        mu_f = f_cent - i_f
-        v_eps = 1e-5 * torch.clamp(torch.mean(var_f), min=1e-12)
+        # the symmetric variants (and LNCC, whose force rides the moving
+        # gradient) warp the moving image AND its gradient every
+        # iteration: one launch for all four, sharing the coordinates
+        self.symmetric = method in ("fast", "diffeomorphic", "biomechanical")
+        if self.symmetric or forces == "lncc":
+            self.warp_stack = torch.cat([moving[None],
+                                         _spatial_gradient_planar(moving,
+                                                                  sp)])
+        else:
+            self.warp_stack = moving[None].contiguous()
 
-    u = torch.zeros((3,) + tuple(fixed.shape), dtype=torch.float32,
-                    device=fixed.device) if u0 is None else u0
-    for _ in range(int(iterations)):
-        w = warp_disp(warp_stack, u, 0.0)
+        if lncc is not None:
+            (lz, ly, lx), cnt = lncc
+            self.box = (lz, ly, lx, cnt)
+            # GLOBAL CENTERING is load-bearing numerics: LNCC is invariant
+            # to a constant shift, and centering removes the E[x^2] -
+            # E[x]^2 cancellation on large raw intensities
+            self.f_cent = fixed - torch.mean(fixed)
+            self.m_shift = torch.mean(moving)
+            self.i_f, self.var_f = _lncc_moments(self.f_cent, lz, ly, lx,
+                                                 cnt)
+            self.mu_f = self.f_cent - self.i_f
+            self.v_eps = 1e-5 * torch.clamp(torch.mean(self.var_f),
+                                            min=1e-12)
+
+        self.u = torch.zeros((3,) + tuple(fixed.shape), dtype=torch.float32,
+                             device=fixed.device) if u0 is None else u0
+
+    @torch.no_grad()
+    def step(self):
+        """One iteration: the field u -> u_new."""
+        u, method, forces = self.u, self.method, self.forces
+        mz, my, mx = self.gauss
+        w = warp_disp(self.warp_stack, u, 0.0)
         warped = w[0]
         if forces == "lncc":
             # the CC force differentiates wrt the warped moving image:
             # its own gradient is the only correct carrier
             g = w[1:4]
-        elif symmetric:
-            g = 0.5 * (grad_f + w[1:4])
+        elif self.symmetric:
+            g = 0.5 * (self.grad_f + w[1:4])
         else:
-            g = grad_f
+            g = self.grad_f
         if forces == "lncc":
-            w_cent = warped - m_shift
+            lz, ly, lx, cnt = self.box
+            w_cent = warped - self.m_shift
             i_m, var_m = _lncc_moments(w_cent, lz, ly, lx, cnt)
             mu_m = w_cent - i_m
-            cross = _box_sum(f_cent * w_cent, lz, ly, lx) / cnt \
-                - mu_f * mu_m
-            upd_mm = _lncc_force(i_f, var_f, i_m, var_m, cross, g, v_eps)
+            cross = _box_sum(self.f_cent * w_cent, lz, ly, lx) / cnt \
+                - self.mu_f * mu_m
+            upd_mm = _lncc_force(self.i_f, self.var_f, i_m, var_m, cross, g,
+                                 self.v_eps)
             # smoothing before the peak normalisation (ANTs' update-field
             # smoothing), then normalise the peak update to `step` mm
-            upd_mm = _normalize(_smooth_field(upd_mm, mz, my, mx), step,
-                                False)
+            upd_mm = _normalize(_smooth_field(upd_mm, mz, my, mx),
+                                self.peak, False)
         else:
-            upd_mm = _thirion(fixed - warped, g, K, intensity_threshold)
-            if symmetric:
-                upd_mm = _normalize(upd_mm, step, True)
-        upd_vox = upd_mm / spc
+            upd_mm = _thirion(self.fixed - warped, g, self.K,
+                              self.threshold)
+            if self.symmetric:
+                upd_mm = _normalize(upd_mm, self.peak, True)
+        upd_vox = upd_mm / self.spc
         if method == "diffeomorphic":
             u_new = _compose_planar(u, _exp_field(upd_vox))
         else:
             u_new = u + upd_vox
-        if smooth:
+        if self.smooth:
             u_new = _smooth_field(u_new, mz, my, mx)
         if method == "biomechanical":
             # linear-elastic relaxation: descent on 1/2 (div u)^2 ADDS
@@ -200,12 +223,28 @@ def _demons_core(fixed, moving, sp, std_vox, step, intensity_threshold,
             div = (torch.gradient(u_new[0], dim=2)[0]
                    + torch.gradient(u_new[1], dim=1)[0]
                    + torch.gradient(u_new[2], dim=0)[0])
-            u_new = u_new + elastic_lambda * torch.stack(
+            u_new = u_new + self.elastic_lambda * torch.stack(
                 [torch.gradient(div, dim=2)[0],
                  torch.gradient(div, dim=1)[0],
                  torch.gradient(div, dim=0)[0]])
-        u = u_new
-    return torch.movedim(u, 0, -1) * sp               # voxels -> mm
+        self.u = u_new
+
+    def field_mm(self):
+        """The (Z, Y, X, 3) field in mm."""
+        return torch.movedim(self.u, 0, -1) * self.sp        # voxels -> mm
+
+
+@torch.no_grad()
+def _demons_core(fixed, moving, sp, std_vox, step, intensity_threshold,
+                 iterations, method, smooth, elastic_lambda=0.2, u0=None,
+                 forces="ssd", lncc_radius=3):
+    """One level: ``iterations`` steps of one :class:`_Demons`; returns
+    the (Z, Y, X, 3) mm field."""
+    solve = _Demons(fixed, moving, sp, std_vox, step, intensity_threshold,
+                    method, smooth, elastic_lambda, u0, forces, lncc_radius)
+    for _ in range(int(iterations)):
+        solve.step()
+    return solve.field_mm()
 
 
 @torch.no_grad()

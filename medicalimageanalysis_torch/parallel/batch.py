@@ -22,9 +22,11 @@ Port of medicalimageanalysis_tpu/parallel/batch.py:
   (ops/gamma).
 - ``rasterize_batch`` (:667-735): every contour of B ROIs in one pooled
   pass (ops/rasterize);
-- ``demons_batch`` (:144-221): B deformable pairs one after another, each
-  the single-pair ``_demons_core`` / ``_syn_core`` (the ``disp`` mode on
-  the card), SyN assembled by ``invert_dvf`` / ``compose_dvf``;
+- ``demons_batch`` (:144-221): B deformable pairs, each the single-level
+  solve of ``_demons_core`` (the ``disp`` mode on the card), the data
+  rows stepped in lockstep (``_Demons``: every row's iteration i before
+  any row's i + 1, ``LOCKSTEP`` counts the rounds); SyN one pair after
+  another (``_syn_core``), assembled by ``invert_dvf`` / ``compose_dvf``;
 - ``radiomics_batch`` (:489-585): the texture matrices of B (volume, ROI)
   pairs counted in one batched pass on the device (ops/radiomics), the
   formulas per pair on the host;
@@ -37,7 +39,10 @@ With ``mesh`` (parallel/mesh.make_mesh) the batch splits over the mesh's
 each data row runs the function's ``mesh=None`` body on its slice of the
 batch, on the device of the row's first ``space`` entry, the rows one
 after another from this thread (``_data_sharded_call``), and the rows'
-results merge in batch order, across processes too. The JAX package
+results merge in batch order, across processes too. ``demons_batch``
+steps its rows in lockstep instead, a pair of each at a time, each on
+its own device, so that the cards of the data axis work at once. The
+JAX package
 replicates each row over ``space``; the port computes it once, with the
 same result. The return types are those of ``mesh=None``.
 """
@@ -50,11 +55,18 @@ import torch
 from ..device import default_device, full_float32
 from ..ops.filters import _gauss_kernel_matrix
 from ..ops.resample import _interp_matrix
+from ..telemetry import trace
 
-__all__ = ["compare_masks_batch", "demons_batch", "dvh_batch",
+__all__ = ["LOCKSTEP", "compare_masks_batch", "demons_batch", "dvh_batch",
            "gamma_batch", "make_preprocess_fn", "make_registration_step",
            "n4_batch", "preprocess_batch", "radiomics_batch",
            "rasterize_batch"]
+
+# demons_batch's lockstep, as it ran, summed over calls: "rows", the
+# solves stepped together (the data rows a call held); "rounds", the
+# rounds, each one iteration of every row's pair. B pairs run one after
+# another count one row and B x iterations rounds.
+LOCKSTEP = {"rows": 0, "rounds": 0}
 
 
 def make_preprocess_fn(in_shape, out_shape, ffs_op="ax_rot2",
@@ -131,17 +143,12 @@ def preprocess_batch(raw, slopes, intercepts, out_shape=(64, 256, 256),
                               device=device))
 
 
-def _data_sharded_call(name, mesh, body, arrays):
-    """Run a cohort function over the mesh's 'data' axis: check that
-    ``arrays`` share their batch size B and that B divides by the axis,
-    then call ``body(*row_slices, device=...)`` once
-    for each data row this process holds, on the row's slices of
-    ``arrays`` (sliced on the host, or from the tensors given: the body
-    uploads its own) and on the device of the row's first 'space' entry;
-    the rows' results merge in batch order (mesh._merge), across
-    processes too (mesh.gather_blocks)."""
-    from .mesh import _merge, gather_blocks
-
+def _data_rows(name, mesh, arrays):
+    """[(row, device, the row's slices of ``arrays``)] for each data row
+    this process holds, after checking that ``arrays`` share their batch
+    size B and that B divides by the mesh's 'data' axis. The slices are
+    taken on the host, or from the tensors given; the device is the row's
+    first 'space' entry."""
     n_data = mesh.shape["data"]
     B = len(arrays[0])
     if any(len(a) != B for a in arrays):
@@ -151,13 +158,29 @@ def _data_sharded_call(name, mesh, body, arrays):
         raise ValueError(f"{name}: batch {B} not divisible by the "
                          f"'data' axis ({n_data})")
     rows = B // n_data
-    results = {}
-    for r in mesh.local_rows():
-        part = slice(r * rows, (r + 1) * rows)
-        results[(r, 0)] = body(*[a[part] for a in arrays],
-                               device=mesh.devices[r, 0])
+    return [(r, mesh.devices[r, 0],
+             [a[r * rows:(r + 1) * rows] for a in arrays])
+            for r in mesh.local_rows()]
+
+
+def _merge_rows(mesh, results):
+    """{(row, 0): result} of this process's data rows -> one result in
+    batch order (mesh._merge), across processes too
+    (mesh.gather_blocks)."""
+    from .mesh import _merge, gather_blocks
+
     everyone = gather_blocks(mesh, results)
-    return _merge([everyone[(r, 0)] for r in range(n_data)])
+    return _merge([everyone[(r, 0)] for r in range(mesh.shape["data"])])
+
+
+def _data_sharded_call(name, mesh, body, arrays):
+    """Run a cohort function over the mesh's 'data' axis: call
+    ``body(*row_slices, device=...)`` for each data row this process holds
+    (:func:`_data_rows`), the rows one after another, and merge the rows'
+    results (:func:`_merge_rows`). The body uploads its own slices."""
+    return _merge_rows(mesh, {(r, 0): body(*part, device=dev)
+                              for r, dev, part in _data_rows(name, mesh,
+                                                             arrays)})
 
 
 def make_registration_step(vol_shape, lr=0.05, stride=2, device=None):
@@ -418,14 +441,23 @@ def demons_batch(fixed_batch, moving_batch, spacing_xyz=(1.0, 1.0, 1.0),
                  intensity_threshold=0.001, smooth=True, mesh=None,
                  forces="ssd", lncc_radius=3, device=None):
     """Deformable registration of B (fixed, moving) pairs (B, Z, Y, X) on
-    ``device`` (default: ``default_device()``), one pair after another,
-    each the single-level solve of ``demons_registration`` (one ``disp``
-    launch per iteration on the card). method='syn' assembles each
-    u2 o u1^{-1} through ``invert_dvf`` / ``compose_dvf``. Returns the
-    (B, Z, Y, X, 3) float32 numpy DVFs in mm."""
+    ``device`` (default: ``default_device()``), or with ``mesh`` on the
+    device of each pair's data row. Each pair is the single-level solve
+    of ``demons_registration`` (one ``disp`` launch per iteration on the
+    card). Returns the (B, Z, Y, X, 3) float32 numpy DVFs in mm.
+
+    The pairs run by position within their data row: pair j of every
+    row is cast and uploaded to the row's device and set up (``_Demons``),
+    then the rows' solves run in lockstep from this thread, round i
+    issuing iteration i of every row's pair j, each on its own device, so
+    that the cards of a mesh work at once; then every card's field comes
+    to the host, and pair j + 1 starts. So each device holds one solve at
+    a time, and with no mesh the pairs run one after another. The rounds
+    give the bits of one pair after another. method='syn' runs its pairs
+    one after another, each u2 o u1^{-1} assembled through
+    ``invert_dvf`` / ``compose_dvf``."""
     from ..device import as_f32
-    from ..ops.registration.demons import _demons_core, _syn_core
-    from ..ops.registration.dvf import compose_dvf, invert_dvf
+    from ..ops.registration.demons import _Demons
 
     if forces not in ("ssd", "lncc"):
         raise ValueError(f"demons_batch: forces must be 'ssd' or "
@@ -434,13 +466,92 @@ def demons_batch(fixed_batch, moving_batch, spacing_xyz=(1.0, 1.0, 1.0),
     if method not in ("demons", "fast", "diffeomorphic",
                       "biomechanical", "syn"):
         raise ValueError(f"demons_batch: unknown method {method!r}")
+    if method == "syn":
+        return _syn_batch(fixed_batch, moving_batch, spacing_xyz,
+                          iterations, std, step, intensity_threshold, smooth,
+                          mesh, forces, lncc_radius, device)
+    if mesh is None:
+        rows = [(0, default_device() if device is None
+                 else torch.device(device), [fixed_batch, moving_batch])]
+    else:
+        rows = _data_rows("demons_batch", mesh, [fixed_batch, moving_batch])
+
+    def lockstep(j):
+        """Pair j of every row, solved in lockstep: the fields, one a
+        row, on the rows' devices."""
+        solves = []
+        for _, dev, (fixed, moving) in rows:
+            with trace("mia.batch.inputs"):
+                # up in the stored dtype, cast on the device: an int16
+                # series crosses the bus at half the bytes of its float32
+                # cast, and the host casts nothing
+                solves.append(_Demons(
+                    torch.as_tensor(fixed[j], device=dev).to(torch.float32),
+                    torch.as_tensor(moving[j], device=dev).to(torch.float32),
+                    as_f32(spacing_xyz, dev), float(std), float(step),
+                    float(intensity_threshold), method, bool(smooth),
+                    forces=forces, lncc_radius=int(lncc_radius)))
+        with trace("mia.batch.lockstep"):
+            for _ in range(int(iterations)):
+                for s in solves:
+                    s.step()
+            return [s.field_mm() for s in solves]
+
+    with trace("mia.batch.demons"):
+        per_row = len(rows[0][2][0]) if rows else 0
+        out = np.empty((len(rows) * per_row,)
+                       + tuple(np.shape(fixed_batch)[1:]) + (3,), np.float32)
+        for j in range(per_row):
+            fields = lockstep(j)
+            with trace("mia.batch.fields_out"):
+                _to_host(fields, [out[k * per_row + j]
+                                  for k in range(len(rows))])
+            del fields          # off the cards before the next pair's set-up
+    # a process that holds no data row runs no round
+    LOCKSTEP["rows"] += len(rows) if per_row else 0
+    LOCKSTEP["rounds"] += int(iterations) * per_row
+    if mesh is None or not mesh.multiprocess:
+        return out                  # every row is here, in batch order
+    return _merge_rows(mesh, {(r, 0): out[k * per_row:(k + 1) * per_row]
+                              for k, (r, _, _) in enumerate(rows)})
+
+
+def _to_host(fields, outs):
+    """Copy each device tensor of ``fields`` into the host array of
+    ``outs`` beside it. A card's field goes first into a pinned staging
+    tensor, every card's copy issued before any is waited on, so that the
+    cards copy at once and at the bus's pinned rate; the caller gets
+    pageable memory, and the staging returns to PyTorch's pinned cache
+    (one field a card, reused by the next copy)."""
+    staged = []
+    for f, o in zip(fields, outs):
+        if f.is_cuda:
+            s = torch.empty(f.shape, dtype=f.dtype, pin_memory=True)
+            s.copy_(f, non_blocking=True)
+            staged.append((s, f.device, o))
+        else:
+            torch.from_numpy(o).copy_(f)
+    for s, dev, o in staged:
+        torch.cuda.current_stream(dev).synchronize()
+        torch.from_numpy(o).copy_(s)
+
+
+def _syn_batch(fixed_batch, moving_batch, spacing_xyz, iterations, std,
+               step, intensity_threshold, smooth, mesh, forces, lncc_radius,
+               device):
+    """:func:`demons_batch` of method 'syn': the pairs one after another,
+    and with ``mesh`` the data rows one after another."""
+    from ..device import as_f32
+    from ..ops.registration.demons import _syn_core
+    from ..ops.registration.dvf import compose_dvf, invert_dvf
+
     if mesh is not None:
         return _data_sharded_call(
             "demons_batch", mesh,
-            lambda f, m, device: demons_batch(
-                f, m, spacing_xyz, method, iterations, std, step,
-                intensity_threshold, smooth, forces=forces,
-                lncc_radius=lncc_radius, device=device),
+            lambda f, m, device: _syn_batch(
+                f, m, spacing_xyz, iterations, std, step,
+                intensity_threshold, smooth, None, forces, lncc_radius,
+                device),
             [fixed_batch, moving_batch])
     device = default_device() if device is None else torch.device(device)
     fixed = as_f32(fixed_batch, device)
@@ -448,17 +559,11 @@ def demons_batch(fixed_batch, moving_batch, spacing_xyz=(1.0, 1.0, 1.0),
     sp = as_f32(spacing_xyz, device)
     outs = []
     for f, m in zip(fixed, moving):
-        if method == "syn":
-            u1, u2 = _syn_core(f, m, sp, float(std), float(step),
-                               float(intensity_threshold), int(iterations),
-                               bool(smooth), forces, int(lncc_radius))
-            with torch.no_grad():
-                outs.append(compose_dvf(u2, invert_dvf(u1, sp), sp))
-        else:
-            outs.append(_demons_core(
-                f, m, sp, float(std), float(step),
-                float(intensity_threshold), int(iterations), method,
-                bool(smooth), forces=forces, lncc_radius=int(lncc_radius)))
+        u1, u2 = _syn_core(f, m, sp, float(std), float(step),
+                           float(intensity_threshold), int(iterations),
+                           bool(smooth), forces, int(lncc_radius))
+        with torch.no_grad():
+            outs.append(compose_dvf(u2, invert_dvf(u1, sp), sp))
     return torch.stack(outs).cpu().numpy()
 
 

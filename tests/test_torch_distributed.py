@@ -20,6 +20,10 @@ warning) all the same. The CPU tensors go through gloo whether or not
 the host has a card. Each worker asserts that neither jax nor the JAX
 package was imported. A hang fails the test at the timeout (the workers
 are killed) instead of stalling the run.
+
+A second pair of workers runs ``demons_batch`` over four data rows, two
+in each process: each steps its own rows in lockstep, and both get the
+four fields in batch order, equal to ``mesh=None``'s.
 """
 
 import os
@@ -153,7 +157,56 @@ def _free_port():
     return port
 
 
-def test_two_process_cohort_and_sharded_demons():
+_BATCH_WORKER = r"""
+import os, sys
+import numpy as np
+import torch
+
+pid = int(sys.argv[1])
+os.environ["MIA_COORDINATOR"] = f"localhost:{sys.argv[2]}"
+torch.set_num_threads(1)
+
+from medicalimageanalysis_torch.device import set_default_device
+set_default_device("cpu")
+from medicalimageanalysis_torch.parallel.batch import LOCKSTEP, demons_batch
+from medicalimageanalysis_torch.parallel.mesh import (
+    initialize_distributed, make_mesh)
+assert initialize_distributed(num_processes=2, process_id=pid)
+import torch.distributed as dist
+
+# four pairs over four data rows, two in each process: each process steps
+# its own two rows in lockstep, and both get the four fields in batch
+# order, equal to mesh=None's
+mesh = make_mesh(4, devices=["cpu"] * 2)
+assert [int(r) for r in mesh.ranks[:, 0]] == [0, 0, 1, 1]
+rng = np.random.default_rng(3)
+zz, yy, xx = np.mgrid[0:8, 0:12, 0:10].astype(np.float32)
+blob = 1000 * np.exp(-(((zz - 4) / 2.5) ** 2 + ((yy - 6) / 3) ** 2
+                       + ((xx - 5) / 3) ** 2))
+fixed = np.stack([blob] * 4).astype(np.int16)
+moving = np.stack([np.roll(blob, k % 3 - 1, axis=k % 3) for k in range(4)]
+                  ).astype(np.int16)
+got = demons_batch(fixed, moving, (1.2, 1.1, 2.0), iterations=3, mesh=mesh)
+assert LOCKSTEP == {"rows": 2, "rounds": 3}, LOCKSTEP
+want = demons_batch(fixed, moving, (1.2, 1.1, 2.0), iterations=3)
+assert got.shape == want.shape == (4, 8, 12, 10, 3), got.shape
+assert np.array_equal(got, want), pid
+# one data row whose 'space' entries sit in both processes: the first
+# process steps all four pairs, the second none, and both get the fields
+row = make_mesh(2, space=2, devices=["cpu"])
+got = demons_batch(fixed, moving, (1.2, 1.1, 2.0), iterations=3, mesh=row)
+assert np.array_equal(got, want), pid
+# (mesh=None's four pairs above counted too: one row of four pairs)
+assert LOCKSTEP == ({"rows": 4, "rounds": 27} if pid == 0
+                    else {"rows": 3, "rounds": 15}), (pid, LOCKSTEP)
+dist.destroy_process_group()
+print(f"worker {pid} OK")
+"""
+
+
+def _run_workers(script):
+    """Start two workers of ``script`` (argv: process id, port) and
+    return their (return code, output)."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     port = _free_port()
     env = dict(os.environ)
@@ -161,7 +214,7 @@ def test_two_process_cohort_and_sharded_demons():
     env.pop("MIA_COORDINATOR", None)
     with tempfile.NamedTemporaryFile("w", suffix=".py",
                                      delete=False) as f:
-        f.write(_WORKER)
+        f.write(script)
         worker = f.name
     procs = [subprocess.Popen(
         [sys.executable, worker, str(i), str(port)], env=env, cwd=repo,
@@ -178,6 +231,16 @@ def test_two_process_cohort_and_sharded_demons():
                 p.kill()
                 p.communicate()
         os.unlink(worker)
-    for i, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"worker {i} failed:\n{out[-3000:]}"
+    return [(p.returncode, out) for p, out in zip(procs, outs)]
+
+
+def test_two_process_cohort_and_sharded_demons():
+    for i, (rc, out) in enumerate(_run_workers(_WORKER)):
+        assert rc == 0, f"worker {i} failed:\n{out[-3000:]}"
         assert f"worker {i} OK total=1000.0" in out, out[-1500:]
+
+
+def test_two_process_demons_batch_lockstep():
+    for i, (rc, out) in enumerate(_run_workers(_BATCH_WORKER)):
+        assert rc == 0, f"worker {i} failed:\n{out[-3000:]}"
+        assert f"worker {i} OK" in out, out[-1500:]

@@ -123,8 +123,21 @@ def view_path():
     return call
 
 
+def demons_batch_path():
+    """Two pairs over a mesh of two CPU entries, one pair a data row."""
+    from medicalimageanalysis_torch.parallel.batch import demons_batch
+    from medicalimageanalysis_torch.parallel.mesh import make_mesh
+
+    fixed = np.stack([blob(), blob()])
+    moving = np.stack([blob((0.5, 1.0, -1.0)), blob((0.0, -1.0, 0.5))])
+    mesh = make_mesh(devices=["cpu"] * 2)
+    return lambda: demons_batch(fixed, moving, SPACING, iterations=2,
+                                mesh=mesh)
+
+
 PATHS = {"demons": demons_path, "masks": masks_path, "goals": goals_path,
-         "gamma": gamma_path, "view": view_path}
+         "gamma": gamma_path, "view": view_path,
+         "demons_batch": demons_batch_path}
 
 # (span, the span that holds it or None, how many) for each path
 NESTING = {
@@ -150,6 +163,10 @@ NESTING = {
     "gamma": [("mia.gamma", None, 1),
               ("mia.gamma.resample", "mia.gamma", 1),
               ("mia.gamma.scan", "mia.gamma", 1)],
+    "demons_batch": [("mia.batch.demons", None, 1),
+                     ("mia.batch.inputs", "mia.batch.demons", 2),
+                     ("mia.batch.lockstep", "mia.batch.demons", 1),
+                     ("mia.batch.fields_out", "mia.batch.demons", 1)],
     "view": [("mia.view.reslice", None, 1),
              ("mia.resample.warp", "mia.view.reslice", 1),
              ("mia.resample.out", "mia.view.reslice", 1),
@@ -233,3 +250,15 @@ def test_spans_appear_and_nest(path):
         if parent is not None:
             assert all(any(ps <= s and e <= pe for ps, pe in by[parent])
                        for s, e in by[name]), (name, parent)
+
+
+def test_batch_spans_run_in_order():
+    """demons_batch: every row's inputs, then the lockstep rounds, then
+    the fields out, one after another inside mia.batch.demons."""
+    _, ranges = profiled(demons_batch_path())
+    inner = sorted((start, end, name) for name, start, end in ranges
+                   if name != "mia.batch.demons")
+    assert [n for _, _, n in inner] == [
+        "mia.batch.inputs", "mia.batch.inputs", "mia.batch.lockstep",
+        "mia.batch.fields_out"]
+    assert all(a[1] <= b[0] for a, b in zip(inner, inner[1:]))
