@@ -14,7 +14,8 @@ Port of medicalimageanalysis_tpu/ops/resample.py, the whole module:
 - :func:`reslice_transform` — the vtkImageReslice(AutoCrop) equivalent
   behind ``Rigid.create_image``, with the opt-in shear-warp lane
   (``config.use_shear_warp``: :func:`affine_resample_shear`, three passes
-  of the lane_interp kernel);
+  of the lane_interp kernel); :func:`reslice_tensor`, the same reslice
+  left on the device (the Rigid view's overlay);
 - :func:`reslice_rotation` — the off-axis display reslice
   (``Image.update_rotation``);
 - :func:`_axis_align_input` — the signed axis permutation of a large
@@ -40,8 +41,8 @@ from .warp import affine_warp_fused, make_warp_sampler, warp_coords_plain
 
 __all__ = ["affine_resample", "affine_resample_shear", "compose_pixel_matrix",
            "make_trilinear_sampler", "map_coordinates_trilinear",
-           "reslice_rotation", "reslice_transform", "separable_resample",
-           "trilinear_gather"]
+           "reslice_rotation", "reslice_tensor", "reslice_transform",
+           "separable_resample", "trilinear_gather"]
 
 
 def _trilinear(vol, coords_xyz, background):
@@ -201,6 +202,29 @@ def reslice_grid(vol_shape, vol_matrix, vol_spacing, vol_origin,
     return A, out_shape, lo, out_dims
 
 
+def reslice_tensor(volume, vol_matrix, vol_spacing, vol_origin,
+                   phys_transform, out_spacing, background=None,
+                   device=None):
+    """:func:`reslice_transform` with the array left where the warp wrote
+    it: dict(array (Z,Y,X) float32 tensor on ``device``, origin, spacing,
+    dimensions). The Rigid view keeps its overlay this way and brings
+    down only the planes it shows."""
+    if background is None:
+        background = config.background_fill
+    volume = np.asarray(volume)
+    A, out_shape, lo, out_dims = reslice_grid(
+        volume.shape, vol_matrix, vol_spacing, vol_origin, phys_transform,
+        out_spacing)
+    device = default_device() if device is None else device
+    warp = affine_resample_shear if config.use_shear_warp \
+        else affine_resample
+    with trace("mia.resample.warp"):
+        arr = warp(volume, A, out_shape, background, device=device)
+    return {"array": arr, "origin": lo,
+            "spacing": np.asarray(out_spacing, dtype=np.float64),
+            "dimensions": np.asarray(out_dims)}
+
+
 def reslice_transform(volume, vol_matrix, vol_spacing, vol_origin,
                       phys_transform, out_spacing, background=None,
                       device=None):
@@ -215,22 +239,11 @@ def reslice_transform(volume, vol_matrix, vol_spacing, vol_origin,
 
     Returns dict(array (Z,Y,X) float32 numpy, origin, spacing, dimensions).
     """
-    if background is None:
-        background = config.background_fill
-    volume = np.asarray(volume)
-    A, out_shape, lo, out_dims = reslice_grid(
-        volume.shape, vol_matrix, vol_spacing, vol_origin, phys_transform,
-        out_spacing)
-    device = default_device() if device is None else device
-    warp = affine_resample_shear if config.use_shear_warp \
-        else affine_resample
-    with trace("mia.resample.warp"):
-        arr = warp(volume, A, out_shape, background, device=device)
+    out = reslice_tensor(volume, vol_matrix, vol_spacing, vol_origin,
+                         phys_transform, out_spacing, background, device)
     with trace("mia.resample.out"):
-        array = arr.cpu().numpy()
-    return {"array": array, "origin": lo,
-            "spacing": np.asarray(out_spacing, dtype=np.float64),
-            "dimensions": np.asarray(out_dims)}
+        out["array"] = out["array"].cpu().numpy()
+    return out
 
 
 def rotation_grid(vol_shape, volume_matrix, spacing, origin,

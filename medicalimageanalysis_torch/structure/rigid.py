@@ -10,9 +10,10 @@ the exports: ``create_reg`` :577-637, ``export_image`` :568-575 (MHD) and
 ``save_rigid`` / ``load_rigid`` :735-768). The
 matrix semantics are identical: ``matrix @ combo_matrix`` maps reference
 -> moving physical space and ``inverse`` flips the roles. The reslice
-behind the view runs on the device (``reslice_transform``: the warp
+behind the view runs on the device (``reslice_tensor``: the warp
 kernel's ``affine`` mode, or with ``config.use_shear_warp`` the
-lane_interp kernel's three passes). The registration drivers of JAX
+lane_interp kernel's three passes) and stays there; only the planes
+shown come to the host. The registration drivers of JAX
 structure/rigid.py:254-531 are here too: mesh ICP (``compute_icp_vtk``,
 ``compute_o3d``; utils/rigid/icp.ICP on the device),
 ``compute_phase_correlation`` (the moving image resliced onto the
@@ -38,24 +39,31 @@ from ..config import config
 from ..data import Data
 from ..dicom import generate_uid
 from ..ops import geometry as geo
-from ..ops.resample import reslice_transform
+from ..ops.resample import reslice_tensor, reslice_transform
 from ..telemetry import trace
 from ..utils.mesh.trimesh import _SliceResult
 from .common import mesh_cut_pixels
 
-__all__ = ["Display", "Rigid", "matrix_type"]
+__all__ = ["Display", "Rigid", "VIEW", "matrix_type"]
+
+# the view's overlay: reslices kept on the device, planes cut there, and
+# whole volumes brought to the host (``Display.array`` read)
+VIEW = {"reslices": 0, "planes": 0, "volume_reads": 0}
 
 
 class Display(object):
     """Resampled-moving-volume view state
-    (reference structure/rigid.py:33-408)."""
+    (reference structure/rigid.py:33-408). ``compute_reslice`` keeps the
+    overlay on the device (``overlay``, a tensor) and the planes are cut
+    there; ``array`` brings the whole volume down only when read."""
 
     def __init__(self, rigid):
         self.rigid = rigid
 
         self.origin = None
         self.spacing = None
-        self.array = None
+        self.overlay = None
+        self._array = None
         self.matrix = np.identity(4)
 
         self.slice_location = [0, 0, 0]
@@ -64,21 +72,40 @@ class Display(object):
                        "Sagittal": [0, 0]}
         self.misc = {}
 
+    @property
+    def array(self):
+        """The overlay as numpy: brought down from the device on the first
+        read after a reslice (``mia.view.array``), then kept."""
+        if self._array is None and self.overlay is not None:
+            with trace("mia.view.array"):
+                self._array = self.overlay.cpu().numpy()
+            VIEW["volume_reads"] += 1
+        return self._array
+
+    @array.setter
+    def array(self, value):
+        self._array = value
+        self.overlay = None
+
+    @property
+    def shape(self):
+        """The overlay's (Z, Y, X), read without a copy; None without one."""
+        if self.overlay is not None:
+            return tuple(self.overlay.shape)
+        return None if self._array is None else self._array.shape
+
     def compute_array_slice(self, slice_plane):
-        array_slice = None
-        if slice_plane == "Axial":
-            if 0 <= self.slice_location[0] < self.array.shape[0]:
-                array_slice = self.array[self.slice_location[0], :, :] \
-                    .astype(np.double)
-        elif slice_plane == "Coronal":
-            if 0 <= self.slice_location[1] < self.array.shape[1]:
-                array_slice = self.array[:, self.slice_location[1], :] \
-                    .astype(np.double)
-        else:
-            if 0 <= self.slice_location[2] < self.array.shape[2]:
-                array_slice = self.array[:, :, self.slice_location[2]] \
-                    .astype(np.double)
-        return array_slice
+        """The plane at ``slice_location`` as float64 numpy, None outside
+        the overlay. Cut on the device, only the plane comes down."""
+        axis = {"Axial": 0, "Coronal": 1}.get(slice_plane, 2)
+        index = int(self.slice_location[axis])
+        if not 0 <= index < self.shape[axis]:
+            return None
+        cut = (slice(None),) * axis + (index,)
+        if self.overlay is None:
+            return self._array[cut].astype(np.double)
+        VIEW["planes"] += 1
+        return self.overlay[cut].cpu().numpy().astype(np.double)
 
     def compute_offset(self):
         """Pixel offsets of the resliced grid vs the base image origin
@@ -133,12 +160,14 @@ class Display(object):
     @trace("mia.view.reslice")
     def compute_reslice(self):
         """Pull the transformed moving volume (reference
-        structure/rigid.py:225-247, the device warp instead of VTK)."""
-        out = self.rigid.create_image()
+        structure/rigid.py:225-247, the device warp instead of VTK), kept
+        on the device; the previous overlay is released."""
+        out = reslice_tensor(*self.rigid._reslice_args())
         with trace("mia.view.state"):
             self.origin = np.asarray(out["origin"])
             self.spacing = tuple(out["spacing"])
-            self.array = out["array"]
+            self._array, self.overlay = None, out["array"]
+            VIEW["reslices"] += 1
             self.compute_offset()
             self.compute_scroll_max()
 
@@ -167,10 +196,9 @@ class Display(object):
         return geo.apply_homogeneous(location, m)
 
     def compute_scroll_max(self):
-        if self.array is not None:
-            self.scroll_max = [self.array.shape[0] - 1,
-                               self.array.shape[1] - 1,
-                               self.array.shape[2] - 1]
+        shape = self.shape
+        if shape is not None:
+            self.scroll_max = [shape[0] - 1, shape[1] - 1, shape[2] - 1]
 
     def compute_slice(self, slice_plane):
         array_slice = self.compute_array_slice(slice_plane)
@@ -279,6 +307,11 @@ class Rigid(object):
         """Moving volume resliced onto an identity-direction grid with the
         reference's spacing, background -3001 (the CUDA warp kernel's
         ``affine`` mode on the card)."""
+        return reslice_transform(*self._reslice_args())
+
+    def _reslice_args(self):
+        """The arguments of ``create_image``'s reslice, which the view's
+        overlay shares (``reslice_tensor``)."""
         if self.inverse:
             ref = self.moving_name
             mov = self.reference_name
@@ -290,10 +323,9 @@ class Rigid(object):
         T = np.linalg.inv(matrix) if self.inverse else matrix
 
         mov_img = Data.image[mov]
-        return reslice_transform(
-            mov_img.array, mov_img.matrix, mov_img.spacing, mov_img.origin,
-            T, Data.image[ref].spacing,
-            background=config.background_fill, device=self.device)
+        return (mov_img.array, mov_img.matrix, mov_img.spacing,
+                mov_img.origin, T, Data.image[ref].spacing,
+                config.background_fill, self.device)
 
     def pre_alignment(self, superior=False, center=False, origin=False):
         """Rapid programmatic initializations of the translation
@@ -331,7 +363,7 @@ class Rigid(object):
 
     @trace("mia.view.plane")
     def retrieve_array_plane(self, slice_plane, solo=None, position=None):
-        if self.display.array is None:
+        if self.display.shape is None:
             self.display.compute_reslice()
             self.display.compute_scroll_max()
         if solo is None:

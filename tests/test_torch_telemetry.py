@@ -135,8 +135,21 @@ def demons_batch_path():
                                 mesh=mesh)
 
 
+def view_array_path():
+    """A rotation, then the whole overlay read on the host."""
+    add_image("reference")
+    add_image("overlay", shift=(0.0, 2.0, 1.0))
+    rigid = tmia.Rigid("reference", "overlay", device="cpu")
+
+    def call():
+        rigid.update_rotation(r_x=1.0, r_y=-0.5, r_z=2.0)
+        return rigid.display.array
+    return call
+
+
 PATHS = {"demons": demons_path, "masks": masks_path, "goals": goals_path,
          "gamma": gamma_path, "view": view_path,
+         "view_array": view_array_path,
          "demons_batch": demons_batch_path}
 
 # (span, the span that holds it or None, how many) for each path
@@ -169,9 +182,12 @@ NESTING = {
                      ("mia.batch.fields_out", "mia.batch.demons", 1)],
     "view": [("mia.view.reslice", None, 1),
              ("mia.resample.warp", "mia.view.reslice", 1),
-             ("mia.resample.out", "mia.view.reslice", 1),
              ("mia.view.state", "mia.view.reslice", 1),
              ("mia.view.plane", None, len(PLANES))],
+    "view_array": [("mia.view.reslice", None, 1),
+                   ("mia.resample.warp", "mia.view.reslice", 1),
+                   ("mia.view.state", "mia.view.reslice", 1),
+                   ("mia.view.array", None, 1)],
 }
 
 
