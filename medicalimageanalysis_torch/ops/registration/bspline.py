@@ -141,13 +141,14 @@ def bspline_registration(fixed, moving, spacing_xyz=(1.0, 1.0, 1.0),
     overrides the grid resolution. The returned field is the sampling
     field: moving(x + d(x)) ~ fixed(x). ``moving_mask`` (ITK semantics)
     warps with the image and gates the loss where the warped mask is
-    on. ``device``: where the fit runs (default: the card when present).
+    on. ``device``: where the fit runs (default: the card when present);
+    the volumes and masks may be arrays or tensors.
     """
-    fixed = np.asarray(fixed, dtype=np.float32)
-    moving = np.asarray(moving, dtype=np.float32)
+    device = default_device() if device is None else torch.device(device)
+    fixed = as_f32(fixed, device)
+    moving = as_f32(moving, device)
     Z, Y, X = fixed.shape
     sp = np.asarray(spacing_xyz, dtype=np.float32)
-    device = default_device() if device is None else torch.device(device)
 
     if control_spacing is None:
         control_spacing = [50.0, 50.0, 50.0]
@@ -164,10 +165,10 @@ def bspline_registration(fixed, moving, spacing_xyz=(1.0, 1.0, 1.0),
     def dev(a):
         return as_f32(a, device)
 
-    fmask = np.ones_like(fixed) if fixed_mask is None else fixed_mask
+    fmask = torch.ones_like(fixed) if fixed_mask is None else fixed_mask
     mmask = None if moving_mask is None else dev(moving_mask)
     dvf, losses = _bspline_fit(
-        dev(fixed), dev(moving), dev(fmask), mmask,
+        fixed, moving, dev(fmask), mmask,
         dev(bspline_basis_matrix(Z, gz, csz)),
         dev(bspline_basis_matrix(Y, gy, csy)),
         dev(bspline_basis_matrix(X, gx, csx)), dev(sp), float(lr),

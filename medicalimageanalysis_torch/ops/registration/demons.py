@@ -340,8 +340,25 @@ def demons_registration(fixed, moving, spacing_xyz=(1.0, 1.0, 1.0),
     info: an optional dict that receives ``level_shapes``, the (Z, Y, X)
     grid of each level. Nothing here waits for the device: a level's
     time is read from a profiler trace, under its ``mia.demons.level``
-    span.
+    span. The field is :func:`_demons_field`'s, brought to the host
+    (``mia.demons.field_out``).
     """
+    out = _demons_field(fixed, moving, spacing_xyz, method, smooth, std,
+                        iterations, intensity_threshold, step,
+                        elastic_lambda, pyramid, forces, lncc_radius, device,
+                        info)
+    with trace("mia.demons.field_out"):
+        return out.cpu().numpy()
+
+
+def _demons_field(fixed, moving, spacing_xyz=(1.0, 1.0, 1.0),
+                  method="demons", smooth=True, std=1, iterations=50,
+                  intensity_threshold=0.001, step=2.0, elastic_lambda=0.2,
+                  pyramid=None, forces="ssd", lncc_radius=3, device=None,
+                  info=None):
+    """:func:`demons_registration`'s field left where it was computed: a
+    (Z, Y, X, 3) float32 tensor on ``device``. Float32 tensors already
+    there go in without a copy (the deformable backend's volumes)."""
     if forces not in ("ssd", "lncc"):
         raise ValueError(f"demons: forces must be 'ssd' or 'lncc', "
                          f"got {forces!r}")
@@ -412,5 +429,4 @@ def demons_registration(fixed, moving, spacing_xyz=(1.0, 1.0, 1.0),
         out = out_mm
     if info is not None:
         info["level_shapes"] = shapes
-    with trace("mia.demons.field_out"):
-        return out.cpu().numpy()
+    return out

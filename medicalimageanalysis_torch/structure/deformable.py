@@ -3,10 +3,13 @@
 Port of medicalimageanalysis_tpu/structure/deformable.py (``Display``,
 :70-240, and ``Deformable``, :240-940). DVFs are (Z, Y, X, 3) float32
 fields in mm, in the point-displacement convention (update_rois adds d(p)
-to moving points; create_image inverts to get the sampling field): numpy
-arrays from the solvers, or the tensor on the card that a REG read or
-``load_deformable`` uploaded once; ``ratio`` scales the
-field for fractional-deformation display.
+to moving points; create_image inverts to get the sampling field). A
+Deformable keeps its field in one place, a float32 tensor on ``device``,
+whatever made it, and every consumer reads that tensor. The public
+``dvf`` is numpy where a solver (or an array) made the field, brought
+down on its first read and kept until the field changes, and the tensor
+itself where a REG, MHD, ``load_deformable``, TPS (or a tensor) made it;
+``ratio`` scales the field for fractional-deformation display.
 
 The compute runs on ``device`` (default: the card when present): the
 solvers, the inversion, and the deformed reslice, whose inverse field is
@@ -22,16 +25,16 @@ by the ``affine`` mode, then the inverted field by the ``coords`` and
 and POIs through the rigid inverse and the field (ops/registration/dvf.
 sample_dvf_at_points: the ``coords`` mode with B = 3). The ``Display``
 holds the frames at fractional ratios (``compute_deformation``: one
-rigid resample and one field upload for all frames, then each frame's
-inversion and warp) and the field's component planes, behind the
-``retrieve_*`` queries. ``create_reg`` writes the field as a deformable
-REG, ``export_image`` the deformed image as MHD, ``save_deformable`` /
-``load_deformable`` a json + npy folder. ``compute_tps`` fits a
-thin-plate spline through matched POIs and keeps its dense field on the
-device. With ``roi_names`` held by both images, the registrations are
-masked by the ROIs' mask unions (``roi_mask_union``; a mesh-only ROI
-adds its voxelized mesh). The Display's ``compute_mesh_slice`` cuts the
-deformed ROI mesh, warping it first through ``update_rois``.
+rigid resample for all frames, then each frame's inversion and warp)
+and the field's component planes, behind the ``retrieve_*`` queries.
+``create_reg`` writes the field as a deformable REG, ``export_image``
+the deformed image as MHD, ``save_deformable`` / ``load_deformable`` a
+json + npy folder. ``compute_tps`` fits a thin-plate spline through
+matched POIs and keeps its dense field on the device. With
+``roi_names`` held by both images, the registrations are masked by the
+ROIs' mask unions (``roi_mask_union``; a mesh-only ROI adds its
+voxelized mesh). The Display's ``compute_mesh_slice`` cuts the deformed
+ROI mesh, warping it first through ``update_rois``.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from __future__ import annotations
 import copy
 import json
 import os
+import weakref
 
 import numpy as np
 import torch
@@ -81,7 +85,9 @@ class Display(object):
     field's component planes (JAX structure/deformable.py:70-240)."""
 
     def __init__(self, deformable):
-        self.deformable = deformable
+        # a weak reference back: the Deformable owns its Display, and a
+        # cycle would hold the field on the device until the collector ran
+        self._deformable = weakref.ref(deformable)
 
         self.origin = None
         self.spacing = None
@@ -96,6 +102,10 @@ class Display(object):
         self.misc = {}
 
         self.compute_scroll_max()
+
+    @property
+    def deformable(self):
+        return self._deformable()
 
     def compute_array(self, slice_plane, portion=0):
         array_slice = None
@@ -117,17 +127,16 @@ class Display(object):
         """Append the frames at ratios 1/division .. 1 (JAX
         structure/deformable.py:107-118), each equal to
         ``create_image(ratio=...)``: the moving image is resampled
-        (``affine``) and the field uploaded once for every frame, then
-        each frame inverts its scaled field and warps (``coords`` and
-        ``disp``) on the card; the frames come back as numpy arrays."""
+        (``affine``) once for every frame, then each frame inverts its
+        scaled field and warps (``coords`` and ``disp``) on the card; the
+        frames come back as numpy arrays."""
         d = self.deformable
         ref = Data.image[d.reference_name]
         resampled = d._rigid_resampled_moving()
-        field = as_f32(d.dvf, d.device)
         for ii in range(division):
             warped = d._warp_resampled_to_reference(
                 resampled, config.background_fill,
-                ratio=(ii + 1) / division, field=field)
+                ratio=(ii + 1) / division)
             self.array += [warped.cpu().numpy()]
         self.spacing = tuple(np.asarray(ref.spacing))
         self.origin = np.asarray(ref.origin)
@@ -136,8 +145,8 @@ class Display(object):
 
     def compute_grid(self, slice_plane="Axial", vector="x"):
         """A component plane of the field at the slice location (JAX
-        structure/deformable.py:120-131)."""
-        dvf = self.deformable.dvf
+        structure/deformable.py:120-131), cut on the device."""
+        dvf = self.deformable._field
         if slice_plane == "Axial":
             dvf_plane = dvf[self.slice_location[0], :, :, :]
         elif slice_plane == "Coronal":
@@ -261,6 +270,9 @@ class Deformable(object):
             else torch.device(device)
 
         self.modality = None
+        self._field = None              # the field: float32 on self.device
+        self._dvf_on_host = False       # ``dvf`` reads it as numpy
+        self._dvf_array = None          # that numpy, once read
         if dvf_matrix is not None \
                 and not np.allclose(dvf_matrix, np.identity(3), atol=1e-3):
             self.dvf, self.spacing, self.origin, self.dimensions = \
@@ -277,8 +289,41 @@ class Deformable(object):
         self.deformable_name = self.add_deformable(registration_name)
 
         self.display = Display(self)
-        if self.dvf is not None:
+        if self._field is not None:
             self.update_rois()
+
+    @property
+    def dvf(self):
+        """The (Z, Y, X, 3) float32 mm field: numpy where a solver or an
+        array made it, brought down from the device on the first read
+        (``mia.deformable.dvf_out``) and kept until the field changes;
+        the device tensor itself where a REG, MHD, load, TPS or a tensor
+        made it. Assigning sets the field; to change the field, assign
+        (writing into the numpy copy need not reach it)."""
+        return self._host_field() if self._dvf_on_host else self._field
+
+    @dvf.setter
+    def dvf(self, value):
+        self._set_field(None if value is None
+                        else as_f32(value, self.device),
+                        on_host=not isinstance(value, torch.Tensor))
+
+    def _set_field(self, field, on_host):
+        self._field = field
+        self._dvf_on_host = on_host
+        self._dvf_array = None
+
+    def _host_field(self):
+        """The field as float32 numpy, for ``dvf`` and the writers: the
+        copy already brought down, else one download (kept when ``dvf``
+        reads numpy)."""
+        if self._field is None or self._dvf_array is not None:
+            return self._dvf_array
+        with trace("mia.deformable.dvf_out"):
+            array = self._field.cpu().numpy()
+        if self._dvf_on_host:
+            self._dvf_array = array
+        return array
 
     def add_deformable(self, deformable_name):
         """'DVF_{ref}_{mov}[_N]' naming with collision suffixing."""
@@ -363,12 +408,13 @@ class Deformable(object):
     @trace("mia.deformable.store")
     def _store_dvf(self, dvf_volume):
         """Store in point-displacement convention: invert the sampling
-        field the solvers return."""
+        field the solvers return on the device and keep it there;
+        ``dvf`` reads it as numpy."""
         self.origin = np.asarray(dvf_volume["origin"])
         self.spacing = tuple(dvf_volume["spacing"])
-        self.dvf = invert_dvf(dvf_volume["array"], dvf_volume["spacing"],
-                              device=self.device)
-        self.dimensions = np.asarray(self.dvf.shape[:3])
+        self._set_field(invert_dvf(as_f32(dvf_volume["array"], self.device),
+                                   dvf_volume["spacing"]), on_host=True)
+        self.dimensions = np.asarray(self._field.shape[:3])
 
     def compute_biomechanical(self, modality_gradient=True, sigma=2,
                               smooth=True, std=1, iterations=50,
@@ -396,8 +442,8 @@ class Deformable(object):
                                  phys_transform=self.rigid_matrix)
         resampled = affine_resample(mov.array, A, ref.array.shape,
                                     background=0.0, device=self.device)
-        backend.create_sitk_image(resampled.cpu().numpy(), ref.origin,
-                                  ref.spacing, ref.matrix, reference=False)
+        backend.create_sitk_image(resampled, ref.origin, ref.spacing,
+                                  ref.matrix, reference=False)
         backend.resample()
         self._store_dvf(backend.bspline(
             control_spacing=control_spacing, mesh_size=mesh_size,
@@ -453,15 +499,12 @@ class Deformable(object):
         return dvf_rotated, spacing, origin_new, dvf_rotated.shape[0:3]
 
     @torch.no_grad()
-    def _warp_resampled_to_reference(self, resampled, background, ratio=1,
-                                     field=None):
+    def _warp_resampled_to_reference(self, resampled, background, ratio=1):
         """Invert the DVF and warp a (Z, Y, X) tensor already resampled
         onto the reference grid: the inverse field is sampled at the
         reference voxels by the ``coords`` mode, the image by the
-        ``disp`` mode. ``field``: the DVF already on the device."""
-        if field is None:
-            field = as_f32(self.dvf, self.device)
-        dvf = field * float(ratio)
+        ``disp`` mode."""
+        dvf = self._field * float(ratio)
         inv = invert_dvf(dvf, self.spacing)
         ref = Data.image[self.reference_name]
         ref_p2p = geo.pixel_to_position_matrix(ref.matrix, ref.spacing,
@@ -553,7 +596,7 @@ class Deformable(object):
         rigid resample + field warp of the float indicator, then
         ``>= threshold``. Returns a (Z, Y, X) uint8 numpy mask on the
         reference grid."""
-        if self.dvf is None:
+        if self._field is None:
             raise ValueError("update_mask: no DVF computed yet")
         ref = Data.image[self.reference_name]
         mov = Data.image[self.moving_name]
@@ -578,14 +621,15 @@ class Deformable(object):
         """Jacobian-determinant QA map of T(p) = p + d(p) (det <= 0 marks
         folding). Returns {'det': (Z, Y, X) float32, 'folding_fraction',
         'det_min', 'det_max', 'det_mean'}."""
-        if self.dvf is None:
+        if self._field is None:
             raise ValueError("compute_jacobian: no DVF computed yet")
-        if any(int(s) < 2 for s in np.shape(self.dvf)[:3]):
+        grid = tuple(self._field.shape[:3])
+        if any(int(s) < 2 for s in grid):
             raise ValueError(
                 "compute_jacobian: every grid axis needs >= 2 samples "
-                f"for finite differences, got {np.shape(self.dvf)[:3]}")
+                f"for finite differences, got {grid}")
         inv_sp = [float(np.float32(1.0 / float(v))) for v in self.spacing]
-        det = _jacobian_det(as_f32(self.dvf, self.device), inv_sp)
+        det = _jacobian_det(self._field, inv_sp)
         det = det.cpu().numpy()
         return {
             "det": det,
@@ -616,9 +660,8 @@ class Deformable(object):
             if roi_name is None or name == roi_name:
                 roi = Data.image[self.moving_name].rois.get(name)
                 if roi is not None and roi.mesh is not None and roi.visible:
-                    if field is None:   # on the device once for every ROI
-                        field = as_f32(self.dvf, self.device) \
-                            * (percent / 100.0)
+                    if field is None:   # scaled once for every ROI
+                        field = self._field * (percent / 100.0)
                     self.rigid_rois[name] = roi.mesh.transform(
                         np.linalg.inv(self.rigid_matrix), inplace=False)
                     points = self.rigid_rois[name].points
@@ -633,7 +676,7 @@ class Deformable(object):
         the field into the reference frame; the sample is linear in the
         field, so ``percent`` scales it after. Returns {name: (3,)
         position mm} and caches it on ``self.pois``."""
-        if self.dvf is None:
+        if self._field is None:
             raise ValueError("update_pois: no DVF computed yet")
         if self.moving_name is None \
                 or self.moving_name not in Data.image:
@@ -652,8 +695,8 @@ class Deformable(object):
         out = {}
         if names:
             pts = np.stack(pts)
-            disp = sample_dvf_at_points(as_f32(self.dvf, self.device), pts,
-                                        self.origin, self.spacing)
+            disp = sample_dvf_at_points(self._field, pts, self.origin,
+                                        self.spacing)
             mapped = pts + disp * (percent / 100.0)
             out = {n: mapped[i] for i, n in enumerate(names)}
         if poi_name is None or not hasattr(self, "pois"):
@@ -726,7 +769,7 @@ class Deformable(object):
             chunk=chunk, device=self.device)
         self.origin = np.asarray(ref.origin, np.float64)
         self.spacing = tuple(np.asarray(ref.spacing, np.float64))
-        self.dimensions = np.asarray(self.dvf.shape[:3])
+        self.dimensions = np.asarray(self._field.shape[:3])
         self.display.compute_scroll_max()
         self.update_rois()
 
@@ -749,7 +792,7 @@ class Deformable(object):
         from ..dicom import Dataset, Sequence, dcmwrite, uids
         from .common import build_reg_dataset
 
-        if self.dvf is None:
+        if self._field is None:
             raise ValueError("create_reg: no DVF computed yet")
         if self.reference_name not in Data.image \
                 or self.moving_name not in Data.image:
@@ -768,7 +811,7 @@ class Deformable(object):
                 np.asarray(self.rigid_matrix, np.float64)).reshape(-1)]
         pre.FrameOfReferenceTransformationMatrixType = "RIGID"
 
-        dvf = np.ascontiguousarray(host_array(self.dvf, "<f4"))
+        dvf = np.ascontiguousarray(self._host_field(), "<f4")
         grid = Dataset()
         grid.ImageOrientationPatient = [1, 0, 0, 0, 1, 0]
         grid.ImagePositionPatient = [float(v) for v in self.origin]
@@ -812,8 +855,7 @@ class Deformable(object):
         }
         with open(os.path.join(str(path), "deformable.json"), "w") as f:
             json.dump(payload, f, indent=1)
-        np.save(os.path.join(str(path), "dvf.npy"),
-                None if self.dvf is None else host_array(self.dvf))
+        np.save(os.path.join(str(path), "dvf.npy"), self._host_field())
 
     @classmethod
     def load_deformable(cls, path, device=None):

@@ -5,9 +5,12 @@ Port of medicalimageanalysis_tpu/utils/deformable/jax_backend.py
 the demons family, cross-modality gradient correction, mask blurring,
 grid resampling, joint-mask cropping and the elastix-parity B-spline
 (``elastix``: ops/registration/bspline.elastix_registration). Volumes
-are dicts {array, origin, spacing, direction} of numpy values, as in the
-JAX package; the compute runs on ``device`` (default: the card when
-present).
+are dicts {array, origin, spacing, direction} as in the JAX package, the
+geometry numpy and the array a tensor on ``device`` (default: the card
+when present): each volume goes up once, in its stored dtype (a CT's
+int16), and is cast, resampled, masked and cropped there. The demons
+methods return their field there too; ``bspline`` and ``elastix``
+return numpy fields.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import torch
 from ...device import default_device
 from ...ops.filters import gaussian_filter
 from ...ops.registration.bspline import bspline_registration
-from ...ops.registration.demons import demons_registration
+from ...ops.registration.demons import _demons_field
 from ...ops.registration.dvf import gradient_magnitude
 from ...ops.resample import affine_resample, compose_pixel_matrix
 from ...telemetry import trace
@@ -26,8 +29,13 @@ from ...telemetry import trace
 __all__ = ["DeformableTorch", "DeformableJAX", "DeformableITK"]
 
 
-def _volume(array, origin=(0, 0, 0), spacing=(1, 1, 1), direction=None):
-    return {"array": np.asarray(array),
+def _volume(array, origin=(0, 0, 0), spacing=(1, 1, 1), direction=None,
+            device=None):
+    """A volume dict: an array goes up to ``device`` in its own dtype; a
+    tensor moves there, or stays where it is without ``device``."""
+    if not isinstance(array, torch.Tensor):
+        array = np.ascontiguousarray(array)
+    return {"array": torch.as_tensor(array, device=device),
             "origin": np.asarray(origin, dtype=np.float64),
             "spacing": np.asarray(spacing, dtype=np.float64),
             "direction": np.eye(3) if direction is None
@@ -35,10 +43,11 @@ def _volume(array, origin=(0, 0, 0), spacing=(1, 1, 1), direction=None):
 
 
 def _demons_method(method, doc):
-    """A backend method running ``demons_registration`` with ``method``
-    on the (cropped, masked) pair; ``info`` receives the per-level
-    shapes. ``elastic_lambda`` is read by 'biomechanical'
-    only, ``pyramid`` by every method."""
+    """A backend method running the demons solver (``_demons_field``,
+    ``demons_registration`` without its download) with ``method`` on the
+    (cropped, masked) pair, its field left on the device;
+    ``info`` receives the per-level shapes. ``elastic_lambda`` is read by
+    'biomechanical' only, ``pyramid`` by every method."""
 
     def run(self, smooth=True, std=1, iterations=50,
             intensity_threshold=0.001, step=2.0, *, elastic_lambda=0.2,
@@ -47,7 +56,7 @@ def _demons_method(method, doc):
             if crop > 0:
                 self.mask_crop(margin=crop)
             fixed, moving = self._masked_arrays()
-        dvf = demons_registration(
+        dvf = _demons_field(
             fixed, moving, self.reference_image["spacing"], method=method,
             smooth=smooth, std=std, iterations=iterations,
             intensity_threshold=intensity_threshold, step=step,
@@ -65,18 +74,24 @@ class DeformableTorch(object):
 
     def __init__(self, reference_image=None, moving_image=None,
                  reference_mask=None, moving_mask=None, device=None):
-        self.reference_image = reference_image
-        self.reference_mask = reference_mask
-        self.moving_image = moving_image
-        self.moving_mask = moving_mask
         self.device = default_device() if device is None \
             else torch.device(device)
 
+        def up(vol):
+            return None if vol is None else _volume(
+                vol["array"], vol["origin"], vol["spacing"],
+                vol.get("direction"), self.device)
+
+        self.reference_image = up(reference_image)
+        self.reference_mask = up(reference_mask)
+        self.moving_image = up(moving_image)
+        self.moving_mask = up(moving_mask)
+
     def create_sitk_image(self, array, origin, spacing, direction,
                           reference=True, mask=False):
-        """Store a geometric volume (name kept from the reference API;
-        no SimpleITK involved)."""
-        vol = _volume(array, origin, spacing, direction)
+        """Store a geometric volume, its array uploaded to the device
+        (name kept from the reference API; no SimpleITK involved)."""
+        vol = _volume(array, origin, spacing, direction, self.device)
         if reference:
             if mask:
                 self.reference_mask = vol
@@ -95,9 +110,8 @@ class DeformableTorch(object):
         """Gradient-magnitude both images."""
         for vol in (self.reference_image, self.moving_image):
             if vol is not None:
-                vol["array"] = gradient_magnitude(
-                    vol["array"], vol["spacing"],
-                    device=self.device).cpu().numpy()
+                vol["array"] = gradient_magnitude(vol["array"],
+                                                  vol["spacing"])
 
     def blur_mask(self, sigma=2):
         """Gaussian blur + min-max normalise the masks."""
@@ -105,23 +119,21 @@ class DeformableTorch(object):
             vol = getattr(self, attr)
             if vol is None:
                 continue
-            blurred = gaussian_filter(
-                torch.as_tensor(vol["array"].astype(np.float32),
-                                device=self.device),
-                sigma, vol["spacing"]).cpu().numpy()
+            blurred = gaussian_filter(vol["array"], sigma, vol["spacing"])
             lo, hi = blurred.min(), blurred.max()
-            vol["array"] = (blurred - lo) / max(hi - lo, 1e-9)
+            vol["array"] = (blurred - lo) / torch.clamp(hi - lo, min=1e-9)
 
     @trace("mia.deformable.resample")
     def resample(self):
-        """Resample the moving image/mask onto the reference grid."""
+        """Resample the moving image/mask onto the reference grid,
+        on the device."""
         def do(mov, ref):
             A = compose_pixel_matrix(
                 mov["direction"], mov["spacing"], mov["origin"],
                 ref["direction"], ref["spacing"], ref["origin"])
-            out = affine_resample(mov["array"], A, ref["array"].shape,
-                                  background=0.0, device=self.device)
-            return _volume(out.cpu().numpy(), ref["origin"], ref["spacing"],
+            out = affine_resample(mov["array"], A, tuple(ref["array"].shape),
+                                  background=0.0)
+            return _volume(out, ref["origin"], ref["spacing"],
                            ref["direction"])
 
         if self.reference_image is not None and self.moving_image is not None:
@@ -130,13 +142,15 @@ class DeformableTorch(object):
             self.moving_mask = do(self.moving_mask, self.reference_mask)
 
     def _masked_arrays(self):
-        fixed = self.reference_image["array"].astype(np.float32)
-        moving = self.moving_image["array"].astype(np.float32)
-        if self.reference_mask is not None:
-            fixed = fixed * self.reference_mask["array"].astype(np.float32)
-        if self.moving_mask is not None:
-            moving = moving * self.moving_mask["array"].astype(np.float32)
-        return fixed, moving
+        """The float32 pair, each times its mask, cast on the device."""
+        def masked(image, mask):
+            out = image["array"].to(torch.float32)
+            if mask is not None:
+                out = out * mask["array"].to(torch.float32)
+            return out.contiguous()
+
+        return (masked(self.reference_image, self.reference_mask),
+                masked(self.moving_image, self.moving_mask))
 
     def _dvf_volume(self, dvf):
         ref = self.reference_image
@@ -182,8 +196,8 @@ class DeformableTorch(object):
         mmask = None if self.moving_mask is None \
             else self.moving_mask["array"]
         dvf, _ = elastix_registration(
-            self.reference_image["array"].astype(np.float32),
-            self.moving_image["array"].astype(np.float32),
+            self.reference_image["array"].to(torch.float32),
+            self.moving_image["array"].to(torch.float32),
             self.reference_image["spacing"], parameter_map=parameter,
             metric=("mse" if metric == "Intensity" else "mi"),
             bins=max(int(bins), 8), resolutions=int(resolution),
@@ -204,16 +218,25 @@ class DeformableTorch(object):
                                    "(grad(div u) relaxation).")
 
     def mask_crop(self, margin=5):
-        """Crop images+masks to the joint-mask bbox + margin."""
+        """Crop images+masks to the joint-mask bbox + margin, found on
+        the device from each axis's projection of the joint mask."""
         if self.reference_mask is None or self.moving_mask is None:
             return
-        combined = (np.asarray(self.reference_mask["array"]) > 0) \
-            | (np.asarray(self.moving_mask["array"]) > 0)
-        if not combined.any():
-            return
-        nz = np.argwhere(combined)
-        lo = np.maximum(nz.min(axis=0) - margin, 0)
-        hi = np.minimum(nz.max(axis=0) + 1 + margin, combined.shape)
+        combined = (self.reference_mask["array"] > 0) \
+            | (self.moving_mask["array"] > 0)
+        first, last = [], []
+        for axis in range(3):
+            line = combined
+            for other in (2, 1, 0):
+                if other != axis:
+                    line = line.any(dim=other)
+            hit = torch.nonzero(line).flatten().cpu()
+            if hit.numel() == 0:
+                return
+            first.append(int(hit[0]))
+            last.append(int(hit[-1]))
+        lo = np.maximum(np.asarray(first) - margin, 0)
+        hi = np.minimum(np.asarray(last) + 1 + margin, tuple(combined.shape))
 
         def crop(vol):
             arr = vol["array"][lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]]

@@ -159,8 +159,8 @@ NESTING = {
                ("mia.deformable.resample", "mia.demons", 1),
                ("mia.demons.inputs", "mia.demons", 2),
                ("mia.demons.level", "mia.demons", 3),
-               ("mia.demons.field_out", "mia.demons", 1),
                ("mia.deformable.store", "mia.demons", 1),
+               ("mia.deformable.dvf_out", None, 1),
                ("mia.deformable.create_image", None, 1),
                ("mia.deformable.image_out", "mia.deformable.create_image",
                 1)],
