@@ -1,4 +1,5 @@
-"""Lossless 12-bit pixel packing for host -> device staging.
+"""Lossless 12-bit pixel packing for host -> device staging, and 1-bit
+mask packing for device -> host.
 
 Port of medicalimageanalysis_tpu/ops/bitpack.py. CT pixels are <= 12
 bits stored in int16; packing groups of 8 values into 3 uint32 words
@@ -8,6 +9,9 @@ eight static shift / mask extractions (plain PyTorch bit operations).
 Packing is RANGE-KEYED and lossless: values are offset by the batch min
 and must span < 4096; :func:`pack12` returns None when they don't
 (callers stage raw int16 instead, e.g. 16-bit MR).
+
+:func:`packbits_device` is ``np.packbits`` on the device, for 0/1 masks
+that come down to the host a bit a voxel (the ROI mask cache).
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["pack12", "unpack12_device"]
+__all__ = ["pack12", "packbits_device", "unpack12_device"]
 
 
 def pack12(arr):
@@ -93,3 +97,22 @@ def unpack12_device(words, lo, tail, dtype=torch.float32, device=None):
         (w2 >> 20) & m], dim=-1)
     vals = vals.reshape(w.shape[:-1] + (-1,))[..., :tail]
     return vals.to(dtype) + torch.tensor(lo, dtype=dtype, device=w.device)
+
+
+def packbits_device(crops):
+    """``np.packbits`` of each 0/1 uint8 tensor of ``crops`` (all on one
+    device, any strides), on that device: a crop flattened in C order,
+    eight values a byte, the first in the high bit, its last byte
+    zero-padded. Returns the packed bytes of every crop, one after
+    another, as one uint8 tensor, and each crop's byte count."""
+    counts = [-(-c.numel() // 8) for c in crops]
+    device = crops[0].device
+    bits = torch.zeros(8 * sum(counts), dtype=torch.uint8, device=device)
+    off = 0
+    for c, nb in zip(crops, counts):
+        bits[off:off + c.numel()].view(c.shape).copy_(c)
+        off += 8 * nb
+    # made on the device: an upload would wait for the copies above
+    weights = (128 >> torch.arange(8, device=device)).to(torch.uint8)
+    return torch.sum(bits.view(-1, 8) * weights, dim=1,
+                     dtype=torch.uint8), counts

@@ -235,14 +235,17 @@ def rasterize_polygons(polygons, slice_indices, n_slices, H, W,
     return out.cpu().numpy()
 
 
-def rasterize_polygons_grouped(grouped, n_slices, H, W, device=None):
+def rasterize_polygons_grouped(grouped, n_slices, H, W, device=None,
+                               host=True):
     """Cohort rasterization: ``grouped`` is a list over ROIs of
     (polygons, slice_indices) pairs on a shared (n_slices, H, W) grid.
     All contours of all groups run in one pooled pass per tile class
     (canvas rows are (group, slice) pairs). Returns (B, n_slices, H, W)
-    uint8 numpy."""
+    uint8 0/1 masks: a numpy array brought down from ``device``, or with
+    ``host=False`` the tensor left on ``device`` (nothing crosses the
+    bus)."""
     B = len(grouped)
-    S = int(n_slices)
+    S, H, W = int(n_slices), int(H), int(W)
     pool = []
     targets = []
     for b, (polys, sids) in enumerate(grouped):
@@ -251,7 +254,10 @@ def rasterize_polygons_grouped(grouped, n_slices, H, W, device=None):
         pool.extend(polys)
         targets.extend(np.where(ok, b * S + ids, B * S).tolist())
     if not pool:
-        return np.zeros((B, S, H, W), dtype=np.uint8)
-    out = _pooled_canvas(pool, targets, B * S, int(H), int(W),
-                         _resolve(device))
-    return out.cpu().numpy().reshape(B, S, int(H), int(W))
+        if host:
+            return np.zeros((B, S, H, W), dtype=np.uint8)
+        return torch.zeros((B, S, H, W), dtype=torch.uint8,
+                           device=_resolve(device))
+    out = _pooled_canvas(pool, targets, B * S, H, W,
+                         _resolve(device)).view(B, S, H, W)
+    return out.cpu().numpy() if host else out

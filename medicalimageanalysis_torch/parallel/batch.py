@@ -337,23 +337,32 @@ def rasterize_batch(contour_sets, dimensions, plane="Axial", mesh=None,
 
     contour_sets: list over B ROIs, each a list of (N, 3) pixel contours;
     dimensions: (Z, Y, X) of the shared grid; plane: the contours'
-    slicing plane. Returns (B, Z, Y, X) uint8 numpy masks with per-slice
-    XOR semantics."""
-    from ..ops.rasterize import rasterize_polygons_grouped
-    from ..utils.convert.contour import _plane_split, plane_canvas
-
+    slicing plane. Returns (B, Z, Y, X) uint8 0/1 numpy masks with
+    per-slice XOR semantics, C-contiguous: the whole batch is brought
+    down from the device in one copy (``_rasterize_batch_device`` keeps
+    it there)."""
     if mesh is not None:
         return _data_sharded_call(
             "rasterize_batch", mesh,
             lambda sets, device: rasterize_batch(sets, dimensions, plane,
                                                  device=device),
             [list(contour_sets)])
+    out = _rasterize_batch_device(contour_sets, dimensions, plane, device)
+    return np.ascontiguousarray(out.cpu().numpy())
+
+
+def _rasterize_batch_device(contour_sets, dimensions, plane, device=None):
+    """``rasterize_batch``'s body without the copy down: the (B, Z, Y, X)
+    uint8 0/1 tensor on ``device`` (a strided view of the canvas for the
+    Coronal and Sagittal planes)."""
+    from ..ops import rasterize
+    from ..utils.convert.contour import _plane_split, plane_canvas
+
     S, H, W, axis = plane_canvas(dimensions, plane)
     grouped = [_plane_split(cs, plane) for cs in contour_sets]
-    out = rasterize_polygons_grouped(grouped, S, H, W, device=device)
-    if axis:
-        out = np.moveaxis(out, 1, axis + 1)
-    return (out > 0).astype(np.uint8)
+    out = rasterize.rasterize_polygons_grouped(grouped, S, H, W,
+                                               device=device, host=False)
+    return out.movedim(1, axis + 1) if axis else out
 
 
 def gamma_batch(ref_doses, eval_doses, spacing, dose_pct=3.0,

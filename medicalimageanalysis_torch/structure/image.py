@@ -3,7 +3,8 @@
 Port of medicalimageanalysis_tpu/structure/image.py: ``Image`` with its
 ROI/POI containers, RTSTRUCT intake, the token-keyed bit-packed ROI mask
 cache and the pooled ``compute_roi_masks`` (always one device pass per
-slicing plane), ``compute_roi_statistics``, ``create_volume``,
+slicing plane, the masks cropped and packed on the device),
+``compute_roi_statistics``, ``create_volume``,
 ``load_array`` (the pixels of a series read with ``only_tags=True``), and
 the ``Display`` matrices, slice location, ``compute_slice`` and the
 off-axis reslice (``compute_offaxis_array``, the warp kernel's ``affine``
@@ -39,11 +40,17 @@ from .common import (GeometryQueriesMixin, MetadataMixin, ViewOpsMixin,
 from .poi import Poi
 from .roi import Roi
 
-__all__ = ["Display", "Image"]
+__all__ = ["Display", "Image", "MASKS"]
 
 # Process-global monotonic ids for the ROI mask cache — never reused,
 # unlike id(), which CPython recycles after a Roi is freed.
 _ROI_CACHE_TOKENS = itertools.count(1)
+
+# compute_roi_masks' traffic, summed over calls: ROIs cropped and
+# bit-packed on the device (``device_packs``), the packed bytes brought
+# down (``packed_bytes``), and whole (Z, Y, X) masks brought to the host
+# and scanned there (``full_reads``: the ROIs without contours)
+MASKS = {"device_packs": 0, "packed_bytes": 0, "full_reads": 0}
 
 
 class Display(object):
@@ -335,13 +342,17 @@ class Image(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
         }
 
     # -- pooled ROI-mask cache -------------------------------------------
-    # Masks are cached bbox-cropped and bit-packed, keyed on
+    # Masks are cached on the host bbox-cropped and bit-packed
+    # (``np.packbits``' layout), keyed on
     # (roi._mask_cache_token, roi._mask_rev): both wholesale Roi
     # replacement and any contour/plane rebind (Roi.__setattr__)
     # invalidate. The token is a process-global monotonic id assigned on
     # first cache contact, never id(roi): CPython reuses a freed Roi's
     # address, and an id()-keyed cache could serve a deleted ROI's mask
-    # for its replacement.
+    # for its replacement. The pooled rasterizer's masks are cropped and
+    # packed on the device (``_roi_mask_cache_pack``), so only the packed
+    # crops cross the bus; a mask already on the host is packed there
+    # (``_roi_mask_cache_put``), into the same entry.
 
     @staticmethod
     def _roi_cache_key(roi):
@@ -397,14 +408,61 @@ class Image(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
         self._roi_mask_cache[name] = (key, mask.shape, bbox, payload,
                                       packed)
 
+    @trace("mia.rois.pack")
+    def _roi_mask_cache_pack(self, names, masks):
+        """Cache entries for the (B, Z, Y, X) uint8 0/1 device tensor
+        ``masks``, one ROI of ``names`` a row, equal to what
+        ``_roi_mask_cache_put`` makes of each row on the host. The bboxes
+        come from each axis's projection on the device, every row's in
+        one small copy; the crops are bit-packed there
+        (ops/bitpack.packbits_device) and come down in a second copy."""
+        import torch
+
+        from ..ops.bitpack import packbits_device
+
+        shape = tuple(int(v) for v in masks.shape[1:])
+        Z, Y = shape[0], shape[1]
+        rows = masks.amax(dim=3)                       # (B, Z, Y)
+        proj = torch.cat([rows.amax(dim=2), rows.amax(dim=1),
+                          masks.amax(dim=(1, 2))], dim=1).cpu().numpy()
+        boxes = {}
+        for b in range(len(names)):
+            zs = np.flatnonzero(proj[b, :Z])
+            if zs.size:
+                ys = np.flatnonzero(proj[b, Z:Z + Y])
+                xs = np.flatnonzero(proj[b, Z + Y:])
+                boxes[b] = (int(zs[0]), int(zs[-1]) + 1, int(ys[0]),
+                            int(ys[-1]) + 1, int(xs[0]), int(xs[-1]) + 1)
+        payloads = {}
+        if boxes:
+            packed, counts = packbits_device(
+                [masks[b, z0:z1, y0:y1, x0:x1]
+                 for b, (z0, z1, y0, y1, x0, x1) in boxes.items()])
+            packed = packed.cpu().numpy()
+            ends = np.cumsum(counts)
+            for b, end, nb in zip(boxes, ends, counts):
+                payloads[b] = packed[end - nb:end].copy()
+            MASKS["device_packs"] += len(boxes)
+            MASKS["packed_bytes"] += packed.nbytes
+        if getattr(self, "_roi_mask_cache", None) is None:
+            self._roi_mask_cache = {}
+        for b, name in enumerate(names):
+            self._roi_mask_cache[name] = (
+                self._roi_cache_key(self.rois[name]), shape, boxes.get(b),
+                payloads.get(b), True)
+
     @trace("mia.rois.masks")
     def compute_roi_masks(self, roi_names=None):
         """Every (or the named) contoured ROI rasterized in one pooled
-        device pass per slicing plane (parallel/batch.rasterize_batch),
-        bit-identical to the per-ROI path; ROIs without contours take
-        their own ``_compute_mask_impl``. Cached masks are served from
-        the cache. Returns {name: (Z, Y, X) uint8}."""
-        from ..parallel.batch import rasterize_batch
+        device pass per slicing plane, bit-identical to the per-ROI path;
+        ROIs without contours take their own ``_compute_mask_impl``.
+        Cached masks are served from the cache. The pooled masks stay on
+        the device: each ROI's bbox crop is bit-packed there and only the
+        packed crops come down, into the host cache
+        (``_roi_mask_cache_pack``); the returned masks are rebuilt from
+        it, as a cache hit is. Nothing of the call stays on the device.
+        Returns {name: (Z, Y, X) uint8}, a fresh array each."""
+        from ..parallel.batch import _rasterize_batch_device
 
         names = list(roi_names if roi_names is not None else self.rois)
         dims = tuple(int(v) for v in self.dimensions)
@@ -421,16 +479,18 @@ class Image(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
                     plane_of[n] = roi.plane
                 else:
                     out[n] = np.asarray(roi._compute_mask_impl(), np.uint8)
+                    MASKS["full_reads"] += 1
                     self._roi_mask_cache_put(n, roi, out[n])
             for plane in sorted(set(plane_of.values())):
                 group = [n for n in names if plane_of.get(n) == plane]
                 with trace("mia.rois.rasterize"):
-                    masks = rasterize_batch(
+                    masks = _rasterize_batch_device(
                         [self.rois[n].contour_pixel for n in group], dims,
                         plane=plane)
-                for i, n in enumerate(group):
-                    out[n] = masks[i]
-                    self._roi_mask_cache_put(n, self.rois[n], out[n])
+                self._roi_mask_cache_pack(group, masks)
+                del masks
+                for n in group:
+                    out[n] = self._roi_mask_cache_get(n, self.rois[n])
         finally:
             self._pooled_raster_active = False
         return {n: out[n] for n in names}

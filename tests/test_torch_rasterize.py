@@ -163,6 +163,48 @@ def test_rasterize_batch_matches_jax(plane):
             sets[b], dims, plane))
 
 
+@pytest.mark.parametrize("plane", ["Axial", "Coronal", "Sagittal"])
+def test_host_returns_keep_their_dtype_layout_and_bits(plane):
+    """rasterize_batch and rasterize_polygons_grouped(host=True) return
+    C-contiguous, writable uint8 0/1 numpy arrays equal to the JAX
+    package's in every plane; host=False leaves the same bits on the
+    device."""
+    r = np.random.default_rng(11)
+    dims = (14, 30, 34)
+    S, H, W, axis = tcontour.plane_canvas(dims, plane)
+    sets = []
+    for b in range(3):
+        cs = []
+        for k in range(3):
+            u, v = star(r, r.uniform(6, W - 6), r.uniform(6, H - 6),
+                        int(r.integers(4, 16)), 1.0, 5.0).T
+            s = float(r.integers(0, S))
+            cs.append(np.stack(
+                [u, v, np.full(len(u), s)] if plane == "Axial" else
+                [u, np.full(len(u), s), v] if plane == "Coronal" else
+                [np.full(len(u), s), u, v], 1))
+        sets.append(cs)
+    port = tbatch.rasterize_batch(sets, dims, plane=plane)
+    assert port.dtype == np.uint8 and port.shape == (3,) + dims
+    assert port.flags.c_contiguous and port.flags.writeable
+    assert set(np.unique(port)) == {0, 1}
+    np.testing.assert_array_equal(port, jbatch.rasterize_batch(
+        sets, dims, plane=plane))
+    grouped = [tcontour._plane_split(cs, plane) for cs in sets]
+    host = traster.rasterize_polygons_grouped(grouped, S, H, W)
+    assert host.dtype == np.uint8 and host.shape == (3, S, H, W)
+    assert host.flags.c_contiguous and host.flags.writeable
+    np.testing.assert_array_equal(host, np.asarray(
+        jraster.rasterize_polygons_grouped(grouped, S, H, W)))
+    np.testing.assert_array_equal(np.moveaxis(host, 1, axis + 1), port)
+    dev = traster.rasterize_polygons_grouped(grouped, S, H, W, host=False)
+    assert isinstance(dev, torch.Tensor) and dev.dtype == torch.uint8
+    np.testing.assert_array_equal(dev.numpy(), host)
+    empty = traster.rasterize_polygons_grouped([([], [])], S, H, W,
+                                               host=False)
+    assert empty.shape == (1, S, H, W) and not empty.any()
+
+
 def test_no_cv2_and_no_mesh_in_the_port():
     # MaskToContour traces with the port's own tracer, not cv2
     assert tcontour.MaskToContour(np.zeros((2, 4, 4), np.uint8),

@@ -399,6 +399,7 @@ def test_seg_masks_are_served_from_the_cache(tmp_path, rng, monkeypatch):
         raise AssertionError("a SEG ROI was rasterized")
 
     monkeypatch.setattr(batch, "rasterize_batch", refuse)
+    monkeypatch.setattr(batch, "_rasterize_batch_device", refuse)
     got = TData.image["CT 01"].compute_roi_masks(["Blob"])["Blob"]
     np.testing.assert_array_equal(got, jmask)
     np.testing.assert_array_equal(masks_of(TData, "Blob"), jmask)

@@ -166,6 +166,7 @@ NESTING = {
                 1)],
     "masks": [("mia.rois.masks", None, 1),
               ("mia.rois.rasterize", "mia.rois.masks", 1),
+              ("mia.rois.pack", "mia.rois.masks", 1),
               ("mia.rois.cache", "mia.rois.masks", 4)],
     "goals": [("mia.dose.goals", None, 1),
               ("mia.dose.roi_dose", "mia.dose.goals", len(GOALS)),
