@@ -1843,6 +1843,33 @@ def phase_deformable(folder, names, dev):
     return names
 
 
+def syn_graph_gaps(fixed, moving, spacing, dev, n=10):
+    """A SyN level's ``n`` iterations as graph replays (the capturing
+    call, then a call that replays them all) against the same steps run
+    eagerly: the largest gap of each call's half-fields, 0 where the bits
+    agree (ops/registration/demons._SynLevel)."""
+    from medicalimageanalysis_torch.ops.registration import demons
+
+    f = torch.as_tensor(fixed, dtype=torch.float32, device=dev)
+    m = torch.as_tensor(moving, dtype=torch.float32, device=dev)
+    sp = torch.as_tensor(spacing, dtype=torch.float32, device=dev)
+    args = (tuple(f.shape), 1.0, 2.0, 0.001, True, "lncc", 3, f.device)
+    eager, graphed = demons._SynLevel(*args), demons._SynLevel(*args)
+    zero = torch.zeros((3,) + tuple(f.shape), device=f.device)
+    with torch.no_grad():
+        eager.load(f, m, sp)
+        graphed.load(f, m, sp)
+        want = (zero, zero)
+        for _ in range(n):
+            want = eager.step(*want)
+        gaps = []
+        for _ in range(2):
+            got = graphed.run(zero, zero, n)
+            gaps.append(max(float((g - w).abs().max())
+                            for g, w in zip(got, want)))
+    return gaps
+
+
 def phase_deformable_variants(names, dev):
     """SyN with LNCC forces and diffeomorphic demons, 10 iterations each,
     on the pair resampled to (Z/2, Y/4, X/4): the remaining callers of
@@ -1880,7 +1907,10 @@ def phase_deformable_variants(names, dev):
         rows[f"{method}_{forces}"] = dict(
             seconds=seconds, residual_ratio=residual_ratio(
                 out, arrays["deformed"], arrays["ref"], body))
-    emit("deformable_variants", shape=list(small), iterations=10, **rows)
+    gaps = syn_graph_gaps(arrays["ref"], arrays["deformed"], spacing, dev)
+    emit("deformable_variants", shape=list(small), iterations=10,
+         syn_graph_gaps=gaps, **rows)
+    assert gaps == [0.0, 0.0], f"SyN graph replays part from eager: {gaps}"
 
     def again():
         for method, forces in variants:

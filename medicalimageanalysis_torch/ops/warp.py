@@ -53,7 +53,8 @@ from torch import Tensor
 __all__ = ["LAUNCHES", "LAUNCH_SHAPES", "MAX_B", "affine_coords",
            "affine_path",
            "affine_warp", "affine_warp_fused", "batch_chunks",
-           "check_index_range", "affine_warp_oblique", "field_warp",
+           "captured_launches", "check_index_range", "count_replays",
+           "launch_counts", "affine_warp_oblique", "field_warp",
            "field_warp_disp", "field_warp_xla", "make_disp_sampler",
            "make_warp_sampler", "oblique_plan", "oblique_v2",
            "warp_affine_plain", "warp_affine_shear_plain",
@@ -72,6 +73,37 @@ LAUNCHES = {"warp_coords": 0, "warp_affine": 0, "warp_affine_axis": 0,
 LAUNCH_SHAPES = {}
 
 MAX_B = 4                 # volumes per launch (csrc/warp.cu kMaxB)
+
+
+def launch_counts():
+    """Copies of (LAUNCHES, LAUNCH_SHAPES): the mark that
+    :func:`captured_launches` counts from."""
+    return dict(LAUNCHES), dict(LAUNCH_SHAPES)
+
+
+def captured_launches(mark):
+    """The launches counted since ``mark`` (:func:`launch_counts`), taken
+    back out of the counters, since a CUDA graph's capture launches
+    nothing; :func:`count_replays` adds them once a replay."""
+    launches, shapes = mark
+    delta = ({k: n - launches.get(k, 0) for k, n in LAUNCHES.items()
+              if n != launches.get(k, 0)},
+             {k: n - shapes.get(k, 0) for k, n in LAUNCH_SHAPES.items()
+              if n != shapes.get(k, 0)})
+    count_replays(delta, -1)
+    return delta
+
+
+def count_replays(delta, n):
+    """Adds ``n`` replays of a captured graph's launches ``delta`` (from
+    :func:`captured_launches`) to the counters."""
+    launches, shapes = delta
+    for k, d in launches.items():
+        LAUNCHES[k] += n * d
+    for k, d in shapes.items():
+        LAUNCH_SHAPES[k] = LAUNCH_SHAPES.get(k, 0) + n * d
+        if not LAUNCH_SHAPES[k]:
+            del LAUNCH_SHAPES[k]
 
 
 # ---------------------------------------------------------------------------

@@ -26,7 +26,7 @@ Port of medicalimageanalysis_tpu/parallel/batch.py:
   solve of ``_demons_core`` (the ``disp`` mode on the card), the data
   rows stepped in lockstep (``_Demons``: every row's iteration i before
   any row's i + 1, ``LOCKSTEP`` counts the rounds); SyN one pair after
-  another (``_syn_core``), assembled by ``invert_dvf`` / ``compose_dvf``;
+  another (``_syn_core``), assembled by ``_syn_assemble``;
 - ``radiomics_batch`` (:489-585): the texture matrices of B (volume, ROI)
   pairs counted in one batched pass on the device (ops/radiomics), the
   formulas per pair on the host;
@@ -464,7 +464,7 @@ def demons_batch(fixed_batch, moving_batch, spacing_xyz=(1.0, 1.0, 1.0),
     a time, and with no mesh the pairs run one after another. The rounds
     give the bits of one pair after another. method='syn' runs its pairs
     one after another, each u2 o u1^{-1} assembled through
-    ``invert_dvf`` / ``compose_dvf``."""
+    ``_syn_assemble`` (``invert_dvf`` / ``compose_dvf``)."""
     from ..device import as_f32
     from ..ops.registration.demons import _Demons
 
@@ -551,8 +551,7 @@ def _syn_batch(fixed_batch, moving_batch, spacing_xyz, iterations, std,
     """:func:`demons_batch` of method 'syn': the pairs one after another,
     and with ``mesh`` the data rows one after another."""
     from ..device import as_f32
-    from ..ops.registration.demons import _syn_core
-    from ..ops.registration.dvf import compose_dvf, invert_dvf
+    from ..ops.registration.demons import _syn_assemble, _syn_core
 
     if mesh is not None:
         return _data_sharded_call(
@@ -571,8 +570,7 @@ def _syn_batch(fixed_batch, moving_batch, spacing_xyz, iterations, std,
         u1, u2 = _syn_core(f, m, sp, float(std), float(step),
                            float(intensity_threshold), int(iterations),
                            bool(smooth), forces, int(lncc_radius))
-        with torch.no_grad():
-            outs.append(compose_dvf(u2, invert_dvf(u1, sp), sp))
+        outs.append(_syn_assemble(u1, u2, sp))
     return torch.stack(outs).cpu().numpy()
 
 

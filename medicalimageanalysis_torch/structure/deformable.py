@@ -456,10 +456,16 @@ class Deformable(object):
                        pyramid=None, forces="ssd", lncc_radius=3):
         """Demons variants: 'demons', 'diffeomorphic', 'syn', else the
         fast symmetric-forces demons; ``pyramid`` e.g. (4, 2, 1) for a
-        coarse-to-fine schedule, ``forces`` 'ssd' or 'lncc'. Returns a
-        dict with the solver's per-level ``level_shapes``; the stages'
-        times are read from a profiler trace (the ``mia.demons`` span and
-        those inside it)."""
+        coarse-to-fine schedule, ``forces`` 'ssd' or 'lncc'.
+        ``iterations`` is one count for every level or one count a level
+        of the pyramid, its appended full-size level included: ANTs'
+        greedy SyN schedule is ``method="syn", forces="lncc",
+        pyramid=(8, 4, 2, 1), iterations=(100, 70, 50, 20)``; a sequence
+        of another length raises ValueError. Returns a dict with the
+        solver's per-level ``level_shapes``; the stages' times are read
+        from a profiler trace (the ``mia.demons`` span and those inside
+        it: ``mia.demons.level`` a level, and for SyN the assembly of its
+        halves, ``mia.syn.assemble``)."""
         backend = self._backend(modality_gradient, sigma)
         backend.resample()
         run = {"demons": backend.demons,

@@ -47,7 +47,10 @@ def _demons_method(method, doc):
     ``demons_registration`` without its download) with ``method`` on the
     (cropped, masked) pair, its field left on the device;
     ``info`` receives the per-level shapes. ``elastic_lambda`` is read by
-    'biomechanical' only, ``pyramid`` by every method."""
+    'biomechanical' only, ``pyramid`` by every method. ``iterations``, an
+    int for every level or a sequence of one count a level, passes
+    through to ``_demons_field`` as given; 'syn' assembles its halves
+    there, under ``mia.syn.assemble``."""
 
     def run(self, smooth=True, std=1, iterations=50,
             intensity_threshold=0.001, step=2.0, *, elastic_lambda=0.2,

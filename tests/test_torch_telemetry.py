@@ -73,7 +73,7 @@ def plan_case():
     return image
 
 
-# -- the five paths: set-up outside the profiled call, then the call --------
+# -- the paths: set-up outside the profiled call, then the call --------
 def demons_path():
     add_image("fixed")
     add_image("moving", shift=(0.5, 1.0, -1.0))
@@ -83,6 +83,22 @@ def demons_path():
     def call():
         info = d.compute_demons(method="fast", pyramid=(4, 2, 1),
                                 iterations=2)
+        return [np.asarray(d.dvf), d.create_image()["array"],
+                info["level_shapes"]]
+    return call
+
+
+def syn_path():
+    """Greedy SyN with CC forces over two levels, at one count a level."""
+    add_image("fixed")
+    add_image("moving", shift=(0.5, 1.0, -1.0))
+    d = tmia.Deformable(reference_name="fixed", moving_name="moving",
+                        device="cpu")
+
+    def call():
+        info = d.compute_demons(method="syn", forces="lncc",
+                                lncc_radius=2, pyramid=(2, 1),
+                                iterations=(2, 1), smooth=False)
         return [np.asarray(d.dvf), d.create_image()["array"],
                 info["level_shapes"]]
     return call
@@ -150,7 +166,7 @@ def view_array_path():
 PATHS = {"demons": demons_path, "masks": masks_path, "goals": goals_path,
          "gamma": gamma_path, "view": view_path,
          "view_array": view_array_path,
-         "demons_batch": demons_batch_path}
+         "demons_batch": demons_batch_path, "syn": syn_path}
 
 # (span, the span that holds it or None, how many) for each path
 NESTING = {
@@ -164,6 +180,17 @@ NESTING = {
                ("mia.deformable.create_image", None, 1),
                ("mia.deformable.image_out", "mia.deformable.create_image",
                 1)],
+    "syn": [("mia.demons", None, 1),
+            ("mia.deformable.setup", "mia.demons", 1),
+            ("mia.deformable.resample", "mia.demons", 1),
+            ("mia.demons.inputs", "mia.demons", 2),
+            ("mia.demons.level", "mia.demons", 2),
+            ("mia.syn.assemble", "mia.demons", 1),
+            ("mia.deformable.store", "mia.demons", 1),
+            ("mia.deformable.dvf_out", None, 1),
+            ("mia.deformable.create_image", None, 1),
+            ("mia.deformable.image_out", "mia.deformable.create_image",
+             1)],
     "masks": [("mia.rois.masks", None, 1),
               ("mia.rois.rasterize", "mia.rois.masks", 1),
               ("mia.rois.pack", "mia.rois.masks", 1),
