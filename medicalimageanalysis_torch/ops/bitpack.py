@@ -11,7 +11,9 @@ and must span < 4096; :func:`pack12` returns None when they don't
 (callers stage raw int16 instead, e.g. 16-bit MR).
 
 :func:`packbits_device` is ``np.packbits`` on the device, for 0/1 masks
-that come down to the host a bit a voxel (the ROI mask cache).
+that come down to the host a bit a voxel (the ROI mask cache), and
+:func:`unpackbits_device` its inverse, for the packed crops the cache
+keeps on the device.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["pack12", "packbits_device", "unpack12_device"]
+__all__ = ["pack12", "packbits_device", "unpack12_device",
+           "unpackbits_device"]
 
 
 def pack12(arr):
@@ -116,3 +119,11 @@ def packbits_device(crops):
     weights = (128 >> torch.arange(8, device=device)).to(torch.uint8)
     return torch.sum(bits.view(-1, 8) * weights, dim=1,
                      dtype=torch.uint8), counts
+
+
+def unpackbits_device(packed, n):
+    """``np.unpackbits(packed, count=n)`` on ``packed``'s device: the
+    first ``n`` bits of a uint8 tensor, the high bit of each byte first,
+    as uint8 0 / 1."""
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=packed.device)
+    return ((packed[:, None] >> shifts) & 1).view(-1)[:n]

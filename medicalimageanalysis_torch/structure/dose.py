@@ -4,8 +4,9 @@ Port of medicalimageanalysis_tpu/structure/dose.py: the ``Dose``
 constructor, the view operations (``ViewOpsMixin``, the off-axis reslice
 of the image Display), ``create_volume``, ``compute_dose_statistics``,
 ``compute_roi_dose_array`` (the dose grid resampled onto the image grid by
-the warp kernel's ``affine`` mode, background 0 Gy; its dose-grid coverage
-counted on the device from the uploaded mask),
+the warp kernel's ``affine`` mode, background 0 Gy, gathered inside the
+ROI's mask crop from the image's mask cache on the device; its dose-grid
+coverage counted on the device from that crop),
 ``compute_roi_dose_statistics`` (ops/dvh), ``compute_dvh_curve``
 (ops/hist, the CUDA histogram kernel on the card), the plan-QA methods
 ``evaluate_constraints`` (utils/dose), ``compute_gamma`` (the evaluated
@@ -43,30 +44,34 @@ COVERAGE = {"axis": 0, "general": 0}
 _OFF_DIAGONAL = ~np.eye(3, dtype=bool)
 
 
-def _covered_count(inside, A, dims_xyz):
-    """How many voxels of the (Z, Y, X) bool tensor ``inside`` have their
-    centre inside the dose grid: each coordinate of the image -> dose
-    pixel map ``A``, in float64, within [-0.5, dim - 0.5] of ``dims_xyz``.
-    The products and sums are the reference's row of ``hom @ A.T``,
-    ``((x*A0 + y*A1) + z*A2) + A3``; one count leaves the device."""
+def _covered_count(bbox, crop, A, dims_xyz):
+    """How many voxels of the ROI, the (Z, Y, X) bool tensor ``crop``
+    inside ``bbox`` (z0, z1, y0, y1, x0, x1) of the image grid, have
+    their centre inside the dose grid: each coordinate of the image ->
+    dose pixel map ``A``, in float64, within [-0.5, dim - 0.5] of
+    ``dims_xyz``. The products and sums are the reference's row of
+    ``hom @ A.T``, ``((x*A0 + y*A1) + z*A2) + A3``, at the whole grid's
+    indices; one count leaves the device."""
     A = np.asarray(A, np.float64)
     hi = np.asarray(dims_xyz, np.float64) - 0.5
+    starts = (bbox[4], bbox[2], bbox[0])                    # x, y, z
     if not A[:3, :3][_OFF_DIAGONAL].any():
         COVERAGE["axis"] += 1
         # each coordinate depends on its own axis' index alone, and the
         # zero terms add nothing: fl(fl(i*a) + b) per index, on the host
         keep = []
-        for k, n in enumerate(inside.shape[::-1]):          # x, y, z
-            p = np.arange(n, dtype=np.float64) * A[k, k] + A[k, 3]
+        for k, (lo, n) in enumerate(zip(starts, crop.shape[::-1])):
+            p = np.arange(lo, lo + n, dtype=np.float64) * A[k, k] + A[k, 3]
             keep.append(torch.as_tensor((p >= -0.5) & (p <= hi[k]),
-                                        device=inside.device))
+                                        device=crop.device))
         bx, by, bz = keep
-        return int((inside & bz[:, None, None] & by[None, :, None]
+        return int((crop & bz[:, None, None] & by[None, :, None]
                     & bx[None, None, :]).sum())
     COVERAGE["general"] += 1
-    zyx = torch.nonzero(inside).to(torch.float64)
+    zyx = (torch.nonzero(crop) + torch.tensor(
+        starts[::-1], device=crop.device)).to(torch.float64)
     x, y, z = zyx[:, 2], zyx[:, 1], zyx[:, 0]
-    ok = torch.ones(zyx.shape[0], dtype=torch.bool, device=inside.device)
+    ok = torch.ones(zyx.shape[0], dtype=torch.bool, device=crop.device)
     for row, top in zip(A[:3].tolist(), hi.tolist()):
         p = x * row[0] + y * row[1] + z * row[2] + row[3]
         ok &= (p >= -0.5) & (p <= top)
@@ -144,18 +149,25 @@ class Dose(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
 
     @trace("mia.dose.roi_dose")
     def _roi_dose(self, image_name, roi_name, device):
-        """(the dose resampled onto the image grid and masked by the ROI,
-        as a 1-d float32 tensor on ``device``; the image -> dose pixel
-        matrix; the ROI's mask as a bool tensor on ``device``)."""
+        """(the dose resampled onto the image grid and gathered inside the
+        ROI, as a 1-d float32 tensor on ``device``; the image -> dose
+        pixel matrix; the ROI's mask on ``device`` as (bbox, bool crop),
+        (None, None) for an empty ROI). The mask comes from the image's
+        mask cache on the device (``Image._roi_mask_device``), so no
+        whole mask is rebuilt or uploaded; boolean indexing of the C-order
+        crop yields the voxels in the order the whole volume's does."""
         image = Data.image[image_name]
-        mask = image.rois[roi_name].compute_mask()
+        bbox, crop = image._roi_mask_device(roi_name, image.rois[roi_name],
+                                            device)
         A = compose_pixel_matrix(self.matrix, self.spacing, self.origin,
                                  image.matrix, image.spacing, image.origin)
         resampled = affine_resample(np.asarray(self.array, np.float32), A,
                                     image.array.shape, background=0.0,
                                     device=device)
-        inside = torch.as_tensor(mask, device=device) > 0
-        return resampled[inside], A, inside
+        if bbox is None:
+            return resampled.new_empty(0), A, (bbox, crop)
+        z0, z1, y0, y1, x0, x1 = bbox
+        return resampled[z0:z1, y0:y1, x0:x1][crop], A, (bbox, crop)
 
     def compute_roi_dose_array(self, image_name, roi_name,
                                return_coverage=False):
@@ -167,10 +179,10 @@ class Dose(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
         voxels whose center falls inside the dose grid (voxels outside it
         enter the array as background 0 Gy), in float64 as the reference
         tests each voxel; the voxels are counted on the device from the
-        mask ``_roi_dose`` uploaded, and only the count comes back
+        mask crop ``_roi_dose`` fetched, and only the count comes back
         (``COVERAGE`` counts the evaluations by path)."""
-        values, A, inside = self._roi_dose(image_name, roi_name,
-                                           default_device())
+        values, A, (bbox, crop) = self._roi_dose(image_name, roi_name,
+                                                 default_device())
         with trace("mia.dose.values_out"):
             values = values.cpu().numpy()
         if not return_coverage:
@@ -179,7 +191,7 @@ class Dose(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
             if values.size == 0:
                 return values, 1.0
             covered = _covered_count(
-                inside, A, np.asarray(self.dimensions)[::-1])
+                bbox, crop, A, np.asarray(self.dimensions)[::-1])
             return values, covered / values.size
 
     def compute_roi_dose_statistics(self, image_name, roi_name,

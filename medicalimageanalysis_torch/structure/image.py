@@ -46,11 +46,14 @@ __all__ = ["Display", "Image", "MASKS"]
 # unlike id(), which CPython recycles after a Roi is freed.
 _ROI_CACHE_TOKENS = itertools.count(1)
 
-# compute_roi_masks' traffic, summed over calls: ROIs cropped and
+# The mask cache's traffic, summed over calls: ROIs cropped and
 # bit-packed on the device (``device_packs``), the packed bytes brought
-# down (``packed_bytes``), and whole (Z, Y, X) masks brought to the host
-# and scanned there (``full_reads``: the ROIs without contours)
-MASKS = {"device_packs": 0, "packed_bytes": 0, "full_reads": 0}
+# down (``packed_bytes``), whole (Z, Y, X) masks brought to the host and
+# scanned there (``full_reads``: the ROIs without contours), masks served
+# on the device from a crop the entry kept there (``device_gets``), and
+# host payloads uploaded once into their entry (``payload_uploads``)
+MASKS = {"device_packs": 0, "packed_bytes": 0, "full_reads": 0,
+         "device_gets": 0, "payload_uploads": 0}
 
 
 class Display(object):
@@ -352,7 +355,11 @@ class Image(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
     # for its replacement. The pooled rasterizer's masks are cropped and
     # packed on the device (``_roi_mask_cache_pack``), so only the packed
     # crops cross the bus; a mask already on the host is packed there
-    # (``_roi_mask_cache_put``), into the same entry.
+    # (``_roi_mask_cache_put``), into the same entry. An entry is
+    # (key, shape, bbox, host payload, packed, device payload): the
+    # pooled entries keep their packed crop on the device as well, a
+    # host entry gets one on its first device read
+    # (``_roi_mask_device``), and both go whenever the entry is replaced.
 
     @staticmethod
     def _roi_cache_key(roi):
@@ -362,15 +369,23 @@ class Image(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
             object.__setattr__(roi, "_mask_cache_token", tok)
         return (tok, getattr(roi, "_mask_rev", 0))
 
-    @trace("mia.rois.cache")
-    def _roi_mask_cache_get(self, name, roi, reconstruct=True):
+    def _roi_mask_entry(self, name, roi):
+        """The cache entry under ``name`` if it was made for ``roi`` as
+        it is now, else None."""
         cache = getattr(self, "_roi_mask_cache", None)
         ent = cache.get(name) if cache else None
         if ent is None or ent[0] != self._roi_cache_key(roi):
             return None
+        return ent
+
+    @trace("mia.rois.cache")
+    def _roi_mask_cache_get(self, name, roi, reconstruct=True):
+        ent = self._roi_mask_entry(name, roi)
+        if ent is None:
+            return None
         if not reconstruct:
             return True
-        _, shape, bbox, payload, packed = ent
+        _, shape, bbox, payload, packed, _ = ent
         out = np.zeros(shape, np.uint8)
         if bbox is not None:
             z0, z1, y0, y1, x0, x1 = bbox
@@ -392,7 +407,7 @@ class Image(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
         zs = np.flatnonzero(mask.any(axis=(1, 2)))
         if zs.size == 0:
             self._roi_mask_cache[name] = (key, mask.shape, None, None,
-                                          True)
+                                          True, None)
             return
         ys = np.flatnonzero(mask.any(axis=(0, 2)))
         xs = np.flatnonzero(mask.any(axis=(0, 1)))
@@ -406,7 +421,7 @@ class Image(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
         else:
             payload, packed = crop.copy(), False
         self._roi_mask_cache[name] = (key, mask.shape, bbox, payload,
-                                      packed)
+                                      packed, None)
 
     @trace("mia.rois.pack")
     def _roi_mask_cache_pack(self, names, masks):
@@ -415,7 +430,9 @@ class Image(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
         ``_roi_mask_cache_put`` makes of each row on the host. The bboxes
         come from each axis's projection on the device, every row's in
         one small copy; the crops are bit-packed there
-        (ops/bitpack.packbits_device) and come down in a second copy."""
+        (ops/bitpack.packbits_device) and come down in a second copy.
+        Each entry also keeps its packed crop on the device, for
+        ``_roi_mask_device``."""
         import torch
 
         from ..ops.bitpack import packbits_device
@@ -433,15 +450,16 @@ class Image(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
                 xs = np.flatnonzero(proj[b, Z + Y:])
                 boxes[b] = (int(zs[0]), int(zs[-1]) + 1, int(ys[0]),
                             int(ys[-1]) + 1, int(xs[0]), int(xs[-1]) + 1)
-        payloads = {}
+        payloads, kept = {}, {}
         if boxes:
-            packed, counts = packbits_device(
+            on_device, counts = packbits_device(
                 [masks[b, z0:z1, y0:y1, x0:x1]
                  for b, (z0, z1, y0, y1, x0, x1) in boxes.items()])
-            packed = packed.cpu().numpy()
+            packed = on_device.cpu().numpy()
             ends = np.cumsum(counts)
             for b, end, nb in zip(boxes, ends, counts):
                 payloads[b] = packed[end - nb:end].copy()
+                kept[b] = on_device[end - nb:end].clone()
             MASKS["device_packs"] += len(boxes)
             MASKS["packed_bytes"] += packed.nbytes
         if getattr(self, "_roi_mask_cache", None) is None:
@@ -449,7 +467,49 @@ class Image(MetadataMixin, GeometryQueriesMixin, ViewOpsMixin):
         for b, name in enumerate(names):
             self._roi_mask_cache[name] = (
                 self._roi_cache_key(self.rois[name]), shape, boxes.get(b),
-                payloads.get(b), True)
+                payloads.get(b), True, kept.get(b))
+
+    @trace("mia.rois.device_mask")
+    def _roi_mask_device(self, name, roi, device):
+        """``roi``'s mask on ``device`` as (bbox, crop): its cache
+        entry's bbox (z0, z1, y0, y1, x0, x1) and the bool crop inside
+        it, unpacked on the device from the packed crop the entry keeps
+        there; (None, None) for an empty ROI. An entry without a device
+        copy (a host entry, or one kept on another device) uploads its
+        host payload once and keeps it. On a cache miss the mask is made
+        by ``roi.compute_mask()``, which fills the cache; a ROI that is
+        not the one registered under ``name`` is not cached, and its
+        whole mask is uploaded with the whole grid as its bbox."""
+        import torch
+
+        from ..ops.bitpack import unpackbits_device
+
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        ent = self._roi_mask_entry(name, roi)
+        if ent is None:
+            mask = roi.compute_mask()
+            ent = self._roi_mask_entry(name, roi)
+            if ent is None:
+                Z, Y, X = mask.shape
+                return ((0, Z, 0, Y, 0, X),
+                        torch.as_tensor(mask, device=device) > 0)
+        bbox, payload, packed, kept = ent[2:]
+        if bbox is None:
+            return None, None
+        if kept is None or kept.device != device:
+            kept = torch.as_tensor(payload).to(device)
+            self._roi_mask_cache[name] = ent[:5] + (kept,)
+            MASKS["payload_uploads"] += 1
+        else:
+            MASKS["device_gets"] += 1
+        if not packed:
+            return bbox, kept > 0
+        z0, z1, y0, y1, x0, x1 = bbox
+        dims = (z1 - z0, y1 - y0, x1 - x0)
+        return bbox, unpackbits_device(kept, dims[0] * dims[1] * dims[2]) \
+            .view(dims).bool()
 
     @trace("mia.rois.masks")
     def compute_roi_masks(self, roi_names=None):

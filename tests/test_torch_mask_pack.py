@@ -21,7 +21,8 @@ from medicalimageanalysis_torch import interop
 from medicalimageanalysis_torch.data import Data as TData
 from medicalimageanalysis_torch.device import set_default_device
 from medicalimageanalysis_torch.ops import rasterize as traster
-from medicalimageanalysis_torch.ops.bitpack import packbits_device
+from medicalimageanalysis_torch.ops.bitpack import (packbits_device,
+                                                    unpackbits_device)
 from medicalimageanalysis_torch.parallel import batch as tbatch
 from medicalimageanalysis_torch.structure import image as timage
 from medicalimageanalysis_tpu.data import Data as JData
@@ -66,6 +67,9 @@ def test_packbits_device_equals_numpy(n, kind):
     want = np.packbits(bits)
     assert packed.dtype == torch.uint8 and counts == [want.size]
     np.testing.assert_array_equal(packed.numpy(), want)
+    # and back: np.unpackbits of the first n bits
+    np.testing.assert_array_equal(unpackbits_device(packed, n).numpy(),
+                                  bits)
 
 
 def test_packbits_device_of_strided_crops_one_after_another():

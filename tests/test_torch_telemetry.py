@@ -197,7 +197,7 @@ NESTING = {
               ("mia.rois.cache", "mia.rois.masks", 4)],
     "goals": [("mia.dose.goals", None, 1),
               ("mia.dose.roi_dose", "mia.dose.goals", len(GOALS)),
-              ("mia.rois.cache", "mia.dose.roi_dose", len(GOALS)),
+              ("mia.rois.device_mask", "mia.dose.roi_dose", len(GOALS)),
               ("mia.dose.values_out", "mia.dose.goals", len(GOALS)),
               ("mia.dose.coverage", "mia.dose.goals", len(GOALS)),
               ("mia.dose.goal_values", "mia.dose.goals", len(GOALS))],
